@@ -1,0 +1,110 @@
+"""Building blocks (port of ``aa_rmvsnet_tpu/models/blocks.py``), NCHW.
+
+Numerics follow the reference primitives: GroupNorm with ``max(1, C//8)``
+groups and eps 1e-5; convs with bias and symmetric explicit padding; the
+2x upsampling ``ConvTranspose2d(k=3, s=2, p=1, output_padding=1)``; the
+ConvLSTM gate conv over ``cat(x, h)`` producing channels (i, f, o, g).
+
+Submodule names are the reference torch names, so ``state_dict`` keys match
+the shipped checkpoints (``ConvGNReLU`` is a ``Sequential`` whose ``0`` is
+the conv and ``1`` the GroupNorm, and so on).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.deform import deform_conv
+from ..ops.gates import lstm_gates
+
+
+def group_norm(channels: int) -> nn.GroupNorm:
+    return nn.GroupNorm(max(1, channels // 8), channels, eps=1e-5)
+
+
+class ConvGNReLU(nn.Sequential):
+    """conv + GroupNorm(C/8) + ReLU."""
+
+    def __init__(self, in_c: int, out_c: int, kernel: int = 3, stride: int = 1,
+                 dilation: int = 1):
+        pad = ((kernel - 1) // 2) * dilation
+        super().__init__(
+            nn.Conv2d(in_c, out_c, kernel, stride=stride, padding=pad,
+                      dilation=dilation),
+            group_norm(out_c),
+            nn.ReLU(),
+        )
+
+
+class ResnetBlockGN(nn.Module):
+    """conv-gn-relu -> conv-gn, plus the input, then relu."""
+
+    def __init__(self, channels: int, kernel: int = 3):
+        super().__init__()
+        pad = (kernel - 1) // 2
+        self.stem = nn.Sequential(
+            ConvGNReLU(channels, channels, kernel),
+            nn.Conv2d(channels, channels, kernel, padding=pad),
+            group_norm(channels),
+        )
+
+    def forward(self, x):
+        return torch.relu(self.stem(x) + x)
+
+
+class DeconvGNReLU(nn.Module):
+    """2x-upsampling transposed conv + GroupNorm + ReLU."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__()
+        self.conv = nn.ConvTranspose2d(in_c, out_c, 3, stride=2, padding=1,
+                                       output_padding=1)
+        self.gn = group_norm(out_c)
+
+    def forward(self, x):
+        return torch.relu(self.gn(self.conv(x)))
+
+
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM cell: one 3x3 conv over ``cat(x, h)`` producing
+    the four gates, then the gate math in :func:`..ops.gates.lstm_gates`
+    (the CUDA kernel on the card)."""
+
+    def __init__(self, input_dim: int, hidden: int):
+        super().__init__()
+        self.conv = nn.Conv2d(input_dim + hidden, 4 * hidden, 3, padding=1)
+
+    def forward(self, x, state):
+        h, c = state
+        return lstm_gates(self.conv(torch.cat([x, h], dim=1)), c)
+
+
+class DeformConv(nn.Module):
+    """Modulated deformable conv v2 (3x3): offset (18 ch) and sigmoid
+    modulation (9 ch) branches, zero-initialised as in the reference.
+
+    ``conv`` holds the tap weights (the reference applies it as a stride-3
+    conv over re-tiled taps); :func:`..ops.deform.deform_conv` contracts
+    them tap by tap.
+    """
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_c, out_c, 3, stride=3)
+        self.p_conv = nn.Conv2d(in_c, 18, 3, padding=1)
+        self.m_conv = nn.Conv2d(in_c, 9, 3, padding=1)
+        nn.init.zeros_(self.p_conv.weight)
+        nn.init.zeros_(self.m_conv.weight)
+
+    def forward(self, x):
+        offset = self.p_conv(x)
+        modulation = torch.sigmoid(self.m_conv(x))
+        return deform_conv(x, offset, modulation, self.conv.weight, self.conv.bias)
+
+
+class DeformConvGNReLU(nn.Sequential):
+    """DeformConv + GroupNorm(C/8) + ReLU."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__(DeformConv(in_c, out_c), group_norm(out_c), nn.ReLU())

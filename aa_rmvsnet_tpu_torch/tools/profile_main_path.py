@@ -1,0 +1,157 @@
+"""Where the time of one depth map goes on the card.
+
+    python -m aa_rmvsnet_tpu_torch.tools.profile_main_path [--num-depth 64] [--out DIR]
+
+Runs the port's ``forward`` at the ``dtu_eval`` geometry (864x1152, V=5,
+depth_block 8), fp32 without TF32, on the synthetic plane scene with seeded
+weights (``utils/synthetic.py``), on one CUDA device:
+
+1. a warm-up forward over one depth block;
+2. a timed forward: host clock around ``forward`` and
+   ``torch.cuda.synchronize()``;
+3. the same forward under ``torch.profiler``: the device-timeline span of
+   each layer (the profiler ranges in ``models/network.py``), the
+   device's busy share of the profiled window (kernel time over wall
+   time), and the kernels by device time.
+
+The per-step cost does not depend on D, so a cut D (default 64) scales to
+the full sweep: ``map_s_at_512`` = featnet + setup + 512 x the per-step
+time.  Prints a table and, last, one JSON line; ``--out DIR`` also writes
+the Chrome trace there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import json
+import os
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+from ..models.network import SweepConfig, forward
+from ..ops import gates
+from ..utils.device import disable_tf32, resolve_device
+from ..utils.synthetic import plane_scene, seeded_model
+
+LAYERS = ("featnet", "sweep.setup", "sweep.cost_block", "sweep.regularize", "sweep.wta")
+KERNEL_GROUPS = (  # first match wins; matched on the lower-cased kernel name
+    ("lstm_gates (CUDA kernel of the port)", ("lstm_gates",)),
+    ("convolution", ("conv", "gemm", "xmma", "winograd", "cudnn", "implicit", "fft")),
+    ("gather", ("gather",)),
+    ("group norm", ("norm", "moments", "welford")),
+    ("reduction", ("reduce",)),
+    ("elementwise / copy / other", ("",)),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    return next(label for label, keys in KERNEL_GROUPS if any(k in low for k in keys))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--num-depth", type=int, default=64,
+                        help="depth hypotheses to sweep (a multiple of 8)")
+    parser.add_argument("--out", help="directory for the Chrome trace")
+    args = parser.parse_args(argv)
+    if args.num_depth % 8:
+        parser.error("--num-depth must be a multiple of the depth block, 8")
+
+    device = resolve_device("cuda")
+    disable_tf32()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    H, W, V, D = 864, 1152, 5, args.num_depth
+    (sample,) = plane_scene(H, W, V, D, maps=1, seed=3, focal=2000.0, baseline=10.0,
+                            plane_depth=600.0, depth_min=425.0, depth_interval=1.0)
+    model = seeded_model(0).to(device)
+    inputs = [torch.from_numpy(sample[k])[None].to(device)
+              for k in ("imgs", "proj_matrices", "depth_values")]
+    config = SweepConfig(depth_block=8, collect_volume=False)
+
+    with torch.inference_mode():
+        forward(model, inputs[0], inputs[1], inputs[2][:, :8], config)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(model, *inputs, config)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            forward(model, *inputs, config)
+            torch.cuda.synchronize()
+            prof_wall_s = time.perf_counter() - t0
+
+    # On the device timeline a profiler range appears as a span over its
+    # kernels (and any idle gaps between them); everything else there is a
+    # kernel or a copy, and belongs to the range whose span holds its start.
+    device_events = [ev for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in device_events if ev.name in LAYERS)
+    starts = [start for start, _, _ in spans]
+    layers_ms = {name: 0.0 for name in LAYERS}
+    for start, end, name in spans:
+        layers_ms[name] += (end - start) / 1e3
+    kernels_ms: dict[str, float] = defaultdict(float)
+    groups_ms: dict[str, float] = defaultdict(float)
+    cross_ms: dict[str, float] = defaultdict(float)
+    for ev in device_events:
+        if ev.name in LAYERS:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        inside = i >= 0 and ev.time_range.start < spans[i][1]
+        layer = spans[i][2] if inside else "(outside the ranges)"
+        kernels_ms[ev.name] += ms
+        groups_ms[_group(ev.name)] += ms
+        cross_ms[f"{layer} / {_group(ev.name)}"] += ms
+    busy_ms = sum(kernels_ms.values())
+    step_ms = sum(layers_ms[k] for k in LAYERS[2:]) / D
+    map_s_at_512 = (layers_ms["featnet"] + layers_ms["sweep.setup"] + 512 * step_ms) / 1e3
+
+    print(f"{smi}; forward at {H}x{W}, V={V}, D={D}, depth_block 8, fp32 (TF32 off)")
+    print(f"wall {wall_s:.3f} s unprofiled, {prof_wall_s:.3f} s profiled; device busy "
+          f"{busy_ms / 1e3:.3f} s = {busy_ms / 1e3 / prof_wall_s:.1%} of the profiled window")
+    print("device-timeline span by layer (profiler ranges):")
+    for name in LAYERS:
+        print(f"  {name:18s} {layers_ms[name]:10.2f} ms  "
+              f"{layers_ms[name] / 1e3 / prof_wall_s:6.1%} of the window")
+    print(f"  per depth step     {step_ms:10.3f} ms -> {map_s_at_512:.2f} s per map at D=512")
+    print("device time by kernel group (share of kernel time):")
+    for name, ms in sorted(groups_ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:38s} {ms:10.2f} ms  {ms / busy_ms:6.1%}")
+    print("kernel time by layer and group:")
+    for name, ms in sorted(cross_ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:56s} {ms:10.2f} ms  {ms / busy_ms:6.1%}")
+    top = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:15]
+    print("top kernels:")
+    for name, ms in top:
+        print(f"  {ms:10.2f} ms  {ms / busy_ms:6.1%}  {name[:110]}")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, f"trace_d{D}.json"))
+    print(json.dumps({"profile": {
+        "device": smi, "height": H, "width": W, "views": V, "num_depth": D,
+        "wall_s": wall_s, "profiled_wall_s": prof_wall_s,
+        "busy_share": busy_ms / 1e3 / prof_wall_s, "layers_ms": layers_ms,
+        "step_ms": step_ms, "map_s_at_512": map_s_at_512,
+        "groups_ms": dict(groups_ms), "layer_groups_ms": dict(cross_ms),
+        "gate_launches": gates.launches,
+        "top_kernels_ms": dict(top),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

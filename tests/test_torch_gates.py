@@ -1,0 +1,110 @@
+"""ConvLSTM gate math of the PyTorch port against the JAX package.
+
+The port's plain version (what ``lstm_gates`` runs on CPU tensors) is held
+to the Pallas kernel (interpret mode on the CPU, as ``tests/test_pallas.py``
+runs it) and to the XLA chain, at the bars of ``tests/test_pallas.py``:
+fp32 atol 1e-6, bf16 atol 2e-2 (one bf16 ulp of the O(1) outputs).  The
+CUDA kernel itself runs only on the card: ``test_kernel_matches_plain``
+carries the ``cuda`` marker and skips here.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aa_rmvsnet_tpu.ops.pallas.gates import fused_lstm_gates
+from aa_rmvsnet_tpu_torch.ops import gates
+from aa_rmvsnet_tpu_torch.utils.device import resolve_device
+
+torch.set_num_threads(2)
+
+_DTYPES = {"float32": (jnp.float32, torch.float32, 1e-6),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _xla_gates(z, c):
+    i, f, o, g = jnp.split(z, 4, axis=-1)
+    c_next = jax.nn.sigmoid(f) * c + jax.nn.sigmoid(i) * jnp.tanh(g)
+    return jax.nn.sigmoid(o) * jnp.tanh(c_next), c_next
+
+
+def _inputs(hidden, seed=0):
+    """NHWC numpy inputs at the odd shape (2, 9, 13, hidden)."""
+    rng = np.random.RandomState(seed)
+    z = rng.randn(2, 9, 13, 4 * hidden).astype(np.float32)
+    c = rng.randn(2, 9, 13, hidden).astype(np.float32)
+    return z, c
+
+
+def _nchw(a, dtype=torch.float32):
+    return torch.from_numpy(a).permute(0, 3, 1, 2).contiguous().to(dtype)
+
+
+def _nhwc(t):
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize("hidden", [16, 8])
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_plain_matches_pallas_kernel(hidden, dtype):
+    jdt, tdt, atol = _DTYPES[dtype]
+    z, c = _inputs(hidden)
+    h_j, c_j = fused_lstm_gates(jnp.asarray(z, jdt), jnp.asarray(c, jdt))
+    h_t, c_t = gates.lstm_gates(_nchw(z, tdt), _nchw(c, tdt))
+    assert h_t.dtype == tdt and c_t.shape == (2, hidden, 9, 13)
+    np.testing.assert_allclose(_nhwc(h_t), np.asarray(h_j, np.float32), atol=atol)
+    np.testing.assert_allclose(_nhwc(c_t), np.asarray(c_j, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("hidden", [16, 8])
+def test_plain_matches_xla_chain(hidden):
+    z, c = _inputs(hidden, seed=1)
+    h_j, c_j = _xla_gates(jnp.asarray(z), jnp.asarray(c))
+    h_t, c_t = gates.lstm_gates_reference(_nchw(z), _nchw(c))
+    np.testing.assert_allclose(_nhwc(h_t), np.asarray(h_j), atol=1e-6)
+    np.testing.assert_allclose(_nhwc(c_t), np.asarray(c_j), atol=1e-6)
+
+
+def test_cpu_wrapper_does_not_count_launches():
+    z, c = _inputs(8)
+    before = gates.launches
+    gates.lstm_gates(_nchw(z), _nchw(c))
+    assert gates.launches == before
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    """Off the CPU the wrapper launches the kernel or raises: tensors on a
+    device that is neither CPU nor CUDA, or split across devices, raise."""
+    z = torch.empty(1, 32, 4, 4, device="meta")
+    c = torch.empty(1, 8, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        gates.lstm_gates(z, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        gates.lstm_gates(z, torch.zeros(1, 8, 4, 4))
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [16, 8])
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_kernel_matches_plain(hidden, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _, tdt, atol = _DTYPES[dtype]
+    z, c = _inputs(hidden, seed=2)
+    zc, cc = _nchw(z, tdt).cuda(), _nchw(c, tdt).cuda()
+    before = gates.launches
+    h_k, c_k = gates.lstm_gates(zc, cc)
+    torch.cuda.synchronize()
+    assert gates.launches == before + 1
+    h_p, c_p = gates.lstm_gates_reference(zc, cc)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
