@@ -5,5 +5,5 @@ imports nothing of it and nothing of JAX.  Layers mirror the reference:
 ``core`` (file formats, cameras, samplers, transforms), ``ops`` (geometry,
 sampling, and the hand-written CUDA kernels under ``csrc``), ``models``
 (the 187,203-parameter AA-RMVSNet core and its depth sweep), ``data``,
-``pipeline`` (inference driver) and ``cli``.
+``pipeline`` (inference and training drivers, checkpoints) and ``cli``.
 """

@@ -1,2 +1,2 @@
-"""Evaluation dataset and host-side prefetching (copies of
-``aa_rmvsnet_tpu/data``)."""
+"""Evaluation and DTU training datasets, host-side prefetching and batching
+(copies of ``aa_rmvsnet_tpu/data``)."""

@@ -1,5 +1,6 @@
-"""The AA-RMVSNet core network, its blocks, the depth sweep and the weight
-bridge (port of ``aa_rmvsnet_tpu/models``, exact fp32 inference path)."""
+"""The AA-RMVSNet core network, its blocks, the depth sweep, the training
+loss and the weight bridge (port of ``aa_rmvsnet_tpu/models``, exact fp32
+path)."""
 
 from .network import (
     AARMVSNetCore,

@@ -1,6 +1,7 @@
 """The core MVS network and its depth sweep, exact fp32 path (port of
 ``aa_rmvsnet_tpu/models/network.py`` with ``SweepConfig()`` defaults:
-unpacked 2x2 patch-table warp, canonical omega, online WTA + logsumexp).
+unpacked 2x2 patch-table warp, canonical omega, online WTA + logsumexp,
+and ``remat`` for training).
 
 ``forward`` runs FeatNet on every view, then sweeps the depth hypotheses
 block by block: per block it warps each source view through its patch
@@ -9,13 +10,19 @@ by omega and averages over views into the variance cost; each hypothesis
 then takes one step of the ConvLSTM U-Net, and an online winner-take-all +
 logsumexp carry yields depth and confidence.  The JAX ``lax.scan`` over
 blocks and slices is a Python loop here, and the view axis is a loop so
-that one view's gathered patch rows are live at a time.
+that one view's gathered patch rows are live at a time.  With
+``SweepConfig.remat`` each depth block runs under one
+``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint(block_step)``),
+so backpropagation through time keeps only each block's input states
+between the forward and the backward, and one block's activations at a
+time while it runs.
 
 Public functions keep the JAX package's NHWC shapes; the modules run NCHW.
 Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block``,
 ``sweep.regularize``, ``sweep.wta``) name the layers for
-``tools/profile_main_path.py``; outside a profiler they cost a few
-microseconds each, a few hundred times per map.
+``tools/profile_main_path.py`` and ``tools/profile_train_step.py``;
+outside a profiler they cost a few microseconds each, a few hundred times
+per map.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import dataclasses
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from .aggregation import InterViewAA
 from .feature import FeatNet
@@ -47,10 +55,12 @@ class AARMVSNetCore(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class SweepConfig:
     """depth_block: hypotheses per block (the largest divisor of D that is
-    at most this); collect_volume: also return the ``(B, D, H, W)``
-    regularized cost volume."""
+    at most this); remat: recompute each block in the backward pass
+    (training); collect_volume: also return the ``(B, D, H, W)``
+    regularized cost volume (the training loss needs it)."""
 
     depth_block: int = 16
+    remat: bool = False
     collect_volume: bool = True
 
 
@@ -150,9 +160,11 @@ def sweep(
         depth_img = torch.zeros(B, H, W, dtype=torch.float32, device=dev)
         max_cost = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
         lse = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
-    volume = []
-    for start in range(0, D, block):
-        dblock = depth_values[:, start : start + block]  # (B, Db)
+
+    def block_step(states, dblock):
+        """Cost block + one ConvLSTM step per hypothesis of ``dblock``.
+        The model, reference features, tables and homography terms come in
+        by closure; under checkpoint their gradients still flow."""
         with record_function("sweep.cost_block"):
             cost_block = _build_cost_block(
                 model, ref_feat, src_tables, rot_grids, transes, dblock
@@ -162,12 +174,21 @@ def sweep(
             for cost_slice in cost_block:
                 cost, states = model.cost_regularization(cost_slice, states)
                 costs.append(cost[:, 0])
-            costs = torch.stack(costs).float()  # (Db, B, H, W)
+        return states, torch.stack(costs).float()  # (Db, B, H, W)
+
+    volume = []
+    for start in range(0, D, block):
+        dblock = depth_values[:, start : start + block]  # (B, Db)
+        if config.remat:
+            states, costs = checkpoint(block_step, states, dblock,
+                                       use_reentrant=False)
+        else:
+            states, costs = block_step(states, dblock)
 
         # Online WTA: argmax keeps the first maximum in the block and the
         # strict > the earlier block on ties, as the reference's running
-        # argmax does.
-        with record_function("sweep.wta"):
+        # argmax does.  No gradient flows through depth or confidence.
+        with record_function("sweep.wta"), torch.no_grad():
             block_best = torch.argmax(costs, dim=0)
             block_max = costs.max(dim=0).values
             block_depth = torch.gather(
@@ -194,8 +215,11 @@ def forward(
 ) -> dict:
     """Full forward: features + sweep.  ``imgs``: ``(B, V, H, W, 3)``.
 
-    On CUDA the ConvLSTM gate kernel has no backward yet: call under
-    ``torch.inference_mode()`` or ``torch.no_grad()``.
+    Differentiable in the model's parameters through ``cost_volume``
+    (``depth`` and ``photometric_confidence`` carry no gradient).  On CUDA
+    every ConvLSTM cell launches the gate kernel once per hypothesis:
+    5 x D forward launches, and under ``remat`` 5 x D more when the
+    backward recomputes each block, plus 5 x D backward-kernel launches.
     """
     return sweep(model, extract_features(model, imgs), proj_matrices,
                  depth_values, config)

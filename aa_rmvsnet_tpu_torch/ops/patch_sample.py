@@ -67,8 +67,16 @@ def patch_bilinear_sample(
     idx = (yb * width + xb).long()
     rows = torch.gather(table, 1, idx[..., None].expand(B, N, C4))
 
+    # The JAX tent max(0, 1 - |d|), with JAX's gradients at its kinks:
+    # |d| takes slope +1 at d = 0 (the where keeps d >= 0 on the + side;
+    # torch.abs would give 0), and maximum splits the gradient half and
+    # half at a tie (clamp would pass all of it).  Offsets of a freshly
+    # initialised deformable conv are exactly zero, so every sample lies
+    # on a kink there.
+    zero = torch.zeros((), device=x.device)
+
     def tent(d):
-        return torch.clamp(1.0 - torch.abs(d), min=0.0)
+        return torch.maximum(zero, 1.0 - torch.where(d >= 0, d, -d))
 
     tx0, tx1 = tent(x - xb), tent(x - (xb + 1.0))
     ty0, ty1 = tent(y - yb), tent(y - (yb + 1.0))

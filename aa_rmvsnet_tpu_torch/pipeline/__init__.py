@@ -1,1 +1,1 @@
-"""Inference driver."""
+"""Inference and training drivers, and checkpoints."""

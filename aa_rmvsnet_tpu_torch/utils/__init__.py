@@ -1,1 +1,2 @@
-"""Run configuration presets and device handling."""
+"""Run configuration presets, device handling, metrics, training logs and
+seeded synthetic inputs."""

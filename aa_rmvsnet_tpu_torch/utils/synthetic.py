@@ -3,7 +3,9 @@
 :func:`plane_scene` builds, in memory with numpy and scipy, the sample
 dicts that ``EvalDataset.__getitem__`` returns for a textured
 fronto-parallel plane seen by cameras translating along x (the geometry of
-``tests/scenefix.py:make_plane_scene``, without cv2 or files).
+``tests/scenefix.py:make_plane_scene``, without cv2 or files), and
+:func:`plane_train_sample` the ``DTUTrainDataset`` sample of that plane,
+its ground truth the plane's depth.
 :func:`seeded_model` gives the full-width core random weights from a seed.
 """
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.samplers import linear_depth_train
 from ..core.transforms import standardize_image
 from ..models.network import AARMVSNetCore
 
@@ -90,3 +93,25 @@ def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,
             "ref_view": ref,
         })
     return samples
+
+
+def plane_train_sample(height: int, width: int, views: int, num_depth: int,
+                       seed: int, focal: float, baseline: float,
+                       plane_depth: float, depth_min: float,
+                       depth_interval: float) -> dict:
+    """The ``DTUTrainDataset.__getitem__`` sample dict (imgs, proj_matrices,
+    depth_values, depth, mask, depth_interval, name) of the textured plane
+    of :func:`plane_scene`, seen from its first camera: the ground-truth
+    depth is ``plane_depth`` at every pixel and the mask is all ones."""
+    (scene,) = plane_scene(height, width, views, num_depth, maps=1, seed=seed,
+                           focal=focal, baseline=baseline, plane_depth=plane_depth,
+                           depth_min=depth_min, depth_interval=depth_interval)
+    return {
+        "imgs": scene["imgs"],
+        "proj_matrices": scene["proj_matrices"],
+        "depth_values": linear_depth_train(depth_min, depth_interval, num_depth),
+        "depth": np.full((height, width), plane_depth, np.float32),
+        "mask": np.ones((height, width), np.float32),
+        "depth_interval": np.float32(depth_interval),
+        "name": "scan1/0/0",
+    }
