@@ -18,15 +18,38 @@
 // Bound: device-memory bytes.  In fp32 each element of c costs 28 B in the
 // forward (five 4-byte reads: i, f, o, g, c; two writes: h', c') and 48 B
 // in the backward (seven reads: i, f, o, g, c, dh, dc'; five writes: di,
-// df, do, dg, dc); the math is a few dozen flops, far below the card's
-// flop/byte balance.  The design therefore moves each byte once: z and dz
-// are read and written in place, by channel offset, in the NCHW layout the
-// gate conv writes and its backward reads (no split copies, no concat, and
-// none of the TPU kernel's (rows, 128) padding), and all outputs of a
-// direction come out of one pass.  Neighbouring threads touch neighbouring
-// pixels, so every load and store is coalesced.  The math runs in fp32
-// whatever the storage type, with the accurate expf/tanhf (no fast-math
-// intrinsics: the fp32 bars are 1e-6 forward, 1e-5 backward).
+// df, do, dg, dc); in bf16 half of that.  The math is a few dozen flops,
+// far below the card's flop/byte balance.  The design therefore moves each
+// byte once: z and dz are read and written in place, by channel offset, in
+// the NCHW layout the gate conv writes and its backward reads (no split
+// copies, no concat, and none of the TPU kernel's (rows, 128) padding), and
+// all outputs of a direction come out of one pass.  Neighbouring threads
+// touch neighbouring pixels, so every load and store is coalesced.  The
+// math runs in fp32 whatever the storage type, with the accurate
+// expf/tanhf (no fast-math intrinsics: the fp32 bars are 1e-6 forward,
+// 1e-5 backward).
+//
+// The backward is laid out for Hopper's memory system; the forward is the
+// simpler grid-stride loop, which already beats its library counterpart:
+//
+// - No division, 32-bit offsets.  A 2D grid: blockIdx.y is the batch
+//   (looping past 65,535) and blockIdx.x a tile of that batch's plane, so
+//   no thread divides.  Each batch has one 64-bit base; offsets inside a
+//   plane are 32-bit (the wrapper raises for a plane of 2^31 elements or
+//   more).  A grid-stride loop over the flat index pays an emulated 64-bit
+//   division per element to find the batch.
+// - 16-byte accesses.  A thread takes kVec consecutive elements of each of
+//   the twelve streams (4 fp32 or 8 bf16: one float4 / uint4), issues all
+//   seven loads of its kUnroll vectors before any math, and writes five
+//   16-byte stores.  A plane that is not a multiple of kVec (gates 1-3 of z
+//   then start off the 16-byte grid) or a pointer that is not 16-byte
+//   aligned (a contiguous view at a storage offset) launches the same
+//   kernel with kVec = 1: scalar accesses over the whole tensor.
+// - Evict-first loads.  z, c, dh and dc' are read once, so they are loaded
+//   with ld.global.cs (__ldcs) and do not displace cached lines.  Stores
+//   keep the default policy: the gate conv's backward reads dz next and the
+//   previous step's backward reads dc, and at the training geometry a
+//   whole depth step fits in the 50 MB L2.
 //
 // Layout: z and dz are (B, 4*hidden, H, W) and c, h', c', dh, dc', dc are
 // (B, hidden, H, W), all contiguous.  Gate k of batch b, channel ch, pixel
@@ -75,36 +98,254 @@ __global__ void lstm_gates_kernel(const T* __restrict__ z,
   }
 }
 
-template <typename T>
-__global__ void lstm_gates_bwd_kernel(const T* __restrict__ z,
-                                      const T* __restrict__ c,
-                                      const T* __restrict__ dh,
-                                      const T* __restrict__ dc_next,
-                                      T* __restrict__ dz,
-                                      T* __restrict__ dc_out,
-                                      int64_t plane,  // hidden * H * W
-                                      int64_t total)  // batch * plane
+// kVec consecutive elements at p as fp32, read once: a 16-byte load for a
+// whole vector, else kVec scalar loads; with kStream, evict-first.
+template <int kVec, bool kStream>
+__device__ __forceinline__ void load_once(const float* p, float* v) {
+  if constexpr (kVec == 4) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    const float4 x = kStream ? __ldcs(q) : *q;
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) v[j] = kStream ? __ldcs(p + j) : p[j];
+  }
+}
+
+template <int kVec, bool kStream>
+__device__ __forceinline__ void load_once(const __nv_bfloat16* p, float* v) {
+  if constexpr (kVec == 8) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    const uint4 x = kStream ? __ldcs(q) : *q;
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+    // A bf16 is the top half of an fp32; the lower address is the low half.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      v[j] = __bfloat162float(__ushort_as_bfloat16(kStream ? __ldcs(q + j) : q[j]));
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (kVec == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) p[j] = v[j];
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (kVec == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                   pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) p[j] = __float2bfloat16(v[j]);
+  }
+}
+
+template <typename T, int kVec, int kUnroll, bool kStream, int kBlock, int kMinBlocks>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
+                      const T* __restrict__ dh, const T* __restrict__ dc_next,
+                      T* __restrict__ dz, T* __restrict__ dc_out,
+                      int64_t batch,
+                      unsigned plane)  // hidden * H * W < 2^31, a multiple of kVec
 {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int64_t b = idx / plane;
-    const int64_t offset = b * 4 * plane + (idx - b * plane);
-    const T* zb = z + offset;
-    const float i = sigmoid_f32(load_f32(zb));
-    const float f = sigmoid_f32(load_f32(zb + plane));
-    const float o = sigmoid_f32(load_f32(zb + 2 * plane));
-    const float g = tanhf(load_f32(zb + 3 * plane));
-    const float cv = load_f32(c + idx);
-    const float tc = tanhf(f * cv + i * g);
-    const float dhv = load_f32(dh + idx);
-    const float dct = load_f32(dc_next + idx) + dhv * o * (1.0f - tc * tc);
-    T* dzb = dz + offset;
-    store_f32(dzb, dct * g * i * (1.0f - i));
-    store_f32(dzb + plane, dct * cv * f * (1.0f - f));
-    store_f32(dzb + 2 * plane, dhv * tc * o * (1.0f - o));
-    store_f32(dzb + 3 * plane, dct * i * (1.0f - g * g));
-    store_f32(dc_out + idx, dct * f);
+  constexpr unsigned kTile = kBlock * kVec * kUnroll;
+  for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
+    const int64_t cell = b * plane;
+    const T* zi = z + 4 * cell;
+    const T* zf = zi + plane;
+    const T* zo = zf + plane;
+    const T* zg = zo + plane;
+    T* dzi = dz + 4 * cell;
+    T* dzf = dzi + plane;
+    T* dzo = dzf + plane;
+    T* dzg = dzo + plane;
+
+    unsigned p[kUnroll];
+    float vi[kUnroll][kVec], vf[kUnroll][kVec], vo[kUnroll][kVec],
+        vg[kUnroll][kVec], vc[kUnroll][kVec], vdh[kUnroll][kVec],
+        vdc[kUnroll][kVec];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      p[u] = blockIdx.x * kTile + (u * kBlock + threadIdx.x) * kVec;
+      if (p[u] < plane) {
+        load_once<kVec, kStream>(zi + p[u], vi[u]);
+        load_once<kVec, kStream>(zf + p[u], vf[u]);
+        load_once<kVec, kStream>(zo + p[u], vo[u]);
+        load_once<kVec, kStream>(zg + p[u], vg[u]);
+        load_once<kVec, kStream>(c + cell + p[u], vc[u]);
+        load_once<kVec, kStream>(dh + cell + p[u], vdh[u]);
+        load_once<kVec, kStream>(dc_next + cell + p[u], vdc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (p[u] >= plane) continue;
+      // Outputs overwrite the inputs they no longer need:
+      // di -> vi, df -> vf, do -> vo, dg -> vg, dc -> vc.
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float i = sigmoid_f32(vi[u][j]);
+        const float f = sigmoid_f32(vf[u][j]);
+        const float o = sigmoid_f32(vo[u][j]);
+        const float g = tanhf(vg[u][j]);
+        const float cv = vc[u][j];
+        const float tc = tanhf(f * cv + i * g);
+        const float dhv = vdh[u][j];
+        const float dct = vdc[u][j] + dhv * o * (1.0f - tc * tc);
+        vi[u][j] = dct * g * i * (1.0f - i);
+        vf[u][j] = dct * cv * f * (1.0f - f);
+        vo[u][j] = dhv * tc * o * (1.0f - o);
+        vg[u][j] = dct * i * (1.0f - g * g);
+        vc[u][j] = dct * f;
+      }
+      store_vec<kVec>(dzi + p[u], vi[u]);
+      store_vec<kVec>(dzf + p[u], vf[u]);
+      store_vec<kVec>(dzo + p[u], vo[u]);
+      store_vec<kVec>(dzg + p[u], vg[u]);
+      store_vec<kVec>(dc_out + cell + p[u], vc[u]);
+    }
+  }
+}
+
+// Step 4 of the design, a TMA pipeline: a persistent grid of two blocks an
+// SM walks tiles of kTmaThreads * kVec elements of a plane.  For each tile
+// thread 0 has the Tensor Memory Accelerator copy the seven input streams
+// (4 KB each) into one stage of a kTmaStages-deep ring in shared memory,
+// completing on that stage's mbarrier; the block computes from shared
+// memory, one 16-byte vector a thread, and stores the five outputs from
+// registers.  Same eligibility as the 16-byte path.
+constexpr int kTmaThreads = 256;
+constexpr int kTmaStages = 3;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    // A copy that never lands faults the launch (~2 s) instead of hanging.
+    if (!done && clock64() - start > (1LL << 32)) __trap();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTmaThreads)
+lstm_gates_bwd_tma_kernel(const T* __restrict__ z, const T* __restrict__ c,
+                          const T* __restrict__ dh, const T* __restrict__ dc_next,
+                          T* __restrict__ dz, T* __restrict__ dc_out,
+                          unsigned plane, unsigned tiles_per_plane,
+                          int64_t n_tiles) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr unsigned kTile = kTmaThreads * kVec;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [kTmaStages][7][kTile]
+  __shared__ __align__(8) uint64_t full[kTmaStages];
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&full[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0: ask for the seven input streams of tile t into stage s.
+  auto issue = [&](int64_t t, int s) {
+    const int64_t b = t / tiles_per_plane;
+    const unsigned p0 = (unsigned)(t - b * tiles_per_plane) * kTile;
+    const unsigned bytes = (plane - p0 < kTile ? plane - p0 : kTile) * sizeof(T);
+    const int64_t cell = b * plane;
+    const T* zi = z + 4 * cell + p0;
+    const T* src[7] = {zi, zi + plane, zi + 2 * (int64_t)plane, zi + 3 * (int64_t)plane,
+                       c + cell + p0, dh + cell + p0, dc_next + cell + p0};
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     smem_addr(&full[s])),
+                 "r"(7 * bytes)
+                 : "memory");
+    for (int q = 0; q < 7; ++q)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];" ::"r"(smem_addr(ring + (s * 7 + q) * kTile)),
+          "l"(src[q]), "r"(bytes), "r"(smem_addr(&full[s]))
+          : "memory");
+  };
+
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kTmaStages; ++s) {
+      const int64_t t = blockIdx.x + (int64_t)s * gridDim.x;
+      if (t < n_tiles) issue(t, s);
+    }
+  int k = 0;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++k) {
+    const int s = k % kTmaStages;
+    mbar_wait(&full[s], (k / kTmaStages) & 1);
+    const int64_t b = t / tiles_per_plane;
+    const unsigned p = (unsigned)(t - b * tiles_per_plane) * kTile + threadIdx.x * kVec;
+    if (p < plane) {
+      const T* st = ring + s * 7 * kTile + threadIdx.x * kVec;
+      float vi[kVec], vf[kVec], vo[kVec], vg[kVec], vc[kVec], vdh[kVec], vdc[kVec];
+      load_once<kVec, false>(st, vi);
+      load_once<kVec, false>(st + kTile, vf);
+      load_once<kVec, false>(st + 2 * kTile, vo);
+      load_once<kVec, false>(st + 3 * kTile, vg);
+      load_once<kVec, false>(st + 4 * kTile, vc);
+      load_once<kVec, false>(st + 5 * kTile, vdh);
+      load_once<kVec, false>(st + 6 * kTile, vdc);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float i = sigmoid_f32(vi[j]);
+        const float f = sigmoid_f32(vf[j]);
+        const float o = sigmoid_f32(vo[j]);
+        const float g = tanhf(vg[j]);
+        const float cv = vc[j];
+        const float tc = tanhf(f * cv + i * g);
+        const float dhv = vdh[j];
+        const float dct = vdc[j] + dhv * o * (1.0f - tc * tc);
+        vi[j] = dct * g * i * (1.0f - i);
+        vf[j] = dct * cv * f * (1.0f - f);
+        vo[j] = dhv * tc * o * (1.0f - o);
+        vg[j] = dct * i * (1.0f - g * g);
+        vc[j] = dct * f;
+      }
+      const int64_t cell = b * plane;
+      T* dzi = dz + 4 * cell + p;
+      store_vec<kVec>(dzi, vi);
+      store_vec<kVec>(dzi + plane, vf);
+      store_vec<kVec>(dzi + 2 * (int64_t)plane, vo);
+      store_vec<kVec>(dzi + 3 * (int64_t)plane, vg);
+      store_vec<kVec>(dc_out + cell + p, vc);
+    }
+    __syncthreads();  // every thread is done with stage s
+    if (threadIdx.x == 0 && t + (int64_t)kTmaStages * gridDim.x < n_tiles)
+      issue(t + (int64_t)kTmaStages * gridDim.x, s);
   }
 }
 
@@ -129,17 +370,90 @@ cudaError_t launch(const void* z, const void* c, void* h_out, void* c_out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* z, const void* c, const void* dh,
-                       const void* dc_next, void* dz, void* dc_out,
-                       int64_t batch, int64_t plane, cudaStream_t stream) {
-  const int64_t total = batch * plane;
-  if (total == 0) return cudaSuccess;
-  lstm_gates_bwd_kernel<T><<<grid_for(total, kThreads), kThreads, 0, stream>>>(
-      static_cast<const T*>(z), static_cast<const T*>(c),
-      static_cast<const T*>(dh), static_cast<const T*>(dc_next),
-      static_cast<T*>(dz), static_cast<T*>(dc_out), plane, total);
+struct BwdArgs {
+  const void *z, *c, *dh, *dc_next;
+  void *dz, *dc_out;
+  int64_t batch, plane;
+  cudaStream_t stream;
+};
+
+template <typename T, int kVec, int kUnroll, bool kStream, int kBlock = 256,
+          int kMinBlocks = 1>
+cudaError_t launch_bwd_as(const BwdArgs& a) {
+  constexpr int64_t tile = kBlock * kVec * kUnroll;
+  const dim3 grid((unsigned)((a.plane + tile - 1) / tile),
+                  (unsigned)(a.batch < 65535 ? a.batch : 65535));
+  lstm_gates_bwd_kernel<T, kVec, kUnroll, kStream, kBlock, kMinBlocks>
+      <<<grid, kBlock, 0, a.stream>>>(
+      static_cast<const T*>(a.z), static_cast<const T*>(a.c),
+      static_cast<const T*>(a.dh), static_cast<const T*>(a.dc_next),
+      static_cast<T*>(a.dz), static_cast<T*>(a.dc_out), a.batch,
+      (unsigned)a.plane);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_tma(const BwdArgs& a) {
+  constexpr int64_t tile = kTmaThreads * (16 / sizeof(T));
+  const int64_t tiles_per_plane = (a.plane + tile - 1) / tile;
+  const int64_t n_tiles = a.batch * tiles_per_plane;
+  const int smem = kTmaStages * 7 * tile * sizeof(T);
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(lstm_gates_bwd_tma_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int64_t blocks = n_tiles < 2 * sms ? n_tiles : 2 * sms;
+  lstm_gates_bwd_tma_kernel<T><<<(unsigned)blocks, kTmaThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.z), static_cast<const T*>(a.c),
+      static_cast<const T*>(a.dh), static_cast<const T*>(a.dc_next),
+      static_cast<T*>(a.dz), static_cast<T*>(a.dc_out), (unsigned)a.plane,
+      (unsigned)tiles_per_plane, n_tiles);
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Whether 16-byte vectors of T fit every stream of a.
+template <typename T>
+bool vectorizable(const BwdArgs& a) {
+  return a.plane % (16 / sizeof(T)) == 0 && aligned16(a.z) && aligned16(a.c) &&
+         aligned16(a.dh) && aligned16(a.dc_next) && aligned16(a.dz) &&
+         aligned16(a.dc_out);
+}
+
+// The design's steps, for measuring them against each other.
+template <typename T>
+cudaError_t launch_bwd_variant(const BwdArgs& a, int variant) {
+  if (a.batch == 0 || a.plane == 0) return cudaSuccess;
+  if (a.plane >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(T);
+  if (variant >= 2 && !vectorizable<T>(a)) return cudaErrorInvalidValue;
+  switch (variant) {
+    case 0: return launch_bwd_as<T, 1, 1, false>(a);  // scalar
+    case 1: return launch_bwd_as<T, 1, 1, true>(a);   // scalar, evict-first
+    case 2: return launch_bwd_as<T, kVec, 1, false>(a);  // 16-byte
+    case 3: return launch_bwd_as<T, kVec, 1, true>(a);   // 16-byte, evict-first
+    case 4: return launch_bwd_as<T, kVec, 2, false>(a);  // 2 vectors a thread
+    case 5: return launch_bwd_as<T, kVec, 2, true>(a);
+    case 6: return launch_bwd_tma<T>(a);
+    case 7: return launch_bwd_as<T, kVec, 1, false, 128>(a);  // 128-thread blocks
+    case 8: return launch_bwd_as<T, kVec, 1, false, 512>(a);  // 512-thread blocks
+    case 9: return launch_bwd_as<T, kVec, 1, false, 256, 8>(a);  // <= 32 registers
+    case 10: return launch_bwd_as<T, 1, 4, false>(a);  // 4 scalars a thread
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The design the wrapper launches: 16-byte accesses where every stream
+// allows them, else scalar ones.
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  return launch_bwd_variant<T>(a, vectorizable<T>(a) ? 2 : 0);
 }
 
 }  // namespace
@@ -155,16 +469,29 @@ extern "C" int lstm_gates_forward(const void* z, const void* c, void* h_out,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success;
+// cudaErrorInvalidValue for a plane of 2^31 elements or more).
 extern "C" int lstm_gates_backward(const void* z, const void* c,
                                    const void* dh, const void* dc_next,
                                    void* dz, void* dc_out, long long batch,
                                    long long plane, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_bwd<float>(z, c, dh, dc_next, dz, dc_out, batch, plane, s);
-  if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(z, c, dh, dc_next, dz, dc_out, batch,
-                                          plane, s);
+  const BwdArgs a{z, c, dh, dc_next, dz, dc_out, batch, plane,
+                  static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_bwd<float>(a);
+  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// lstm_gates_backward as one of the design's steps (launch_bwd_variant),
+// for tools/bench_gate_backward.py.
+extern "C" int lstm_gates_backward_variant(const void* z, const void* c,
+                                           const void* dh, const void* dc_next,
+                                           void* dz, void* dc_out,
+                                           long long batch, long long plane,
+                                           int dtype, void* stream, int variant) {
+  const BwdArgs a{z, c, dh, dc_next, dz, dc_out, batch, plane,
+                  static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_bwd_variant<float>(a, variant);
+  if (dtype == 1) return (int)launch_bwd_variant<__nv_bfloat16>(a, variant);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,6 +34,8 @@ launches = 0
 backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: The backward kernel indexes inside a plane (hidden * H * W) with 32-bit offsets.
+_BACKWARD_PLANE_LIMIT = 2**31
 _kernels: dict = {}  # C entry point name -> ctypes function
 
 
@@ -85,56 +87,71 @@ def _kernel(name: str, n_pointers: int):
     return fn
 
 
-def _check(z: torch.Tensor, *cell_shaped: torch.Tensor) -> None:
+def _check(z: torch.Tensor, *cell_shaped: torch.Tensor, plane_limit: int | None = None) -> int:
     """What the kernels take: one CUDA device, one dtype of fp32 or bf16,
     ``z`` of ``(B, 4*hidden, H, W)`` and the others of ``(B, hidden, H, W)``,
-    all contiguous."""
-    c = cell_shaped[0]
-    if z.device.type != "cuda" or any(t.device != z.device for t in cell_shaped):
+    all contiguous, and a plane ``hidden * H * W`` under ``plane_limit``.
+    Returns the plane.  Training calls the kernels ~2,000 times a step, so
+    the checks read cheap attributes (``get_device``, one ``shape``)."""
+    tensors = (z, *cell_shaped)
+    index = z.get_device()
+    if not all(t.is_cuda and t.get_device() == index for t in tensors):
         raise ValueError(
             "lstm_gates: tensors on "
-            f"{sorted({str(t.device) for t in (z, *cell_shaped)})}; all must be "
+            f"{sorted({str(t.device) for t in tensors})}; all must be "
             "on one CUDA device (or all on the CPU)"
         )
-    if z.dtype not in _DTYPE_CODES or any(t.dtype != z.dtype for t in cell_shaped):
+    dtype = z.dtype
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in cell_shaped):
         raise TypeError(
-            f"lstm_gates: dtypes {[t.dtype for t in (z, *cell_shaped)]}; the "
+            f"lstm_gates: dtypes {[t.dtype for t in tensors]}; the "
             "kernels take float32 or bfloat16, the same for every tensor"
         )
+    zs, cs = z.shape, cell_shaped[0].shape
     if (
-        z.dim() != 4 or c.dim() != 4 or z.shape[0] != c.shape[0]
-        or z.shape[1] != 4 * c.shape[1] or z.shape[2:] != c.shape[2:]
-        or any(t.shape != c.shape for t in cell_shaped)
+        len(zs) != 4 or len(cs) != 4 or zs[0] != cs[0] or zs[1] != 4 * cs[1]
+        or zs[2:] != cs[2:] or any(t.shape != cs for t in cell_shaped)
     ):
         raise ValueError(
-            f"lstm_gates: z {tuple(z.shape)} must be (B, 4*hidden, H, W) for "
-            f"c {tuple(c.shape)}, and every cotangent shaped like c"
+            f"lstm_gates: z {tuple(zs)} must be (B, 4*hidden, H, W) for "
+            f"c {tuple(cs)}, and every cotangent shaped like c"
         )
-    if not all(t.is_contiguous() for t in (z, *cell_shaped)):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_gates: every tensor must be contiguous")
-
-
-def _launch(fn, z: torch.Tensor, c: torch.Tensor, pointers) -> None:
-    with torch.cuda.device(z.device):
-        rc = fn(
-            *pointers, c.shape[0], c[0].numel(), _DTYPE_CODES[z.dtype],
-            torch.cuda.current_stream().cuda_stream,
+    plane = cs[1] * cs[2] * cs[3]
+    if plane_limit is not None and plane >= plane_limit:
+        raise ValueError(
+            f"lstm_gates: a plane of {plane} elements (hidden * H * W); "
+            f"the kernel takes fewer than {plane_limit}"
         )
+    return plane
+
+
+def _launch(fn, z: torch.Tensor, plane: int, pointers) -> None:
+    """Launch ``fn`` on the current stream of z's device.  The device is
+    entered only when it is not already current, and the stream is read
+    as the raw handle (as Triton's launcher does), not as a ``Stream``."""
+    index = z.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(fn, z, plane, pointers)
+    rc = fn(*pointers, z.shape[0], plane, _DTYPE_CODES[z.dtype],
+            torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"lstm_gates: kernel launch failed (cudaError {rc})")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def _forward(z: torch.Tensor, c: torch.Tensor):
     if _on_cpu(z, c):
         return lstm_gates_reference(z, c)
-    _check(z, c)
+    plane = _check(z, c)
     h_next = torch.empty_like(c)
     c_next = torch.empty_like(c)
-    _launch(_kernel("lstm_gates_forward", 4), z, c,
+    _launch(_kernel("lstm_gates_forward", 4), z, plane,
             (z.data_ptr(), c.data_ptr(), h_next.data_ptr(), c_next.data_ptr()))
     global launches
     launches += 1
@@ -149,10 +166,10 @@ def lstm_gates_backward(z: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
     launches the kernel or raises; CPU tensors take the plain version."""
     if _on_cpu(z, c, dh, dc_next):
         return lstm_gates_backward_reference(z, c, dh, dc_next)
-    _check(z, c, dh, dc_next)
+    plane = _check(z, c, dh, dc_next, plane_limit=_BACKWARD_PLANE_LIMIT)
     dz = torch.empty_like(z)
     dc = torch.empty_like(c)
-    _launch(_kernel("lstm_gates_backward", 6), z, c,
+    _launch(_kernel("lstm_gates_backward", 6), z, plane,
             (z.data_ptr(), c.data_ptr(), dh.data_ptr(), dc_next.data_ptr(),
              dz.data_ptr(), dc.data_ptr()))
     global backward_launches

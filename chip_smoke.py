@@ -14,9 +14,15 @@ Phases, each printing a line; any failure exits non-zero:
    and bf16 (atol 2e-2); kernel, plain, library-call times and the
    kernel's bound;
 3b. backward kernel vs plain: the ConvLSTM gate-backward kernel against
-   its plain version at the same shapes, fp32 (atol 1e-5) and bf16 (atol
-   5e-2); kernel, plain and library-call times per depth step and the
-   kernel's bound;
+   its plain version at the same shapes, at ``hidden=3`` (2, 3, 7, 5),
+   whose plane is no multiple of the 16-byte vector, and with z and c as
+   contiguous views one element into their storage, off the 16-byte grid
+   (the last two take the kernel's scalar path), fp32 (atol 1e-5) and bf16
+   (atol 5e-2); kernel, plain and library-call times per depth step and
+   the kernel's bound; kernel and library-call times of one depth step at
+   the ``dtu_train`` cell shapes (128x160) with the inputs cold in device
+   memory (launch-bound there, so no bound share); and the host's cost per
+   call of the wrapper and of the library call;
 4. CUDA vs CPU: the whole ``forward`` at 64x80, V=3, D=48 on both devices
    (depth equal on >= 99.9 % of pixels, confidence atol 1e-4);
 4b. CUDA vs CPU training gradients: one remat training forward and
@@ -251,18 +257,73 @@ def _library_gates_backward(dhl, dcl, cl, cyl, workspace):
                                                               workspace, False)
 
 
+def _at_storage_offset(t):
+    """A contiguous copy of ``t`` that starts one element into its storage,
+    so that its data pointer is off the 16-byte grid."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def _backward_library_inputs(z, c, dh, dcn):
+    """The library backward's inputs for the same function: the ``(N, 4h)``
+    layout and the forward's workspace of activated gates."""
+    zl, cl = _to_library_layout(z, c)
+    _, cyl, workspace = _library_gates(zl, cl)
+    h = c.shape[1]
+    dhl = dh.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
+    dcl = dcn.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
+    return dhl, dcl, cl, cyl, workspace
+
+
+def _cold_step_ms(step, flush, reps: int = 50, warmup: int = 3) -> float:
+    """Mean device time of ``step()``, by CUDA events around it alone, with
+    ``flush`` (far larger than the 50 MB L2) written before each run so
+    that the inputs come from device memory."""
+    for _ in range(warmup):
+        step()
+    events = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn()`` over ``calls`` calls, with no
+    synchronisation inside the timed loop."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def phase_backward_kernel() -> dict:
     from aa_rmvsnet_tpu_torch.ops import gates
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cells = _cell_shapes(MAIN_H, MAIN_W)
-    odd = [(2, 16, 9, 13), (2, 8, 9, 13)]
+    # (shape, z and c one element into their storage): the cells take the
+    # 16-byte path; hidden=3 (a plane of 105) and the offset views the
+    # scalar one.
+    cases = [(shape, False) for shape in cells + [(2, 16, 9, 13), (2, 8, 9, 13), (2, 3, 7, 5)]]
+    cases.append(((2, 16, 9, 13), True))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     bars = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
     fp32_inputs = []
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
-            for shape in cells + odd:
+            for shape, offset in cases:
                 B, h, H, W = shape
                 z = torch.randn(B, 4 * h, H, W, device="cuda", generator=gen)
                 if dtype == torch.float32:
@@ -275,20 +336,23 @@ def phase_backward_kernel() -> dict:
                     c, dh, dcn = (torch.rand(B, h, H, W, device="cuda", generator=gen) * 2 - 1
                                   for _ in range(3))
                 z, c, dh, dcn = (t.to(dtype) for t in (z, c, dh, dcn))
+                if offset:
+                    z, c = _at_storage_offset(z), _at_storage_offset(c)
                 dz_k, dc_k = gates.lstm_gates_backward(z, c, dh, dcn)
                 torch.cuda.synchronize()
                 dz_p, dc_p = gates.lstm_gates_backward_reference(z, c, dh, dcn)
                 err = max((dz_k.float() - dz_p.float()).abs().max().item(),
                           (dc_k.float() - dc_p.float()).abs().max().item())
                 ok = err <= bars[dtype]
-                print(f"kernel: lstm_gates_backward {str(dtype)[6:]} {shape} max_abs_err "
+                print(f"kernel: lstm_gates_backward {str(dtype)[6:]} {shape}"
+                      f"{' z, c at storage offset 1' if offset else ''} max_abs_err "
                       f"{err:.3e} (bar {bars[dtype]:g}) {'ok' if ok else 'FAIL'}",
                       flush=True)
                 if not ok:
                     _fail(f"lstm_gates_backward disagrees with its plain version at "
                           f"{shape} {dtype}")
                 max_err[dtype] = max(max_err[dtype], err)
-                if dtype == torch.float32 and shape in cells:
+                if dtype == torch.float32 and shape in cells and not offset:
                     fp32_inputs.append((z, c, dh, dcn))
 
         # One depth step's five backward launches, 1.58 GB: every launch
@@ -304,13 +368,9 @@ def phase_backward_kernel() -> dict:
         lib_inputs = []
         lib_err = 0.0
         for z, c, dh, dcn in fp32_inputs:
-            zl, cl = _to_library_layout(z, c)
-            _, cyl, workspace = _library_gates(zl, cl)
-            h = c.shape[1]
-            dhl = dh.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
-            dcl = dcn.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
-            lib_inputs.append((dhl, dcl, cl, cyl, workspace))
+            lib_inputs.append(_backward_library_inputs(z, c, dh, dcn))
             dgates, dcx, _ = _library_gates_backward(*lib_inputs[-1])
+            h = c.shape[1]
             dz_p, dc_p = gates.lstm_gates_backward_reference(z, c, dh, dcn)
             dz_pl, _ = _to_library_layout(dz_p, dc_p)
             lib_err = max(lib_err, (dgates - dz_pl).abs().max().item(),
@@ -326,6 +386,55 @@ def phase_backward_kernel() -> dict:
         plain_ms = _cuda_time_ms(plain_step, reps=10)
         library_ms = _cuda_time_ms(library_step, reps=20)
         ms_again = _cuda_time_ms(kernel_step, reps=50)
+        del fp32_inputs, lib_inputs
+
+        # The training main path's shapes: one depth step at dtu_train,
+        # 0.68 M elements, 32 MB.  In a remat block the backward runs after
+        # the block's recompute, so its inputs come from device memory: a
+        # 1 GiB buffer is written between runs.  Writing it takes ~0.3 ms
+        # of device time, longer than the host takes to issue the five
+        # launches, so the events time the device and not the host.
+        train_cells = _cell_shapes(TRAIN_H, TRAIN_W)
+        train_inputs = [
+            (torch.randn(B, 4 * h, H, W, device="cuda", generator=gen),
+             *(torch.randn(B, h, H, W, device="cuda", generator=gen) for _ in range(3)))
+            for B, h, H, W in train_cells
+        ]
+        train_lib_inputs = [_backward_library_inputs(*args) for args in train_inputs]
+        flush = torch.empty(2**28, device="cuda")
+
+        def train_kernel_step():
+            for args in train_inputs:
+                gates.lstm_gates_backward(*args)
+
+        def train_library_step():
+            for args in train_lib_inputs:
+                _library_gates_backward(*args)
+
+        train_ms = _cold_step_ms(train_kernel_step, flush)
+        train_library_ms = _cold_step_ms(train_library_step, flush)
+        train_ms_again = _cold_step_ms(train_kernel_step, flush)
+        train_library_ms_again = _cold_step_ms(train_library_step, flush)
+        del flush
+
+        # The host's cost of one call at the smallest dtu_train cell.
+        small, small_lib = train_inputs[2], train_lib_inputs[2]
+        host_us = [_host_us(lambda: gates.lstm_gates_backward(*small))]
+        library_host_us = [_host_us(lambda: _library_gates_backward(*small_lib))]
+        library_host_us.append(_host_us(lambda: _library_gates_backward(*small_lib)))
+        host_us.append(_host_us(lambda: gates.lstm_gates_backward(*small)))
+
+    train_elems = sum(B * h * H * W for B, h, H, W in train_cells)
+    print(f"kernel: backward at the dtu_train cell shapes ({TRAIN_H}x{TRAIN_W}), one depth "
+          f"step = 5 launches, {train_elems / 1e6:.3f} M elements, inputs cold in device "
+          f"memory: kernel {train_ms * 1e3:.2f} us (again {train_ms_again * 1e3:.2f}), "
+          f"{train_ms * 1e3 / 5:.2f} us a launch; library {train_library_ms * 1e3:.2f} us "
+          f"(again {train_library_ms_again * 1e3:.2f}), {train_library_ms * 1e3 / 5:.2f} us "
+          "a launch; launch-bound at these shapes (3.7 us a launch in the training "
+          "profile), so no bound share", flush=True)
+    print(f"kernel: host cost per call at {train_cells[2]}, 1000 calls, no sync: wrapper "
+          f"gates.lstm_gates_backward {host_us[0]:.2f}, {host_us[1]:.2f} us; library call "
+          f"{library_host_us[0]:.2f}, {library_host_us[1]:.2f} us", flush=True)
 
     elems = sum(B * h * H * W for B, h, H, W in cells)
     nbytes = elems * 4 * (7 + 5)  # read i, f, o, g, c, dh, dc'; write di, df, do, dg, dc
@@ -351,6 +460,10 @@ def phase_backward_kernel() -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "ms_train_shapes": train_ms,
+        "library_ms_train_shapes": train_library_ms,
+        "host_us_per_call": min(host_us),
+        "library_host_us_per_call": min(library_host_us),
     }
 
 

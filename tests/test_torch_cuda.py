@@ -29,11 +29,11 @@ def _card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-def _inputs(hidden, dtype, seed):
-    """z, c, dh, dc' at the odd shape (2, ., 9, 13) on the card."""
+def _inputs(hidden, dtype, seed, hw=(9, 13)):
+    """z, c, dh, dc' at the odd shape (2, ., *hw) on the card."""
     rng = np.random.RandomState(seed)
-    z = rng.randn(2, 4 * hidden, 9, 13)
-    rest = [rng.randn(2, hidden, 9, 13) for _ in range(3)]
+    z = rng.randn(2, 4 * hidden, *hw)
+    rest = [rng.randn(2, hidden, *hw) for _ in range(3)]
     if dtype == torch.bfloat16:
         rest = [np.clip(a, -1, 1) for a in rest]
     return [torch.from_numpy(a.astype(np.float32)).to(dtype).cuda() for a in (z, *rest)]
@@ -57,14 +57,69 @@ def test_backward_kernel_matches_plain(hidden, dtype):
     torch.testing.assert_close(ct.grad.float(), dc_p.float(), atol=atol, rtol=0)
 
 
+def _at_storage_offset(t):
+    """A contiguous copy of ``t`` one element into its storage, so that its
+    data pointer is off the 16-byte grid."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hidden3", "storage_offset"])
+@pytest.mark.parametrize("dtype", sorted(_DTYPES))
+def test_backward_kernel_scalar_path_matches_plain(case, dtype):
+    """The kernel's scalar path: ``hidden=3`` at (2, 3, 7, 5), a plane of
+    105 elements that no 16-byte vector divides, and z and c as contiguous
+    views one element into their storage."""
+    _card()
+    tdt, atol = _DTYPES[dtype]
+    if case == "hidden3":
+        z, c, dh, dcn = _inputs(3, tdt, seed=7, hw=(7, 5))
+    else:
+        z, c, dh, dcn = _inputs(16, tdt, seed=8)
+        z, c = _at_storage_offset(z), _at_storage_offset(c)
+        assert z.is_contiguous() and z.data_ptr() % 16 != 0 and c.data_ptr() % 16 != 0
+    before = gates.backward_launches
+    dz, dc = gates.lstm_gates_backward(z, c, dh, dcn)
+    torch.cuda.synchronize()
+    assert gates.backward_launches == before + 1
+    dz_p, dc_p = gates.lstm_gates_backward_reference(z, c, dh, dcn)
+    torch.testing.assert_close(dz.float(), dz_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(dc.float(), dc_p.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_launch_counters_move_by_one_per_call():
+    """Each wrapper call adds one to its own counter and none to the
+    other's, on the 16-byte path and on the scalar one."""
+    _card()
+    for hidden, hw in ((16, (9, 13)), (3, (7, 5))):
+        z, c, dh, dcn = _inputs(hidden, torch.float32, seed=9, hw=hw)
+        for _ in range(3):
+            before = (gates.launches, gates.backward_launches)
+            gates.lstm_gates(z, c)
+            assert (gates.launches, gates.backward_launches) == (before[0] + 1, before[1])
+            gates.lstm_gates_backward(z, c, dh, dcn)
+            assert (gates.launches, gates.backward_launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cell_scan_under_checkpoint_matches_cpu():
     """A ConvLSTM cell scanned over 3 steps, each under checkpoint: the
-    card's gradients (both kernels, twice the forward) equal the CPU's."""
+    card's gradients (both kernels, twice the forward) equal the CPU's.
+
+    The weights are seeded, and cuDNN is off: its fp32 weight-gradient
+    algorithm for this 3x3 conv differs from the CPU's by nearly the 1e-4
+    bar on gradients of magnitude ~30 (one run, with unseeded weights, put
+    one element of 27,648 past it), which is the library's rounding, not
+    the gate kernels'.  Without cuDNN the conv is an im2col and an fp32
+    GEMM (TF32 off), an order of magnitude inside the bar."""
     _card()
     disable_tf32()
     rng = np.random.RandomState(6)
     xs = rng.randn(3, 1, 32, 8, 12).astype(np.float32)
+    torch.manual_seed(6)
     cell = ConvLSTMCell(32, 16)
     grads = {}
     for dev in ("cpu", "cuda"):
@@ -74,11 +129,13 @@ def test_cell_scan_under_checkpoint_matches_cpu():
         h = torch.zeros(1, 16, 8, 12, device=dev)
         c = torch.zeros(1, 16, 8, 12, device=dev)
         total = 0.0
-        for t in range(3):
-            h, c = torch.utils.checkpoint.checkpoint(cell, x[t], (h, c), use_reentrant=False)
-            total = total + (h ** 2).sum() + torch.sin(c).sum()
-        before = (gates.launches, gates.backward_launches)
-        total.backward()
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            for t in range(3):
+                h, c = torch.utils.checkpoint.checkpoint(cell, x[t], (h, c),
+                                                         use_reentrant=False)
+                total = total + (h ** 2).sum() + torch.sin(c).sum()
+            before = (gates.launches, gates.backward_launches)
+            total.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
             assert (gates.launches - before[0], gates.backward_launches - before[1]) == (3, 3)

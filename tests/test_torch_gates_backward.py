@@ -35,11 +35,11 @@ _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
 
 
-def _inputs(hidden, seed=0):
-    """NHWC numpy z, c and cotangents dh, dc' at the odd shape (2, 9, 13)."""
+def _inputs(hidden, seed=0, hw=(9, 13)):
+    """NHWC numpy z, c and cotangents dh, dc' at the odd shape (2, *hw)."""
     rng = np.random.RandomState(seed)
-    z = rng.randn(2, 9, 13, 4 * hidden).astype(np.float32)
-    c, dh, dcn = (rng.randn(2, 9, 13, hidden).astype(np.float32) for _ in range(3))
+    z = rng.randn(2, *hw, 4 * hidden).astype(np.float32)
+    c, dh, dcn = (rng.randn(2, *hw, hidden).astype(np.float32) for _ in range(3))
     return z, c, dh, dcn
 
 
@@ -51,17 +51,21 @@ def _nhwc(t):
     return t.float().permute(0, 2, 3, 1).numpy()
 
 
-@pytest.mark.parametrize("hidden", [16, 8])
+@pytest.mark.parametrize("hidden", [16, 8, 3])
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
 def test_backward_plain_matches_pallas_vjp(hidden, dtype):
+    """``hidden=3`` at (2, 7, 5): a plane of 105 elements, no multiple of the
+    kernel's 16-byte vector, the shape at which the card tests hold the
+    kernel's scalar path to this plain version."""
     jdt, tdt, atol = _DTYPES[dtype]
-    z, c, dh, dcn = _inputs(hidden)
+    hw = (7, 5) if hidden == 3 else (9, 13)
+    z, c, dh, dcn = _inputs(hidden, hw=hw)
     _, vjp = jax.vjp(fused_lstm_gates, jnp.asarray(z, jdt), jnp.asarray(c, jdt))
     dz_j, dc_j = vjp((jnp.asarray(dh, jdt), jnp.asarray(dcn, jdt)))
     dz_t, dc_t = gates.lstm_gates_backward_reference(
         _nchw(z, tdt), _nchw(c, tdt), _nchw(dh, tdt), _nchw(dcn, tdt))
-    assert dz_t.dtype == tdt and dz_t.shape == (2, 4 * hidden, 9, 13)
-    assert dc_t.dtype == tdt and dc_t.shape == (2, hidden, 9, 13)
+    assert dz_t.dtype == tdt and dz_t.shape == (2, 4 * hidden, *hw)
+    assert dc_t.dtype == tdt and dc_t.shape == (2, hidden, *hw)
     np.testing.assert_allclose(_nhwc(dz_t), np.asarray(dz_j, np.float32), atol=atol)
     np.testing.assert_allclose(_nhwc(dc_t), np.asarray(dc_j, np.float32), atol=atol)
 
