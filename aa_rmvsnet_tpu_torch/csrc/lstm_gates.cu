@@ -29,27 +29,30 @@
 // expf/tanhf (no fast-math intrinsics: the fp32 bars are 1e-6 forward,
 // 1e-5 backward).
 //
-// The backward is laid out for Hopper's memory system; the forward is the
-// simpler grid-stride loop, which already beats its library counterpart:
+// The backward, 5 x D launches a training step, is laid out for Hopper's
+// memory system; the forward keeps the simpler grid-stride loop, which
+// already runs 2x faster than its library counterpart:
 //
 // - No division, 32-bit offsets.  A 2D grid: blockIdx.y is the batch
 //   (looping past 65,535) and blockIdx.x a tile of that batch's plane, so
 //   no thread divides.  Each batch has one 64-bit base; offsets inside a
 //   plane are 32-bit (the wrapper raises for a plane of 2^31 elements or
-//   more).  A grid-stride loop over the flat index pays an emulated 64-bit
-//   division per element to find the batch.
+//   more).  A grid-stride loop over the flat index would pay an emulated
+//   64-bit division per element to find the batch, some 9 % of the time of
+//   a depth step in fp32 (PERF.md, Findings).
 // - 16-byte accesses.  A thread takes kVec consecutive elements of each of
 //   the twelve streams (4 fp32 or 8 bf16: one float4 / uint4), issues all
-//   seven loads of its kUnroll vectors before any math, and writes five
-//   16-byte stores.  A plane that is not a multiple of kVec (gates 1-3 of z
-//   then start off the 16-byte grid) or a pointer that is not 16-byte
-//   aligned (a contiguous view at a storage offset) launches the same
-//   kernel with kVec = 1: scalar accesses over the whole tensor.
-// - Evict-first loads.  z, c, dh and dc' are read once, so they are loaded
-//   with ld.global.cs (__ldcs) and do not displace cached lines.  Stores
-//   keep the default policy: the gate conv's backward reads dz next and the
-//   previous step's backward reads dc, and at the training geometry a
-//   whole depth step fits in the 50 MB L2.
+//   seven loads before any math, and writes five 16-byte stores.  A plane
+//   that is not a multiple of kVec (gates 1-3 of z then start off the
+//   16-byte grid) or a pointer that is not 16-byte aligned (a contiguous
+//   view at a storage offset) launches the same kernel with kVec = 1:
+//   scalar accesses over the whole tensor.
+// - Default cache policy.  Evict-first loads (__ldcs) of the single-use
+//   inputs, two vectors a thread, 128- or 512-thread blocks, a 32-register
+//   cap and a TMA bulk-copy ring in shared memory were each measured
+//   (PERF.md, Findings) and were each as fast or slower.  Stores keep the
+//   default policy in any case: the gate conv's backward reads dz next and
+//   the previous step's backward reads dc.
 //
 // Layout: z and dz are (B, 4*hidden, H, W) and c, h', c', dh, dc', dc are
 // (B, hidden, H, W), all contiguous.  Gate k of batch b, channel ch, pixel
@@ -98,25 +101,23 @@ __global__ void lstm_gates_kernel(const T* __restrict__ z,
   }
 }
 
-// kVec consecutive elements at p as fp32, read once: a 16-byte load for a
-// whole vector, else kVec scalar loads; with kStream, evict-first.
-template <int kVec, bool kStream>
-__device__ __forceinline__ void load_once(const float* p, float* v) {
+// kVec consecutive elements at p as fp32: one 16-byte load for a whole
+// vector, else kVec scalar loads.
+template <int kVec>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
   if constexpr (kVec == 4) {
-    const float4* q = reinterpret_cast<const float4*>(p);
-    const float4 x = kStream ? __ldcs(q) : *q;
+    const float4 x = *reinterpret_cast<const float4*>(p);
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
   } else {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) v[j] = kStream ? __ldcs(p + j) : p[j];
+    for (int j = 0; j < kVec; ++j) v[j] = p[j];
   }
 }
 
-template <int kVec, bool kStream>
-__device__ __forceinline__ void load_once(const __nv_bfloat16* p, float* v) {
+template <int kVec>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
   if constexpr (kVec == 8) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-    const uint4 x = kStream ? __ldcs(q) : *q;
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
     const uint32_t w[4] = {x.x, x.y, x.z, x.w};
     // A bf16 is the top half of an fp32; the lower address is the low half.
 #pragma unroll
@@ -125,10 +126,8 @@ __device__ __forceinline__ void load_once(const __nv_bfloat16* p, float* v) {
       v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
     }
   } else {
-    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      v[j] = __bfloat162float(__ushort_as_bfloat16(kStream ? __ldcs(q + j) : q[j]));
+    for (int j = 0; j < kVec; ++j) v[j] = __bfloat162float(p[j]);
   }
 }
 
@@ -159,193 +158,53 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   }
 }
 
-template <typename T, int kVec, int kUnroll, bool kStream, int kBlock, int kMinBlocks>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+constexpr int kBwdThreads = 256;
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kBwdThreads)
 lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
                       const T* __restrict__ dh, const T* __restrict__ dc_next,
                       T* __restrict__ dz, T* __restrict__ dc_out,
                       int64_t batch,
                       unsigned plane)  // hidden * H * W < 2^31, a multiple of kVec
 {
-  constexpr unsigned kTile = kBlock * kVec * kUnroll;
+  const unsigned p = (blockIdx.x * kBwdThreads + threadIdx.x) * kVec;
+  if (p >= plane) return;
   for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
     const int64_t cell = b * plane;
-    const T* zi = z + 4 * cell;
-    const T* zf = zi + plane;
-    const T* zo = zf + plane;
-    const T* zg = zo + plane;
-    T* dzi = dz + 4 * cell;
-    T* dzf = dzi + plane;
-    T* dzo = dzf + plane;
-    T* dzg = dzo + plane;
-
-    unsigned p[kUnroll];
-    float vi[kUnroll][kVec], vf[kUnroll][kVec], vo[kUnroll][kVec],
-        vg[kUnroll][kVec], vc[kUnroll][kVec], vdh[kUnroll][kVec],
-        vdc[kUnroll][kVec];
+    const T* zi = z + 4 * cell + p;  // gate k at zi + k * plane
+    T* dzi = dz + 4 * cell + p;
+    float vi[kVec], vf[kVec], vo[kVec], vg[kVec], vc[kVec], vdh[kVec], vdc[kVec];
+    load_vec<kVec>(zi, vi);
+    load_vec<kVec>(zi + plane, vf);
+    load_vec<kVec>(zi + 2 * (int64_t)plane, vo);
+    load_vec<kVec>(zi + 3 * (int64_t)plane, vg);
+    load_vec<kVec>(c + cell + p, vc);
+    load_vec<kVec>(dh + cell + p, vdh);
+    load_vec<kVec>(dc_next + cell + p, vdc);
+    // Outputs overwrite the inputs they no longer need:
+    // di -> vi, df -> vf, do -> vo, dg -> vg, dc -> vc.
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      p[u] = blockIdx.x * kTile + (u * kBlock + threadIdx.x) * kVec;
-      if (p[u] < plane) {
-        load_once<kVec, kStream>(zi + p[u], vi[u]);
-        load_once<kVec, kStream>(zf + p[u], vf[u]);
-        load_once<kVec, kStream>(zo + p[u], vo[u]);
-        load_once<kVec, kStream>(zg + p[u], vg[u]);
-        load_once<kVec, kStream>(c + cell + p[u], vc[u]);
-        load_once<kVec, kStream>(dh + cell + p[u], vdh[u]);
-        load_once<kVec, kStream>(dc_next + cell + p[u], vdc[u]);
-      }
+    for (int j = 0; j < kVec; ++j) {
+      const float i = sigmoid_f32(vi[j]);
+      const float f = sigmoid_f32(vf[j]);
+      const float o = sigmoid_f32(vo[j]);
+      const float g = tanhf(vg[j]);
+      const float cv = vc[j];
+      const float tc = tanhf(f * cv + i * g);
+      const float dhv = vdh[j];
+      const float dct = vdc[j] + dhv * o * (1.0f - tc * tc);
+      vi[j] = dct * g * i * (1.0f - i);
+      vf[j] = dct * cv * f * (1.0f - f);
+      vo[j] = dhv * tc * o * (1.0f - o);
+      vg[j] = dct * i * (1.0f - g * g);
+      vc[j] = dct * f;
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (p[u] >= plane) continue;
-      // Outputs overwrite the inputs they no longer need:
-      // di -> vi, df -> vf, do -> vo, dg -> vg, dc -> vc.
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const float i = sigmoid_f32(vi[u][j]);
-        const float f = sigmoid_f32(vf[u][j]);
-        const float o = sigmoid_f32(vo[u][j]);
-        const float g = tanhf(vg[u][j]);
-        const float cv = vc[u][j];
-        const float tc = tanhf(f * cv + i * g);
-        const float dhv = vdh[u][j];
-        const float dct = vdc[u][j] + dhv * o * (1.0f - tc * tc);
-        vi[u][j] = dct * g * i * (1.0f - i);
-        vf[u][j] = dct * cv * f * (1.0f - f);
-        vo[u][j] = dhv * tc * o * (1.0f - o);
-        vg[u][j] = dct * i * (1.0f - g * g);
-        vc[u][j] = dct * f;
-      }
-      store_vec<kVec>(dzi + p[u], vi[u]);
-      store_vec<kVec>(dzf + p[u], vf[u]);
-      store_vec<kVec>(dzo + p[u], vo[u]);
-      store_vec<kVec>(dzg + p[u], vg[u]);
-      store_vec<kVec>(dc_out + cell + p[u], vc[u]);
-    }
-  }
-}
-
-// Step 4 of the design, a TMA pipeline: a persistent grid of two blocks an
-// SM walks tiles of kTmaThreads * kVec elements of a plane.  For each tile
-// thread 0 has the Tensor Memory Accelerator copy the seven input streams
-// (4 KB each) into one stage of a kTmaStages-deep ring in shared memory,
-// completing on that stage's mbarrier; the block computes from shared
-// memory, one 16-byte vector a thread, and stores the five outputs from
-// registers.  Same eligibility as the 16-byte path.
-constexpr int kTmaThreads = 256;
-constexpr int kTmaStages = 3;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    // A copy that never lands faults the launch (~2 s) instead of hanging.
-    if (!done && clock64() - start > (1LL << 32)) __trap();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kTmaThreads)
-lstm_gates_bwd_tma_kernel(const T* __restrict__ z, const T* __restrict__ c,
-                          const T* __restrict__ dh, const T* __restrict__ dc_next,
-                          T* __restrict__ dz, T* __restrict__ dc_out,
-                          unsigned plane, unsigned tiles_per_plane,
-                          int64_t n_tiles) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr unsigned kTile = kTmaThreads * kVec;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);  // [kTmaStages][7][kTile]
-  __shared__ __align__(8) uint64_t full[kTmaStages];
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kTmaStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&full[s]))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  // Thread 0: ask for the seven input streams of tile t into stage s.
-  auto issue = [&](int64_t t, int s) {
-    const int64_t b = t / tiles_per_plane;
-    const unsigned p0 = (unsigned)(t - b * tiles_per_plane) * kTile;
-    const unsigned bytes = (plane - p0 < kTile ? plane - p0 : kTile) * sizeof(T);
-    const int64_t cell = b * plane;
-    const T* zi = z + 4 * cell + p0;
-    const T* src[7] = {zi, zi + plane, zi + 2 * (int64_t)plane, zi + 3 * (int64_t)plane,
-                       c + cell + p0, dh + cell + p0, dc_next + cell + p0};
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                     smem_addr(&full[s])),
-                 "r"(7 * bytes)
-                 : "memory");
-    for (int q = 0; q < 7; ++q)
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];" ::"r"(smem_addr(ring + (s * 7 + q) * kTile)),
-          "l"(src[q]), "r"(bytes), "r"(smem_addr(&full[s]))
-          : "memory");
-  };
-
-  if (threadIdx.x == 0)
-    for (int s = 0; s < kTmaStages; ++s) {
-      const int64_t t = blockIdx.x + (int64_t)s * gridDim.x;
-      if (t < n_tiles) issue(t, s);
-    }
-  int k = 0;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++k) {
-    const int s = k % kTmaStages;
-    mbar_wait(&full[s], (k / kTmaStages) & 1);
-    const int64_t b = t / tiles_per_plane;
-    const unsigned p = (unsigned)(t - b * tiles_per_plane) * kTile + threadIdx.x * kVec;
-    if (p < plane) {
-      const T* st = ring + s * 7 * kTile + threadIdx.x * kVec;
-      float vi[kVec], vf[kVec], vo[kVec], vg[kVec], vc[kVec], vdh[kVec], vdc[kVec];
-      load_once<kVec, false>(st, vi);
-      load_once<kVec, false>(st + kTile, vf);
-      load_once<kVec, false>(st + 2 * kTile, vo);
-      load_once<kVec, false>(st + 3 * kTile, vg);
-      load_once<kVec, false>(st + 4 * kTile, vc);
-      load_once<kVec, false>(st + 5 * kTile, vdh);
-      load_once<kVec, false>(st + 6 * kTile, vdc);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const float i = sigmoid_f32(vi[j]);
-        const float f = sigmoid_f32(vf[j]);
-        const float o = sigmoid_f32(vo[j]);
-        const float g = tanhf(vg[j]);
-        const float cv = vc[j];
-        const float tc = tanhf(f * cv + i * g);
-        const float dhv = vdh[j];
-        const float dct = vdc[j] + dhv * o * (1.0f - tc * tc);
-        vi[j] = dct * g * i * (1.0f - i);
-        vf[j] = dct * cv * f * (1.0f - f);
-        vo[j] = dhv * tc * o * (1.0f - o);
-        vg[j] = dct * i * (1.0f - g * g);
-        vc[j] = dct * f;
-      }
-      const int64_t cell = b * plane;
-      T* dzi = dz + 4 * cell + p;
-      store_vec<kVec>(dzi, vi);
-      store_vec<kVec>(dzi + plane, vf);
-      store_vec<kVec>(dzi + 2 * (int64_t)plane, vo);
-      store_vec<kVec>(dzi + 3 * (int64_t)plane, vg);
-      store_vec<kVec>(dc_out + cell + p, vc);
-    }
-    __syncthreads();  // every thread is done with stage s
-    if (threadIdx.x == 0 && t + (int64_t)kTmaStages * gridDim.x < n_tiles)
-      issue(t + (int64_t)kTmaStages * gridDim.x, s);
+    store_vec<kVec>(dzi, vi);
+    store_vec<kVec>(dzi + plane, vf);
+    store_vec<kVec>(dzi + 2 * (int64_t)plane, vo);
+    store_vec<kVec>(dzi + 3 * (int64_t)plane, vg);
+    store_vec<kVec>(dc_out + cell + p, vc);
   }
 }
 
@@ -377,14 +236,12 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int kVec, int kUnroll, bool kStream, int kBlock = 256,
-          int kMinBlocks = 1>
+template <typename T, int kVec>
 cudaError_t launch_bwd_as(const BwdArgs& a) {
-  constexpr int64_t tile = kBlock * kVec * kUnroll;
+  constexpr int64_t tile = kBwdThreads * kVec;
   const dim3 grid((unsigned)((a.plane + tile - 1) / tile),
                   (unsigned)(a.batch < 65535 ? a.batch : 65535));
-  lstm_gates_bwd_kernel<T, kVec, kUnroll, kStream, kBlock, kMinBlocks>
-      <<<grid, kBlock, 0, a.stream>>>(
+  lstm_gates_bwd_kernel<T, kVec><<<grid, kBwdThreads, 0, a.stream>>>(
       static_cast<const T*>(a.z), static_cast<const T*>(a.c),
       static_cast<const T*>(a.dh), static_cast<const T*>(a.dc_next),
       static_cast<T*>(a.dz), static_cast<T*>(a.dc_out), a.batch,
@@ -392,68 +249,20 @@ cudaError_t launch_bwd_as(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_tma(const BwdArgs& a) {
-  constexpr int64_t tile = kTmaThreads * (16 / sizeof(T));
-  const int64_t tiles_per_plane = (a.plane + tile - 1) / tile;
-  const int64_t n_tiles = a.batch * tiles_per_plane;
-  const int smem = kTmaStages * 7 * tile * sizeof(T);
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(lstm_gates_bwd_tma_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const int64_t blocks = n_tiles < 2 * sms ? n_tiles : 2 * sms;
-  lstm_gates_bwd_tma_kernel<T><<<(unsigned)blocks, kTmaThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.z), static_cast<const T*>(a.c),
-      static_cast<const T*>(a.dh), static_cast<const T*>(a.dc_next),
-      static_cast<T*>(a.dz), static_cast<T*>(a.dc_out), (unsigned)a.plane,
-      (unsigned)tiles_per_plane, n_tiles);
-  return cudaGetLastError();
-}
-
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Whether 16-byte vectors of T fit every stream of a.
+// 16-byte accesses where every stream allows them, else scalar ones.
 template <typename T>
-bool vectorizable(const BwdArgs& a) {
-  return a.plane % (16 / sizeof(T)) == 0 && aligned16(a.z) && aligned16(a.c) &&
-         aligned16(a.dh) && aligned16(a.dc_next) && aligned16(a.dz) &&
-         aligned16(a.dc_out);
-}
-
-// The design's steps, for measuring them against each other.
-template <typename T>
-cudaError_t launch_bwd_variant(const BwdArgs& a, int variant) {
+cudaError_t launch_bwd(const BwdArgs& a) {
   if (a.batch == 0 || a.plane == 0) return cudaSuccess;
   if (a.plane >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
   constexpr int kVec = 16 / sizeof(T);
-  if (variant >= 2 && !vectorizable<T>(a)) return cudaErrorInvalidValue;
-  switch (variant) {
-    case 0: return launch_bwd_as<T, 1, 1, false>(a);  // scalar
-    case 1: return launch_bwd_as<T, 1, 1, true>(a);   // scalar, evict-first
-    case 2: return launch_bwd_as<T, kVec, 1, false>(a);  // 16-byte
-    case 3: return launch_bwd_as<T, kVec, 1, true>(a);   // 16-byte, evict-first
-    case 4: return launch_bwd_as<T, kVec, 2, false>(a);  // 2 vectors a thread
-    case 5: return launch_bwd_as<T, kVec, 2, true>(a);
-    case 6: return launch_bwd_tma<T>(a);
-    case 7: return launch_bwd_as<T, kVec, 1, false, 128>(a);  // 128-thread blocks
-    case 8: return launch_bwd_as<T, kVec, 1, false, 512>(a);  // 512-thread blocks
-    case 9: return launch_bwd_as<T, kVec, 1, false, 256, 8>(a);  // <= 32 registers
-    case 10: return launch_bwd_as<T, 1, 4, false>(a);  // 4 scalars a thread
-  }
-  return cudaErrorInvalidValue;
-}
-
-// The design the wrapper launches: 16-byte accesses where every stream
-// allows them, else scalar ones.
-template <typename T>
-cudaError_t launch_bwd(const BwdArgs& a) {
-  return launch_bwd_variant<T>(a, vectorizable<T>(a) ? 2 : 0);
+  const bool vectorizable = a.plane % kVec == 0 && aligned16(a.z) && aligned16(a.c) &&
+                            aligned16(a.dh) && aligned16(a.dc_next) &&
+                            aligned16(a.dz) && aligned16(a.dc_out);
+  return vectorizable ? launch_bwd_as<T, kVec>(a) : launch_bwd_as<T, 1>(a);
 }
 
 }  // namespace
@@ -479,19 +288,5 @@ extern "C" int lstm_gates_backward(const void* z, const void* c,
                   static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)launch_bwd<float>(a);
   if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(a);
-  return (int)cudaErrorInvalidValue;
-}
-
-// lstm_gates_backward as one of the design's steps (launch_bwd_variant),
-// for tools/bench_gate_backward.py.
-extern "C" int lstm_gates_backward_variant(const void* z, const void* c,
-                                           const void* dh, const void* dc_next,
-                                           void* dz, void* dc_out,
-                                           long long batch, long long plane,
-                                           int dtype, void* stream, int variant) {
-  const BwdArgs a{z, c, dh, dc_next, dz, dc_out, batch, plane,
-                  static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_bwd_variant<float>(a, variant);
-  if (dtype == 1) return (int)launch_bwd_variant<__nv_bfloat16>(a, variant);
   return (int)cudaErrorInvalidValue;
 }
