@@ -6,23 +6,24 @@
 - ``train``: the core network on DTU (``data/dtu.py``), from scratch or
   from ``--loadckpt``, with checkpoints in ``--logdir`` and ``--resume``.
 
-Both run on the card by default (``--device cpu`` to run on the CPU), in
-fp32: bf16, the JAX CLI's default, is not ported, so ``--fp32`` is not
-needed and not taken.  Flags of the JAX CLI that the port does not
-implement yet are accepted by the parser only to fail with "not ported
-yet"; the JAX CLI's other subcommands are not ported.
+Both run on the card by default (``--device cpu`` to run on the CPU).
+``eval`` runs, as the JAX CLI does by default, in bf16 with the packed-row
+warp wherever its exactness gate passes and the fused squared residual;
+``--fp32 --packed_rows 0`` is the exact fp32 path.  ``train`` runs in
+fp32.  Flags of the JAX CLI that the port does not implement yet are
+accepted by the parser only to fail with "not ported yet"; the JAX CLI's
+other subcommands are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
 
-#: JAX ``eval`` flags the port does not implement yet (packed, folded and
-#: quantized warp levers, multi-device layouts, the evidential head,
-#: previews, dataset checks).
+#: JAX ``eval`` flags the port does not implement yet (FeatNet view
+#: chunks, quantized tables and residuals, multi-device layouts, the
+#: evidential head, previews, dataset checks).
 NOT_PORTED = (
-    "fold_omega", "packed_rows", "gather_pack", "table_taps", "feat_chunk",
-    "fp8_residual", "dual_residual", "int8_residual", "no_fused_residual",
+    "feat_chunk", "fp8_residual", "dual_residual", "int8_residual",
     "fp8_tables", "int8_tables", "fanout", "spatial", "depth_stages",
     "pipeline_maps", "evidential_ckpt", "depth_source", "save_png", "dry_check",
 )
@@ -34,6 +35,24 @@ NOT_PORTED_TRAIN = (
     "evidential", "head_ckpt", "maxdisp", "coordinator", "num_processes",
     "process_id", "spatial", "single_device",
 )
+
+
+def _fold_omega_arg(s: str):
+    """Strict parser for --fold_omega: {0, 1, hybrid} only, so that a typo
+    fails loudly instead of selecting another path."""
+    table = {"0": False, "1": True, "hybrid": "hybrid"}
+    if s not in table:
+        raise argparse.ArgumentTypeError(
+            f"--fold_omega must be 0, 1 or 'hybrid' (got {s!r})")
+    return table[s]
+
+
+def _packed_rows_arg(s: str):
+    table = {"0": False, "1": True, "auto": "auto"}
+    if s not in table:
+        raise argparse.ArgumentTypeError(
+            f"--packed_rows must be 0, 1 or 'auto' (got {s!r})")
+    return table[s]
 
 
 def _add_not_ported(p, names):
@@ -64,6 +83,25 @@ def _add_eval(sub):
                    help="depth interval scale (reference eval.py default 1.0)")
     p.add_argument("--inverse_depth", action="store_true",
                    help="open-ended inverse-depth sweep from each cam's depth_min")
+    p.add_argument("--fp32", action="store_true",
+                   help="fp32 features and sweep (default bf16)")
+    p.add_argument("--fold_omega", nargs="?", const=True, default=False,
+                   type=_fold_omega_arg,
+                   help="bare flag or '1': depth-folded cost layout; 'hybrid': "
+                        "the 2x2 gather with omega folded (same costs)")
+    p.add_argument("--packed_rows", default="auto", type=_packed_rows_arg,
+                   help="one 4x4 warp row per (view, pixel) serving the whole "
+                        "depth block; 'auto' (default) where the 2 px exactness "
+                        "gate passes, 1/0 force on/off")
+    p.add_argument("--gather_pack", type=int, default=1,
+                   help="one packed row serves gather_pack*depth_block "
+                        "hypotheses (gated per sample)")
+    p.add_argument("--table_taps", type=int, default=4, choices=[4, 6],
+                   help="packed window per axis: 6 stores 2.25x the table for "
+                        "a 4 px exactness span")
+    p.add_argument("--no_fused_residual", action="store_true",
+                   help="materialise the warped volume on packed samples "
+                        "(same result as the fused squared residual)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails where there is no card")
     _add_not_ported(p, NOT_PORTED)
@@ -104,6 +142,8 @@ def _add_train(sub):
 def cmd_eval(args):
     _refuse_not_ported(args, NOT_PORTED)
 
+    import torch
+
     from .data.eval_dataset import EvalDataset
     from .models.convert import load_reference_checkpoint
     from .models.network import AARMVSNetCore
@@ -130,8 +170,15 @@ def cmd_eval(args):
     model = load_reference_checkpoint(AARMVSNetCore(), args.loadckpt)
     stats = run_inference(
         model, ds,
-        InferConfig(out_root=args.outdir, depth_block=cfg.depth_block,
-                    device=args.device),
+        InferConfig(
+            out_root=args.outdir, depth_block=cfg.depth_block,
+            # As in the JAX CLI, the precision comes from --fp32 alone; the
+            # preset's use_bfloat16 is not read.
+            feature_dtype=torch.float32 if args.fp32 else torch.bfloat16,
+            fold_omega=args.fold_omega, packed_rows=args.packed_rows,
+            gather_pack=args.gather_pack, table_taps=args.table_taps,
+            fused_residual=not args.no_fused_residual, device=args.device,
+        ),
     )
     print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s")
 

@@ -1,6 +1,5 @@
 """The AA-RMVSNet core network, its blocks, the depth sweep, the training
-loss and the weight bridge (port of ``aa_rmvsnet_tpu/models``, exact fp32
-path)."""
+loss and the weight bridge (port of ``aa_rmvsnet_tpu/models``)."""
 
 from .network import (
     AARMVSNetCore,
@@ -8,6 +7,7 @@ from .network import (
     extract_features,
     forward,
     pick_depth_block,
+    pick_packed_rows,
     probability_volume,
     sweep,
 )
@@ -21,6 +21,7 @@ __all__ = [
     "load_reference_checkpoint",
     "params_from_jax",
     "pick_depth_block",
+    "pick_packed_rows",
     "probability_volume",
     "sweep",
 ]

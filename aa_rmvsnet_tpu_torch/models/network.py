@@ -1,7 +1,8 @@
-"""The core MVS network and its depth sweep, exact fp32 path (port of
-``aa_rmvsnet_tpu/models/network.py`` with ``SweepConfig()`` defaults:
-unpacked 2x2 patch-table warp, canonical omega, online WTA + logsumexp,
-and ``remat`` for training).
+"""The core MVS network and its depth sweep (port of
+``aa_rmvsnet_tpu/models/network.py``): the exact fp32 path, bf16 features,
+the packed-row warp with gather super-packing and 6x6 tables, the fused
+squared residual, folded omega, online WTA + logsumexp, and ``remat`` for
+training.
 
 ``forward`` runs FeatNet on every view, then sweeps the depth hypotheses
 block by block: per block it warps each source view through its patch
@@ -10,12 +11,29 @@ by omega and averages over views into the variance cost; each hypothesis
 then takes one step of the ConvLSTM U-Net, and an online winner-take-all +
 logsumexp carry yields depth and confidence.  The JAX ``lax.scan`` over
 blocks and slices is a Python loop here, and the view axis is a loop so
-that one view's gathered patch rows are live at a time.  With
+that one view's gathered rows are live at a time.  With
 ``SweepConfig.remat`` each depth block runs under one
 ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint(block_step)``),
 so backpropagation through time keeps only each block's input states
 between the forward and the backward, and one block's activations at a
 time while it runs.
+
+Four cost-block builders, chosen by ``SweepConfig`` as in the JAX package:
+
+- ``_build_cost_block``: a 2x2 row per (view, hypothesis, pixel), omega on
+  an ``(B*Db, 32, H, W)`` batch (or, ``fold_omega="hybrid"``, folded);
+- ``_build_cost_block_folded`` (``fold_omega=True``): the same gather in
+  pixel-major order, so the warped volume is already depth-folded;
+- ``_build_cost_block_packed`` (``packed_rows``): one 4x4 (or 6x6) row per
+  (view, pixel) serves the whole block, exact where
+  :func:`pick_packed_rows` passes, optionally emitting the squared
+  residual straight from the blend (``fused_residual``);
+- with ``gather_pack`` > 1 one packed row serves ``gather_pack`` blocks.
+
+In bf16 (``feature_dtype``) the sweep runs on a bf16 copy of the model:
+features, convolutions, GroupNorm, omega and the ConvLSTM in bf16 (the
+gate kernel computes in fp32 and stores bf16); coordinates, depths, the
+view sum's accumulator, WTA and logsumexp stay fp32.
 
 Public functions keep the JAX package's NHWC shapes; the modules run NCHW.
 Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block``,
@@ -27,18 +45,26 @@ per map.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
+from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from .aggregation import InterViewAA
+from .aggregation import InterViewAA, omega_folded
 from .feature import FeatNet
 from .regularizer import UNetConvLSTM, init_states
-from ..ops.homography import homography_terms, plane_sweep_xy
-from ..ops.patch_sample import build_patch_table, patch_bilinear_sample
+from ..ops.homography import homography_terms, max_depth_step_displacement, plane_sweep_xy
+from ..ops.patch_sample import (
+    build_patch_table_packed,
+    patch_bilinear_sample,
+    patch_bilinear_sample_packed,
+)
 
 
 class AARMVSNetCore(nn.Module):
@@ -54,14 +80,36 @@ class AARMVSNetCore(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class SweepConfig:
-    """depth_block: hypotheses per block (the largest divisor of D that is
-    at most this); remat: recompute each block in the backward pass
-    (training); collect_volume: also return the ``(B, D, H, W)``
-    regularized cost volume (the training loss needs it)."""
+    """Depth-sweep settings (the JAX ``SweepConfig`` fields the port has).
+
+    depth_block: hypotheses per block (the largest divisor of D that is at
+      most this).
+    remat: recompute each block in the backward pass (training, fp32).
+    collect_volume: also return the ``(B, D, H, W)`` regularized cost
+      volume (the training loss needs it).
+    feature_dtype: ``torch.float32`` (exact) or ``torch.bfloat16`` for
+      features, convolutions, omega and the ConvLSTM; inference only.
+    fold_omega: ``False``, ``"hybrid"`` (the 2x2 gather, omega folded) or
+      ``True`` (pixel-major gather, folded cost layout); all three compute
+      the same costs.  Ignored with ``packed_rows``.
+    packed_rows: one ``table_taps``-wide row per (view, pixel) serves the
+      whole block; exact only where :func:`pick_packed_rows` passes.
+    gather_pack: one packed row serves ``gather_pack`` blocks (packed only;
+      gate with ``depth_block = gather_pack * depth_block``).
+    table_taps: packed window per axis, 4 or 6 (exactness span 2 or 4 px).
+    fused_residual: the packed blend emits the squared residual, so the
+      warped volume never exists; bit for bit the unfused result.
+    """
 
     depth_block: int = 16
     remat: bool = False
     collect_volume: bool = True
+    feature_dtype: torch.dtype = torch.float32
+    fold_omega: Any = False  # False | "hybrid" | True
+    packed_rows: bool = False
+    gather_pack: int = 1
+    table_taps: int = 4
+    fused_residual: bool = False
 
 
 def pick_depth_block(num_depth: int, target: int) -> int:
@@ -72,21 +120,49 @@ def pick_depth_block(num_depth: int, target: int) -> int:
     return 1
 
 
-def extract_features(model: AARMVSNetCore, imgs: torch.Tensor) -> torch.Tensor:
-    """FeatNet on every view, one view at a time.
+def cast_model(model: AARMVSNetCore, dtype: torch.dtype) -> AARMVSNetCore:
+    """``model`` itself when its parameters are in ``dtype``, else a copy
+    in ``dtype``: the caller's model is never cast in place (the JAX
+    package casts a copy of the parameter tree the same way).  No gradient
+    reaches the caller's parameters through the copy: :func:`sweep` runs
+    one only under ``torch.no_grad()`` or ``inference_mode()``."""
+    if next(model.parameters()).dtype == dtype:
+        return model
+    return copy.deepcopy(model).to(dtype)
+
+
+def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """FeatNet on every view, one view at a time, in ``dtype``.
 
     Args:
       imgs: ``(B, V, H, W, 3)`` standardized images.
 
     Returns:
-      ``(V, B, H, W, 32)`` features (view-major for the sweep).
+      ``(V, B, H, W, 32)`` features in ``dtype`` (view-major for the sweep).
     """
+    model = cast_model(model, dtype)
     with record_function("featnet"):
         feats = [
-            model.feature(imgs[:, v].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            model.feature(imgs[:, v].to(dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             for v in range(imgs.shape[1])
         ]
         return torch.stack(feats)
+
+
+def _view_mean(terms) -> torch.Tensor:
+    """Mean over the source views of the reweighted residuals.  The sum
+    accumulates in fp32 and rounds once to the terms' dtype, as ``jnp.sum``
+    does for bf16; the division runs in that dtype.  fp32 terms are summed
+    in view order."""
+    acc, count = None, 0
+    for term in terms:
+        if acc is None:
+            acc, dtype = term.float(), term.dtype
+        else:
+            acc = acc + term
+        count += 1
+    return acc.to(dtype) / count
 
 
 def _build_cost_block(
@@ -96,31 +172,166 @@ def _build_cost_block(
     rot_grids: list[torch.Tensor],
     transes: list[torch.Tensor],
     depth_block: torch.Tensor,
+    hybrid_omega: bool = False,
 ) -> torch.Tensor:
     """Warp + squared residual + omega reweight + view mean for one block.
 
     Args:
-      ref_feat: ``(B, C, H, W)``.
-      src_tables: per source view, a ``(B, H*W, 4C)`` patch table.
+      ref_feat: ``(B, H, W, C)``.
+      src_tables: per source view, a ``(B, H*W, 4C)`` 2x2 patch table.
       rot_grids: per source view ``(B, 3, H*W)``; transes: ``(B, 3, 1)``.
       depth_block: ``(B, Db)``.
+      hybrid_omega: omega in its folded form on a transposed copy of the
+        residual (:func:`..models.aggregation.omega_folded`).
 
     Returns:
       ``(Db, B, C, H, W)`` negated variance cost slices.
     """
-    B, C, H, W = ref_feat.shape
+    B, H, W, C = ref_feat.shape
     Db = depth_block.shape[1]
-    variance = None
-    for table, rot_grid, trans in zip(src_tables, rot_grids, transes):
-        x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
-        warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1), H, W)
-        warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
-        residual_sq = (warped - ref_feat[:, None]) ** 2  # (B, Db, C, H, W)
-        weights = model.omega(residual_sq.reshape(B * Db, C, H, W))
-        term = (weights.view(B, Db, 1, H, W) + 1.0) * residual_sq
-        variance = term if variance is None else variance + term
-    variance = variance / len(src_tables)
-    return -variance.transpose(0, 1)
+    ref = ref_feat.permute(0, 3, 1, 2)[:, None]  # (B, 1, C, H, W), channels last
+
+    def terms():
+        for table, rot_grid, trans in zip(src_tables, rot_grids, transes):
+            x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
+            warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1), H, W)
+            warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
+            residual_sq = (warped - ref) ** 2  # (B, Db, C, H, W)
+            if hybrid_omega:
+                flat = residual_sq.permute(0, 3, 4, 1, 2).reshape(B, H, W, Db * C)
+                weights = omega_folded(model.omega, flat, Db).permute(0, 3, 1, 2)
+            else:
+                weights = model.omega(residual_sq.reshape(B * Db, C, H, W)).view(B, Db, H, W)
+            yield (weights[:, :, None] + 1.0) * residual_sq
+
+    return -_view_mean(terms()).transpose(0, 1)
+
+
+def _build_cost_block_folded(
+    model: AARMVSNetCore,
+    ref_feat: torch.Tensor,
+    src_tables: list[torch.Tensor],
+    rot_grids: list[torch.Tensor],
+    transes: list[torch.Tensor],
+    depth_block: torch.Tensor,
+) -> torch.Tensor:
+    """Depth-folded variant of :func:`_build_cost_block`: the 2x2 gather
+    runs in pixel-major order, so each view's warped volume is already
+    ``(B, H, W, Db*C)`` and omega and the variance run folded
+    (:func:`_cost_from_warped`, shared with the packed path)."""
+    B, H, W, C = ref_feat.shape
+
+    def warped():
+        for table, rot_grid, trans in zip(src_tables, rot_grids, transes):
+            x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
+            xt = x.transpose(1, 2).reshape(B, -1)  # pixel-major (B, H*W*Db)
+            yt = y.transpose(1, 2).reshape(B, -1)
+            yield patch_bilinear_sample(table, xt, yt, H, W).view(B, H, W, -1)
+
+    return _cost_from_warped(model, ref_feat, warped())
+
+
+def _warp_packed(table: torch.Tensor, rot_grid: torch.Tensor, trans: torch.Tensor,
+                 depth_block: torch.Tensor, H: int, W: int, taps: int = 4,
+                 ref_flat: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed warp of one source view, ``K = depth_block.shape[1]``
+    hypotheses per gathered row: the folded ``(B, H, W, K*C)`` warped
+    volume, or, given ``ref_flat`` (``(B, H*W, C)`` reference features), the
+    squared residual straight from the blend (``fused_residual``)."""
+    x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, K, H*W)
+    out = patch_bilinear_sample_packed(
+        table, x.transpose(1, 2), y.transpose(1, 2), H, W, taps=taps,
+        folded_out=True, ref=ref_flat,
+    )  # (B, H*W, K*C): groups = pixels
+    return out.view(out.shape[0], H, W, -1)
+
+
+def _build_cost_block_packed(
+    model: AARMVSNetCore,
+    ref_feat: torch.Tensor,
+    src_tables: list[torch.Tensor],
+    rot_grids: list[torch.Tensor],
+    transes: list[torch.Tensor],
+    depth_block: torch.Tensor,
+    table_taps: int = 4,
+    fused_residual: bool = False,
+) -> torch.Tensor:
+    """Packed-row variant: ONE ``table_taps``-wide row per (view, pixel)
+    serves the whole block, and the blend emits pixel-major ``(B, H, W,
+    Db*C)``, so omega and the variance run folded with no transpose.  Exact
+    only where :func:`pick_packed_rows` passes."""
+    B, H, W, C = ref_feat.shape
+    ref_flat = ref_feat.reshape(B, H * W, C) if fused_residual else None
+    warped = (_warp_packed(t, r, tr, depth_block, H, W, table_taps, ref_flat)
+              for t, r, tr in zip(src_tables, rot_grids, transes))
+    if fused_residual:
+        return _cost_from_residual(model, warped, C)
+    return _cost_from_warped(model, ref_feat, warped)
+
+
+def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped) -> torch.Tensor:
+    """Squared residual + omega + view mean on folded warped volumes.
+
+    Args:
+      ref_feat: ``(B, H, W, C)``.
+      warped: per source view a ``(B, H, W, Db*C)`` warped volume.
+
+    Returns:
+      ``(Db, B, C, H, W)`` negated variance cost slices.
+    """
+    C = ref_feat.shape[-1]
+
+    def residuals():
+        for w in warped:
+            ref_tiled = ref_feat.repeat(1, 1, 1, w.shape[-1] // C)  # (B, H, W, Db*C)
+            yield (w - ref_tiled) ** 2
+
+    return _cost_from_residual(model, residuals(), C)
+
+
+def _cost_from_residual(model: AARMVSNetCore, residuals, C: int) -> torch.Tensor:
+    """Omega reweight + view mean on folded squared residuals.
+
+    Args:
+      residuals: per source view a ``(B, H, W, Db*C)`` squared residual.
+
+    Returns:
+      ``(Db, B, C, H, W)`` negated variance cost slices, a strided view of
+      the pixel-major result (each slice is read once, by the regularizer's
+      first concatenation).
+    """
+    def terms():
+        for r in residuals:
+            B, H, W, DbC = r.shape
+            Db = DbC // C
+            weights = omega_folded(model.omega, r, Db)  # (B, H, W, Db)
+            yield (weights[..., None] + 1.0) * r.view(B, H, W, Db, C)
+
+    return -_view_mean(terms()).permute(3, 0, 4, 1, 2)  # from (B, H, W, Db, C)
+
+
+def pick_packed_rows(proj_matrices, depth_values, height: int, width: int,
+                     depth_block: int, margin: float = 0.95, taps: int = 4) -> bool:
+    """Host-side gate for ``SweepConfig.packed_rows``: True iff every
+    depth block's warp positions span at most ``taps - 2`` px per pixel,
+    with a safety ``margin``.  Gate with ``depth_block = gather_pack *
+    depth_block`` when super-packing.
+
+    Args:
+      proj_matrices: ``(V, 4, 4)`` or ``(B, V, 4, 4)`` (numpy).
+      depth_values: ``(D,)`` or ``(B, D)`` sweep depths.
+    """
+    pm = np.asarray(proj_matrices)
+    dv = np.asarray(depth_values)
+    if pm.ndim == 3:
+        pm = pm[None]
+    if dv.ndim == 1:
+        dv = dv[None]
+    for b in range(pm.shape[0]):
+        step = max_depth_step_displacement(pm[b, 1:], pm[b, 0], dv[b], height, width)
+        if (depth_block - 1) * step > (taps - 2.0) * margin:
+            return False
+    return True
 
 
 def sweep(
@@ -135,68 +346,114 @@ def sweep(
     Args:
       features: ``(V, B, H, W, C)`` per-view features (view 0 = reference).
       proj_matrices: ``(B, V, 4, 4)``.
-      depth_values: ``(B, D)`` hypothesis depths in sweep order.
+      depth_values: ``(B, D)`` hypothesis depths in sweep order (fp32).
 
     Returns dict with ``depth`` ``(B, H, W)`` winner-take-all depth,
     ``photometric_confidence`` ``(B, H, W)`` softmax probability of the
     winner, and, if ``config.collect_volume``, ``cost_volume``
-    ``(B, D, H, W)`` (its softmax over D is the probability volume).
+    ``(B, D, H, W)`` (its softmax over D is the probability volume), all
+    fp32.
     """
     V, B, H, W, C = features.shape
     D = depth_values.shape[1]
     block = pick_depth_block(D, config.depth_block)
+    dtype = config.feature_dtype
+    pack = config.gather_pack if config.packed_rows else 1
+    if config.gather_pack > 1 and not config.packed_rows:
+        raise ValueError("gather_pack > 1 requires packed_rows")
+    if config.fused_residual and not config.packed_rows:
+        raise ValueError("fused_residual requires packed_rows")
+    if D % (block * pack):
+        raise ValueError(
+            f"num_depth {D} not divisible by depth_block*gather_pack {block}*{pack}")
+    if dtype != torch.float32 and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"a {dtype} sweep runs on a copy of the model, which no gradient "
+            "reaches; run it under torch.no_grad() or inference_mode()")
+    model = cast_model(model, dtype)
     dev = features.device
 
     with record_function("sweep.setup"):
-        ref_feat = features[0].permute(0, 3, 1, 2).contiguous()
-        src_tables = [build_patch_table(features[v]) for v in range(1, V)]
+        features = features.to(dtype)
+        ref_feat = features[0]  # (B, H, W, C)
+        taps = config.table_taps if config.packed_rows else 2
+        src_tables = [build_patch_table_packed(features[v], taps) for v in range(1, V)]
         ref_proj = proj_matrices[:, 0]
         terms = [homography_terms(proj_matrices[:, v], ref_proj, H, W)
                  for v in range(1, V)]
         rot_grids = [t[0] for t in terms]
         transes = [t[1] for t in terms]
 
-        states = init_states(B, H, W, dtype=features.dtype, device=dev)
+        states = init_states(B, H, W, dtype=dtype, device=dev)
         depth_img = torch.zeros(B, H, W, dtype=torch.float32, device=dev)
         max_cost = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
         lse = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
 
-    def block_step(states, dblock):
-        """Cost block + one ConvLSTM step per hypothesis of ``dblock``.
+    if config.packed_rows:
+        build = functools.partial(_build_cost_block_packed, table_taps=config.table_taps,
+                                  fused_residual=config.fused_residual)
+    elif config.fold_omega == "hybrid":
+        build = functools.partial(_build_cost_block, hybrid_omega=True)
+    elif config.fold_omega:
+        build = _build_cost_block_folded
+    else:
+        build = _build_cost_block
+
+    def cost_blocks(dsuper):
+        """The ``pack`` cost blocks of a super block.  With gather_pack > 1
+        one packed gather serves them all, and each sub-block takes its
+        k-major columns of the folded result."""
+        if pack == 1:
+            return [build(model, ref_feat, src_tables, rot_grids, transes, dsuper)]
+        ref_flat = ref_feat.reshape(B, H * W, C) if config.fused_residual else None
+        warped = [_warp_packed(t, r, tr, dsuper, H, W, config.table_taps, ref_flat)
+                  for t, r, tr in zip(src_tables, rot_grids, transes)]
+        width = block * C
+        blocks = []
+        for i in range(pack):
+            cols = [w[..., i * width:(i + 1) * width] for w in warped]
+            blocks.append(_cost_from_residual(model, cols, C) if config.fused_residual
+                          else _cost_from_warped(model, ref_feat, cols))
+        return blocks
+
+    def block_step(states, dsuper):
+        """Cost blocks + one ConvLSTM step per hypothesis of ``dsuper``.
         The model, reference features, tables and homography terms come in
         by closure; under checkpoint their gradients still flow."""
         with record_function("sweep.cost_block"):
-            cost_block = _build_cost_block(
-                model, ref_feat, src_tables, rot_grids, transes, dblock
-            )
+            blocks = cost_blocks(dsuper)
         with record_function("sweep.regularize"):
             costs = []
-            for cost_slice in cost_block:
-                cost, states = model.cost_regularization(cost_slice, states)
-                costs.append(cost[:, 0])
-        return states, torch.stack(costs).float()  # (Db, B, H, W)
+            for cost_block in blocks:
+                for cost_slice in cost_block:
+                    cost, states = model.cost_regularization(cost_slice, states)
+                    costs.append(cost[:, 0])
+        return states, torch.stack(costs).float()  # (pack * block, B, H, W)
 
     volume = []
-    for start in range(0, D, block):
-        dblock = depth_values[:, start : start + block]  # (B, Db)
+    for start in range(0, D, block * pack):
+        dsuper = depth_values[:, start : start + block * pack]  # (B, pack * block)
         if config.remat:
-            states, costs = checkpoint(block_step, states, dblock,
-                                       use_reentrant=False)
+            states, costs = checkpoint(block_step, states, dsuper, use_reentrant=False)
         else:
-            states, costs = block_step(states, dblock)
+            states, costs = block_step(states, dsuper)
 
-        # Online WTA: argmax keeps the first maximum in the block and the
-        # strict > the earlier block on ties, as the reference's running
-        # argmax does.  No gradient flows through depth or confidence.
+        # Online WTA, one block at a time: argmax keeps the first maximum in
+        # the block and the strict > the earlier block on ties, as the
+        # reference's running argmax does.  No gradient flows through depth
+        # or confidence.
         with record_function("sweep.wta"), torch.no_grad():
-            block_best = torch.argmax(costs, dim=0)
-            block_max = costs.max(dim=0).values
-            block_depth = torch.gather(
-                dblock.T[:, :, None, None].expand_as(costs), 0, block_best[None]
-            )[0]
-            depth_img = torch.where(block_max > max_cost, block_depth, depth_img)
-            max_cost = torch.maximum(max_cost, block_max)
-            lse = torch.logaddexp(lse, torch.logsumexp(costs, dim=0))
+            for i in range(pack):
+                sub = costs[i * block:(i + 1) * block]
+                dblock = dsuper[:, i * block:(i + 1) * block]
+                block_best = torch.argmax(sub, dim=0)
+                block_max = sub.max(dim=0).values
+                block_depth = torch.gather(
+                    dblock.T[:, :, None, None].expand_as(sub), 0, block_best[None]
+                )[0]
+                depth_img = torch.where(block_max > max_cost, block_depth, depth_img)
+                max_cost = torch.maximum(max_cost, block_max)
+                lse = torch.logaddexp(lse, torch.logsumexp(sub, dim=0))
         if config.collect_volume:
             volume.append(costs)
 
@@ -215,14 +472,15 @@ def forward(
 ) -> dict:
     """Full forward: features + sweep.  ``imgs``: ``(B, V, H, W, 3)``.
 
-    Differentiable in the model's parameters through ``cost_volume``
-    (``depth`` and ``photometric_confidence`` carry no gradient).  On CUDA
-    every ConvLSTM cell launches the gate kernel once per hypothesis:
+    Differentiable in the model's parameters through ``cost_volume`` in
+    fp32 (``depth`` and ``photometric_confidence`` carry no gradient).  On
+    CUDA every ConvLSTM cell launches the gate kernel once per hypothesis:
     5 x D forward launches, and under ``remat`` 5 x D more when the
     backward recomputes each block, plus 5 x D backward-kernel launches.
     """
-    return sweep(model, extract_features(model, imgs), proj_matrices,
-                 depth_values, config)
+    model = cast_model(model, config.feature_dtype)
+    return sweep(model, extract_features(model, imgs, config.feature_dtype),
+                 proj_matrices, depth_values, config)
 
 
 def probability_volume(cost_volume: torch.Tensor) -> torch.Tensor:

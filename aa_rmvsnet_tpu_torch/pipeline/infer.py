@@ -1,14 +1,17 @@
 """Inference driver: depth and confidence maps for every sample of an eval
 dataset, written in the reference's on-disk layout so the existing fusion
 stage reads them unchanged (port of ``aa_rmvsnet_tpu/pipeline/infer.py``,
-exact fp32 path, one map at a time)::
+one map at a time)::
 
     <out_root>/<scan>/depth_est_0/<ref_view:08d>.pfm
     <out_root>/<scan>/confidence_0/<ref_view:08d>.pfm
 
 The depth map is the winner-take-all depth of the core network and the
 sweep runs with ``collect_volume=False``, so device memory stays
-O(depth_block) in the number of hypotheses.
+O(depth_block) in the number of hypotheses.  By default, as in the JAX
+package, the sweep runs in bf16 with the packed-row warp wherever its
+exactness gate passes (:func:`resolve_packed_mode`, per sample, outside
+the timed window) and the fused squared residual.
 """
 
 from __future__ import annotations
@@ -16,21 +19,44 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..core.pfm import save_pfm
 from ..data.loader import prefetch_samples
-from ..models.network import AARMVSNetCore, SweepConfig, forward
+from ..models.network import (
+    AARMVSNetCore,
+    SweepConfig,
+    cast_model,
+    forward,
+    pick_depth_block,
+    pick_packed_rows,
+)
 from ..utils.device import disable_tf32, resolve_device
 
 
 @dataclass
 class InferConfig:
+    """``feature_dtype``, ``fold_omega``, ``gather_pack``, ``table_taps``
+    and ``fused_residual`` as in :class:`..models.network.SweepConfig`.
+    ``packed_rows``: ``"auto"`` takes the packed warp per sample where its
+    exactness gate passes at ``pack_margin``, ``True`` forces it (the
+    super-pack and 6x6 levers stay gated), ``False`` never takes it.
+    ``gather_pack`` and ``table_taps`` are the most the gate may pick, and
+    ``fused_residual`` applies to packed samples only."""
+
     out_root: str
     depth_block: int = 8
+    feature_dtype: torch.dtype = torch.bfloat16
     num_workers: int = 8
+    fold_omega: Any = False  # False | "hybrid" | True
+    packed_rows: Any = "auto"  # "auto" | True | False
+    gather_pack: int = 1
+    table_taps: int = 4
+    fused_residual: bool = True
+    pack_margin: float = 0.95
     device: str = "cuda"
 
 
@@ -44,6 +70,57 @@ def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
              confidence.astype(np.float32))
 
 
+def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfig:
+    """The sweep settings of one map in packed ``mode`` (from
+    :func:`resolve_packed_mode`)."""
+    packed, gather_pack, table_taps = mode
+    return SweepConfig(
+        depth_block=config.depth_block,
+        collect_volume=False,
+        feature_dtype=config.feature_dtype,
+        fold_omega=config.fold_omega,
+        packed_rows=packed,
+        gather_pack=gather_pack if packed else 1,
+        table_taps=table_taps if packed else 4,
+        fused_residual=config.fused_residual and packed,
+    )
+
+
+def resolve_packed_mode(sample: dict, config: InferConfig) -> tuple[bool, int, int]:
+    """The packed mode ``(packed, gather_pack, taps)`` of one sample: the
+    first of ``(gather_pack, 4)``, ``(gather_pack, table_taps)``, ``(1,
+    4)``, ``(1, table_taps)`` whose exactness gate (and the divisibility
+    the sweep needs) passes, else the exact per-depth path.  At one row
+    count the 4x4 window goes first: its table takes 2.25x less memory.
+    ``packed_rows=True`` forces the packed path, but the super-pack and
+    6x6 levers stay gated: ungated, they silently lose taps."""
+    H, W = sample["imgs"].shape[1:3]
+    D = sample["depth_values"].shape[-1]
+    block = pick_depth_block(D, config.depth_block)
+
+    def gate(gp, taps):
+        return D % (block * gp) == 0 and pick_packed_rows(
+            sample["proj_matrices"], sample["depth_values"], H, W, block * gp,
+            margin=config.pack_margin, taps=taps,
+        )
+
+    modes = []
+    for gp in (config.gather_pack, 1):
+        for taps in (4, config.table_taps):
+            if (gp, taps) not in modes:
+                modes.append((gp, taps))
+    if config.packed_rows != "auto":
+        if not config.packed_rows:
+            return (False, 1, 4)
+        for gp, taps in modes:
+            if (gp, taps) == (1, 4) or gate(gp, taps):
+                return (True, gp, taps)
+    for gp, taps in modes:
+        if gate(gp, taps):
+            return (True, gp, taps)
+    return (False, 1, 4)
+
+
 def run_inference(
     model: AARMVSNetCore,
     dataset,
@@ -53,19 +130,23 @@ def run_inference(
     """Generate depth maps for every sample of ``dataset`` (anything with
     ``len`` and ``__getitem__`` returning the ``EvalDataset`` sample dict).
 
-    Moves ``model`` to ``config.device`` and sets it to eval mode.  Turns
-    TF32 off (see :func:`..utils.device.disable_tf32`).  A map's time runs
-    from the forward call to its depth and confidence on the host, after
-    ``torch.cuda.synchronize()``.
+    Moves ``model`` to ``config.device`` and sets it to eval mode; a bf16
+    run uses a bf16 copy of it.  Turns TF32 off (see
+    :func:`..utils.device.disable_tf32`).  A map's time runs from the
+    forward call to its depth and confidence on the host, after
+    ``torch.cuda.synchronize()``; the packed gate runs before it.
 
-    Returns ``{count, total_s, maps_per_s, map_seconds, failures}``.
+    Returns ``{count, total_s, maps_per_s, map_seconds, modes,
+    gate_seconds, failures}``: per map its seconds, its packed mode
+    ``(packed, gather_pack, taps)`` and the host seconds of its gate.
     """
     device = resolve_device(config.device)
     disable_tf32()
-    model.to(device).eval()
-    sweep_config = SweepConfig(depth_block=config.depth_block, collect_volume=False)
+    model = cast_model(model.to(device).eval(), config.feature_dtype)
 
     map_seconds: list[float] = []
+    modes: list[tuple[bool, int, int]] = []
+    gate_seconds: list[float] = []
     failures: list[str] = []
     with torch.inference_mode():
         for sample in prefetch_samples(dataset, num_workers=config.num_workers):
@@ -82,7 +163,11 @@ def run_inference(
                 np.asarray(sample["depth_values"], np.float32)[None]).to(device)
 
             t0 = time.perf_counter()
-            out = forward(model, imgs, proj, depths, sweep_config)
+            mode = resolve_packed_mode(sample, config)
+            gate_seconds.append(time.perf_counter() - t0)
+
+            t0 = time.perf_counter()
+            out = forward(model, imgs, proj, depths, sweep_config(config, mode))
             depth = out["depth"][0].cpu().numpy()
             conf = out["photometric_confidence"][0].cpu().numpy()
             if device.type == "cuda":
@@ -92,9 +177,10 @@ def run_inference(
             save_outputs(os.path.join(config.out_root, sample["scan"]),
                          sample["ref_view"], depth, conf)
             map_seconds.append(dt)
+            modes.append(mode)
             if progress:
                 print(f"[{len(map_seconds)}/{len(dataset)}] {sample['scan']}/"
-                      f"{sample['ref_view']:08d}  {dt:.3f}s", flush=True)
+                      f"{sample['ref_view']:08d}  {dt:.3f}s  packed mode {mode}", flush=True)
 
     if failures:
         print(f"run_inference: {len(failures)} sample(s) skipped due to load failures")
@@ -104,5 +190,7 @@ def run_inference(
         "total_s": total,
         "maps_per_s": len(map_seconds) / max(total, 1e-9),
         "map_seconds": map_seconds,
+        "modes": modes,
+        "gate_seconds": gate_seconds,
         "failures": failures,
     }

@@ -1,18 +1,28 @@
 """Where the time of one depth map goes on the card.
 
-    python -m aa_rmvsnet_tpu_torch.tools.profile_main_path [--num-depth 64] [--out DIR]
+    python -m aa_rmvsnet_tpu_torch.tools.profile_main_path [--config bf16-packed|fp32]
+        [--num-depth 64] [--out DIR]
 
 Runs the port's ``forward`` at the ``dtu_eval`` geometry (864x1152, V=5,
-depth_block 8), fp32 without TF32, on the synthetic plane scene with seeded
-weights (``utils/synthetic.py``), on one CUDA device:
+depth_block 8), TF32 off, on the synthetic plane scene with seeded weights
+(``utils/synthetic.py``; cameras 2 apart, so the packed gate passes), on
+one CUDA device, in the configuration of ``cli eval``'s defaults
+(``bf16-packed``: bf16, packed rows as ``resolve_packed_mode`` picks them,
+fused residual) or of ``--fp32 --packed_rows 0`` (``fp32``):
 
 1. a warm-up forward over one depth block;
 2. a timed forward: host clock around ``forward`` and
    ``torch.cuda.synchronize()``;
 3. the same forward under ``torch.profiler``: the device-timeline span of
-   each layer (the profiler ranges in ``models/network.py``), the
-   device's busy share of the profiled window (kernel time over wall
-   time), and the kernels by device time.
+   each layer (the profiler ranges in ``models/network.py``; a range that
+   cuDNN spreads over its own streams, as it does the bf16 grouped
+   convolutions of folded omega, counts once), the device's busy share of
+   the profiled window (kernel time over wall time), and the kernels by
+   device time;
+4. omega's two forms on one view's residual of a depth block, by CUDA
+   events: ``omega_folded`` (grouped convolutions on the folded residual
+   as it lies) and the canonical module on the ``(8, 32, H, W)`` batch,
+   with the transpose that batch needs.
 
 The per-step cost does not depend on D, so a cut D (default 64) scales to
 the full sweep: ``map_s_at_512`` = featnet + setup + 512 x the per-step
@@ -32,10 +42,18 @@ from collections import defaultdict
 
 import torch
 
-from ..models.network import SweepConfig, forward
+from ..models.aggregation import omega_folded
+from ..models.network import cast_model, forward
 from ..ops import gates
+from ..pipeline.infer import InferConfig, resolve_packed_mode, sweep_config
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.synthetic import plane_scene, seeded_model
+
+CONFIGS = {
+    "bf16-packed": InferConfig(out_root=""),
+    "fp32": InferConfig(out_root="", feature_dtype=torch.float32, packed_rows=False,
+                        fused_residual=False),
+}
 
 LAYERS = ("featnet", "sweep.setup", "sweep.cost_block", "sweep.regularize", "sweep.wta")
 KERNEL_GROUPS = (  # first match wins; matched on the lower-cased kernel name
@@ -53,8 +71,37 @@ def _group(name: str) -> str:
     return next(label for label, keys in KERNEL_GROUPS if any(k in low for k in keys))
 
 
+def _omega_forms_ms(model, H: int, W: int, dtype, block: int = 8) -> tuple[float, float]:
+    """Device ms of omega on one view's folded residual ``(1, H, W,
+    block*32)``: ``omega_folded`` on it as it lies, and the canonical
+    module on the ``(block, 32, H, W)`` batch (transpose included)."""
+    x = torch.rand(1, H, W, block * 32, device="cuda").to(dtype)
+
+    def folded():
+        omega_folded(model.omega, x, block)
+
+    def canonical():
+        batch = x.view(1, H, W, block, 32).permute(0, 3, 4, 1, 2).reshape(block, 32, H, W)
+        model.omega(batch)
+
+    times = []
+    for fn in (folded, canonical, canonical, folded):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 10)
+    return min(times[0], times[3]), min(times[1], times[2])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--config", choices=sorted(CONFIGS), default="bf16-packed",
+                        help="cli eval's defaults (bf16-packed) or its exact fp32 path")
     parser.add_argument("--num-depth", type=int, default=64,
                         help="depth hypotheses to sweep (a multiple of 8)")
     parser.add_argument("--out", help="directory for the Chrome trace")
@@ -69,12 +116,16 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     H, W, V, D = 864, 1152, 5, args.num_depth
-    (sample,) = plane_scene(H, W, V, D, maps=1, seed=3, focal=2000.0, baseline=10.0,
+    (sample,) = plane_scene(H, W, V, D, maps=1, seed=3, focal=2000.0, baseline=2.0,
                             plane_depth=600.0, depth_min=425.0, depth_interval=1.0)
-    model = seeded_model(0).to(device)
+    infer_config = CONFIGS[args.config]
+    mode = resolve_packed_mode(sample, infer_config)
+    if args.config == "bf16-packed" and mode != (True, 1, 4):
+        raise SystemExit(f"the packed gate picked {mode}, not (True, 1, 4)")
+    config = sweep_config(infer_config, mode)
+    model = cast_model(seeded_model(0).to(device), config.feature_dtype)
     inputs = [torch.from_numpy(sample[k])[None].to(device)
               for k in ("imgs", "proj_matrices", "depth_values")]
-    config = SweepConfig(depth_block=8, collect_volume=False)
 
     with torch.inference_mode():
         forward(model, inputs[0], inputs[1], inputs[2][:, :8], config)
@@ -91,14 +142,24 @@ def main(argv=None) -> int:
             forward(model, *inputs, config)
             torch.cuda.synchronize()
             prof_wall_s = time.perf_counter() - t0
+        omega_ms = _omega_forms_ms(model, H, W, config.feature_dtype)
 
     # On the device timeline a profiler range appears as a span over its
     # kernels (and any idle gaps between them); everything else there is a
     # kernel or a copy, and belongs to the range whose span holds its start.
     device_events = [ev for ev in prof.events()
                      if ev.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name)
-                   for ev in device_events if ev.name in LAYERS)
+    # A range appears once on every stream that ran its kernels: take the
+    # union of its intervals.
+    spans = []
+    for name in LAYERS:
+        for start, end in sorted((ev.time_range.start, ev.time_range.end)
+                                 for ev in device_events if ev.name == name):
+            if spans and spans[-1][2] == name and start <= spans[-1][1]:
+                spans[-1] = (spans[-1][0], max(end, spans[-1][1]), name)
+            else:
+                spans.append((start, end, name))
+    spans.sort()
     starts = [start for start, _, _ in spans]
     layers_ms = {name: 0.0 for name in LAYERS}
     for start, end, name in spans:
@@ -120,7 +181,8 @@ def main(argv=None) -> int:
     step_ms = sum(layers_ms[k] for k in LAYERS[2:]) / D
     map_s_at_512 = (layers_ms["featnet"] + layers_ms["sweep.setup"] + 512 * step_ms) / 1e3
 
-    print(f"{smi}; forward at {H}x{W}, V={V}, D={D}, depth_block 8, fp32 (TF32 off)")
+    print(f"{smi}; forward at {H}x{W}, V={V}, D={D}, depth_block 8, {args.config} "
+          f"(packed mode {mode}, TF32 off)")
     print(f"wall {wall_s:.3f} s unprofiled, {prof_wall_s:.3f} s profiled; device busy "
           f"{busy_ms / 1e3:.3f} s = {busy_ms / 1e3 / prof_wall_s:.1%} of the profiled window")
     print("device-timeline span by layer (profiler ranges):")
@@ -138,16 +200,20 @@ def main(argv=None) -> int:
     print("top kernels:")
     for name, ms in top:
         print(f"  {ms:10.2f} ms  {ms / busy_ms:6.1%}  {name[:110]}")
+    print(f"omega on one view's block residual (1, {H}, {W}, 256): folded (grouped convs) "
+          f"{omega_ms[0]:.3f} ms, canonical on the (8, 32, H, W) batch {omega_ms[1]:.3f} ms")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out, f"trace_d{D}.json"))
     print(json.dumps({"profile": {
-        "device": smi, "height": H, "width": W, "views": V, "num_depth": D,
+        "device": smi, "config": args.config, "packed_mode": mode,
+        "height": H, "width": W, "views": V, "num_depth": D,
         "wall_s": wall_s, "profiled_wall_s": prof_wall_s,
         "busy_share": busy_ms / 1e3 / prof_wall_s, "layers_ms": layers_ms,
         "step_ms": step_ms, "map_s_at_512": map_s_at_512,
         "groups_ms": dict(groups_ms), "layer_groups_ms": dict(cross_ms),
         "gate_launches": gates.launches,
+        "omega_ms": {"folded": omega_ms[0], "canonical": omega_ms[1]},
         "top_kernels_ms": dict(top),
     }}))
     return 0

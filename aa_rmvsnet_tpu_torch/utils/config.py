@@ -2,14 +2,17 @@
 ``EVAL_PRESETS`` / ``eval_preset`` and ``TrainRunConfig`` /
 ``train_preset`` in ``aa_rmvsnet_tpu/utils/config.py``).
 
+- ``dtu_eval_smoke``: 3 views, 192 hypotheses, 400x296, fp32;
+- ``dtu_eval``: DTU evaluation, 5 views, 512 hypotheses, up to 1152x864;
+- ``tnt_intermediate*``: Tanks and Temples, 7 views, inverse depth, padded;
 - ``dtu_train``: DTU training, 5 views, 128 hypotheses, interval_scale
   1.06, image_scale 0.25 (the 512x640 training images at 128x160;
   reference scripts/train_dtu.sh);
 - ``dtu_train_highres``: the same at image_scale 1.0 with 256 hypotheses.
 
-The port runs the exact fp32 path only, so the presets carry no precision
-field, and ``depth_block="auto"`` (an HBM estimate for the TPU) is not
-ported.
+``EvalRunConfig.use_bfloat16`` is carried as in the JAX package, where
+``cli eval`` takes the precision from ``--fp32`` alone and never reads
+it.  ``depth_block="auto"`` (an HBM estimate for the TPU) is not ported.
 """
 
 from __future__ import annotations
@@ -27,11 +30,12 @@ class EvalRunConfig:
     max_h: int = 864
     max_w: int = 1152
     depth_block: int = 8
+    use_bfloat16: bool = True
 
 
 EVAL_PRESETS: dict[str, dict] = {
     "dtu_eval_smoke": dict(nviews=3, ndepths=192, interval_scale=1.06,
-                           max_h=296, max_w=400),
+                           max_h=296, max_w=400, use_bfloat16=False),
     "dtu_eval": dict(nviews=5, ndepths=512, interval_scale=0.4,
                      max_h=864, max_w=1152),
     "dtu_eval_600x800": dict(nviews=7, ndepths=512, interval_scale=0.4,

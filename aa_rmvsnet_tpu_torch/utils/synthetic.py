@@ -6,7 +6,9 @@ fronto-parallel plane seen by cameras translating along x (the geometry of
 ``tests/scenefix.py:make_plane_scene``, without cv2 or files), and
 :func:`plane_train_sample` the ``DTUTrainDataset`` sample of that plane,
 its ground truth the plane's depth.
-:func:`seeded_model` gives the full-width core random weights from a seed.
+:func:`seeded_model` gives the full-width core random weights from a seed,
+and :func:`matching_model` the same with a regularizer that passes the
+photometric cost through, a stand-in for a trained network.
 """
 
 from __future__ import annotations
@@ -45,6 +47,38 @@ def seeded_model(seed: int) -> AARMVSNetCore:
             w.copy_(std * torch.randn(w.shape, generator=gen))
             mod.bias.zero_()
     return model.eval()
+
+
+def matching_model(seed: int, gain: float = 0.02, sharpness: float = 20.0) -> AARMVSNetCore:
+    """:func:`seeded_model` with the ConvLSTM U-Net replaced by a plane
+    sweep's winner-take-all on the reweighted variance: cell 0's first
+    hidden channel holds ``tanh(gain * sum of the 32 cost channels)`` (input
+    and output gates open, forget gate shut, by biases of +-8), cell 4's
+    first channel passes it on the same way, and the output conv averages
+    it over 3x3 pixels times ``sharpness``; every other regularizer weight
+    is zero.  FeatNet and omega keep their He-normal weights.
+
+    With random weights a pixel's costs are nearly flat across depth, so
+    any rounding moves its winner far: that measures ties, not precision.
+    This network's costs peak at the photometric match, as a trained
+    one's do, and its confidence is high where the match is clear, which
+    is what the JAX package's bf16 guardrail assumes of its weights.
+    ``gain`` keeps the sum of squared residuals of unit-variance features
+    (~64 at a wrong depth) inside tanh's slope.
+    """
+    model = seeded_model(seed)
+    reg = model.cost_regularization
+    with torch.no_grad():
+        for param in reg.parameters():
+            param.zero_()
+        for cell, g_inputs in ((reg.cell_list[0], slice(0, 32)), (reg.cell_list[4], slice(16, 17))):
+            hidden = cell.conv.out_channels // 4
+            bias = cell.conv.bias
+            bias[0], bias[hidden], bias[2 * hidden] = 8.0, -8.0, 8.0  # i, f, o of channel 0
+            weight = gain if cell is reg.cell_list[0] else 2.0
+            cell.conv.weight[3 * hidden, g_inputs, 1, 1] = weight  # g of channel 0
+        reg.conv_0.weight[0, 0] = sharpness / 9.0
+    return model
 
 
 def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,

@@ -12,7 +12,8 @@ Phases, each printing a line; any failure exits non-zero:
    version on the card, at the five cell shapes of a depth step of the
    inference main path (864x1152) and at an odd shape, fp32 (atol 1e-6)
    and bf16 (atol 2e-2); kernel, plain, library-call times and the
-   kernel's bound;
+   kernel's bound per depth step, in fp32 and in bf16 (the inference main
+   path's type);
 3b. backward kernel vs plain: the ConvLSTM gate-backward kernel against
    its plain version at the same shapes, at ``hidden=3`` (2, 3, 7, 5),
    whose plane is no multiple of the 16-byte vector, and with z and c as
@@ -37,10 +38,31 @@ Phases, each printing a line; any failure exits non-zero:
    kernels.  The deformable convs' offset kernels start at zero, the
    reference's init, so that no deform sample sits within an ulp of an
    integer coordinate, where the sampler's gradient jumps;
-5. main path, inference: ``run_inference`` at the ``dtu_eval`` geometry
-   (V=5, D=512, 864x1152, depth_block 8) on an in-memory synthetic plane
-   scene (``utils/synthetic.py``) for two reference views, with the gate
-   kernels' launch counts asserted (5 x D forward, no backward);
+4c. packed vs exact on the card, fp32, at 64x80, V=3, D=48: the packed-row
+   warp, gather_pack=2, and 6x6 tables with gather_pack=2 on a scene whose
+   16-hypothesis span lies between 2 and 4 px, each against the unpacked
+   path (depth equal on >= 99.9 % of pixels, cost volume atol 5e-4,
+   confidence atol 1e-4), with the mode the gate picks asserted; the fused
+   residual equal to the unfused one bit for bit;
+4d. the JAX package's bf16 guardrail (``tests/test_models.py:782-821``) on
+   the card: 256x320, V=3, D=128, the bf16 packed path against the exact
+   fp32 one, >= 95 % of pixels within one depth bin, and >= 99.9 % of the
+   pixels whose fp32 confidence exceeds 0.3 where those are more than half
+   the map (their share is printed either way).  The weights are
+   ``utils/synthetic.py:matching_model``'s (He-normal FeatNet and omega, a
+   regularizer that passes the photometric cost through): the guardrail
+   was set for trained weights, and random ones leave the costs flat;
+5. main path, inference: ``run_inference`` with ``InferConfig()``'s
+   defaults (bf16, packed rows where the gate passes, fused residual) at
+   the ``dtu_eval`` geometry (V=5, D=512, 864x1152, depth_block 8) on an
+   in-memory synthetic plane scene (``utils/synthetic.py``; cameras 2
+   apart, so that the 4x4 gate passes) for two reference views, with the
+   packed mode (True, 1, 4) of both maps and the gate kernels' launch
+   counts asserted (5 x D x maps forward, no backward), the gate's worst
+   step and host seconds printed;
+5b. the exact path kept: one map of the same scene with ``--fp32
+   --packed_rows 0``'s settings, its launch count asserted, and the share
+   of its depths within one bin of the bf16 packed map's;
 6. main path, training: ``run_training`` at the ``dtu_train`` geometry
    (128x160, V=5, D=128, depth_block 16, batch 1, Adam 1e-3 on the
    cosine schedule of a 10-epoch DTU run) for 8 steps on one synthetic
@@ -50,7 +72,9 @@ Phases, each printing a line; any failure exits non-zero:
 
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
-``launches_by_path`` gives it for both main paths.  The last line is
+``launches_by_path`` gives it for every main path (phases 5, 5b and 6);
+``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
+depth step, and the forward kernel's ``*_bf16`` keys the same in bf16.  The last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, made from a seed
 (``utils/synthetic.py:seeded_model``).
 TF32 is off throughout: cuDNN would otherwise run the fp32 convolutions in
@@ -73,8 +97,11 @@ import torch
 SEED = 0
 # Main path: the dtu_eval preset geometry.
 MAIN_H, MAIN_W, MAIN_V, MAIN_D, MAIN_BLOCK, MAIN_MAPS = 864, 1152, 5, 512, 8, 2
-# Small whole-path check, CUDA against CPU.
+MAIN_DEPTH_MIN, MAIN_DEPTH_INTERVAL = 425.0, 1.0
+# Small whole-path check, CUDA against CPU, and packed against exact.
 SMALL_H, SMALL_W, SMALL_V, SMALL_D = 64, 80, 3, 48
+# The bf16 guardrail of the JAX package.
+GUARD_H, GUARD_W, GUARD_V, GUARD_D = 256, 320, 3, 128
 # Small training check, CUDA against CPU.
 GRAD_D, GRAD_BLOCK = 16, 8
 # Training main path: the dtu_train preset geometry, 8 steps.
@@ -162,7 +189,8 @@ def phase_kernel() -> dict:
     odd = [(2, 16, 9, 13), (2, 8, 9, 13)]
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     bars = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
-    fp32_inputs = []
+    inputs = {torch.float32: [], torch.bfloat16: []}  # the five cells' (z, c)
+    times = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             for shape in cells + odd:
@@ -187,53 +215,63 @@ def phase_kernel() -> dict:
                 if not ok:
                     _fail(f"lstm_gates disagrees with its plain version at {shape} {dtype}")
                 max_err[dtype] = max(max_err[dtype], err)
-                if dtype == torch.float32 and shape in cells:
-                    fp32_inputs.append((z, c))
+                if shape in cells:
+                    inputs[dtype].append((z, c))
 
-        # One depth step's five launches in main-path order: 0.92 GB, far
-        # beyond the 50 MB L2, so each launch finds its inputs cold.
-        def kernel_step():
-            for z, c in fp32_inputs:
-                gates.lstm_gates(z, c)
+        for dtype, step_inputs in inputs.items():
+            # One depth step's five launches in main-path order: 0.92 GB in
+            # fp32, 0.46 GB in bf16, far beyond the 50 MB L2, so each launch
+            # finds its inputs cold.
+            def kernel_step():
+                for z, c in step_inputs:
+                    gates.lstm_gates(z, c)
 
-        def plain_step():
-            for z, c in fp32_inputs:
-                gates.lstm_gates_reference(z, c)
+            def plain_step():
+                for z, c in step_inputs:
+                    gates.lstm_gates_reference(z, c)
 
-        lib_inputs = [_to_library_layout(z, c) for z, c in fp32_inputs]
-        lib_err = 0.0
-        for (z, c), (zl, cl) in zip(fp32_inputs, lib_inputs):
-            hy, cy, _ = _library_gates(zl, cl)
-            h_p, c_p = gates.lstm_gates_reference(z, c)
-            B, h, H, W = c.shape
-            h_p = h_p.permute(0, 2, 3, 1).reshape(-1, h)
-            c_p = c_p.permute(0, 2, 3, 1).reshape(-1, h)
-            lib_err = max(lib_err, (hy - h_p).abs().max().item(),
-                          (cy - c_p).abs().max().item())
-        if lib_err > 1e-5:
-            _fail(f"library yardstick computes another function (err {lib_err:.3e})")
+            lib_inputs = [_to_library_layout(z, c) for z, c in step_inputs]
+            lib_err = 0.0
+            for (z, c), (zl, cl) in zip(step_inputs, lib_inputs):
+                hy, cy, _ = _library_gates(zl, cl)
+                h_p, c_p = gates.lstm_gates_reference(z, c)
+                B, h, H, W = c.shape
+                h_p = h_p.permute(0, 2, 3, 1).reshape(-1, h)
+                c_p = c_p.permute(0, 2, 3, 1).reshape(-1, h)
+                lib_err = max(lib_err, (hy.float() - h_p.float()).abs().max().item(),
+                              (cy.float() - c_p.float()).abs().max().item())
+            if lib_err > (1e-5 if dtype == torch.float32 else bars[dtype]):
+                _fail(f"library yardstick computes another function in {dtype} "
+                      f"(err {lib_err:.3e})")
 
-        def library_step():
-            for zl, cl in lib_inputs:
-                _library_gates(zl, cl)
+            def library_step():
+                for zl, cl in lib_inputs:
+                    _library_gates(zl, cl)
 
-        ms = _cuda_time_ms(kernel_step, reps=50)
-        plain_ms = _cuda_time_ms(plain_step, reps=10)
-        library_ms = _cuda_time_ms(library_step, reps=20)
-        ms_again = _cuda_time_ms(kernel_step, reps=50)
+            ms = _cuda_time_ms(kernel_step, reps=50)
+            plain_ms = _cuda_time_ms(plain_step, reps=10)
+            library_ms = _cuda_time_ms(library_step, reps=20)
+            ms_again = _cuda_time_ms(kernel_step, reps=50)
+            del lib_inputs
 
-    elems = sum(B * h * H * W for B, h, H, W in cells)
-    nbytes = elems * 4 * (4 + 1 + 2)  # read i, f, o, g, c; write h', c'
-    bytes_ms = nbytes / memory_bytes_per_s() * 1e3
-    # ~30 fp32 operations per element (3 sigmoids, 2 tanh, 3 FMAs) at the
-    # card's 67 TFLOP/s non-tensor fp32 peak: far under the byte bound.
-    ops_ms = elems * 30 / 67e12 * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"kernel: one depth step = 5 launches, {elems / 1e6:.2f} M elements, "
-          f"{nbytes / 1e9:.3f} GB: kernel {ms:.4f} ms (again {ms_again:.4f}), "
-          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
-          f"(_thnn_fused_lstm_cell, max_abs_err vs plain {lib_err:.1e}), "
-          f"bound {bound_ms:.4f} ms by bytes ({bytes_ms / ms:.0%} of it)", flush=True)
+            elems = sum(B * h * H * W for B, h, H, W in cells)
+            nbytes = elems * step_inputs[0][0].element_size() * (4 + 1 + 2)  # i, f, o, g, c; h', c'
+            bytes_ms = nbytes / memory_bytes_per_s() * 1e3
+            # ~30 fp32 operations per element (3 sigmoids, 2 tanh, 3 FMAs) at
+            # the card's 67 TFLOP/s non-tensor fp32 peak, whatever the storage
+            # type: far under the byte bound.
+            ops_ms = elems * 30 / 67e12 * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            times[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound_ms,
+                                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"kernel: {str(dtype)[6:]}, one depth step = 5 launches, "
+                  f"{elems / 1e6:.2f} M elements, {nbytes / 1e9:.3f} GB: kernel {ms:.4f} ms "
+                  f"(again {ms_again:.4f}), plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms (_thnn_fused_lstm_cell, max_abs_err vs plain "
+                  f"{lib_err:.1e}), bound {bound_ms:.4f} ms by bytes ({bound_ms / ms:.0%} "
+                  "of it)", flush=True)
+    fp32, bf16 = times[torch.float32], times[torch.bfloat16]
     return {
         "name": "lstm_gates",
         "route": "cuda",
@@ -241,11 +279,9 @@ def phase_kernel() -> dict:
         "replaces": "aa_rmvsnet_tpu/ops/pallas/gates.py:41",
         "launches": None,
         "max_abs_err": max_err[torch.float32],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        **fp32,
+        **{f"{k}_bf16": v for k, v in bf16.items()},
+        "max_abs_err_bf16": max_err[torch.bfloat16],
     }
 
 
@@ -569,25 +605,163 @@ def phase_train_small() -> None:
         _fail("CUDA training gradients disagree with the CPU ones")
 
 
-def phase_main() -> int:
-    from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
-    from aa_rmvsnet_tpu_torch.ops import gates
-    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+def _packed_bars(name: str, out: dict, exact: dict) -> None:
+    """Packed against exact: depth equal on >= 99.9 % of pixels, cost
+    volume atol 5e-4, confidence atol 1e-4."""
+    same = (out["depth"] == exact["depth"]).float().mean().item()
+    cost_err = (out["cost_volume"] - exact["cost_volume"]).abs().max().item()
+    conf_err = (out["photometric_confidence"]
+                - exact["photometric_confidence"]).abs().max().item()
+    ok = same >= 0.999 and cost_err <= 5e-4 and conf_err <= 1e-4
+    print(f"packed: {name} vs the unpacked path: depth equal on {same:.4%} of pixels "
+          f"(bar 99.9%), cost volume max_abs_err {cost_err:.3e} (bar 5e-4), confidence "
+          f"{conf_err:.3e} (bar 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"{name} disagrees with the unpacked path")
+
+
+def phase_packed_small() -> None:
+    from aa_rmvsnet_tpu_torch.models import SweepConfig, forward, pick_packed_rows
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, resolve_packed_mode
     from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene, seeded_model
 
-    depth_min, depth_interval = 425.0, 1.0
-    samples = plane_scene(MAIN_H, MAIN_W, MAIN_V, MAIN_D, maps=MAIN_MAPS, seed=SEED + 3,
-                          focal=2000.0, baseline=10.0, plane_depth=600.0,
-                          depth_min=depth_min, depth_interval=depth_interval)
+    model = seeded_model(SEED).cuda()
+
+    def scene(baseline):
+        (sample,) = plane_scene(SMALL_H, SMALL_W, SMALL_V, SMALL_D, maps=1, seed=SEED + 2,
+                                focal=400.0, baseline=baseline, plane_depth=500.0,
+                                depth_min=425.0, depth_interval=2.5)
+        return sample
+
+    def expect_mode(sample, want, **levers):
+        got = resolve_packed_mode(sample, InferConfig(out_root="", feature_dtype=torch.float32,
+                                                      **levers))
+        if got != want:
+            _fail(f"the packed gate picked {got} where this phase needs {want}")
+
+    def run(sample, **config):
+        args = [torch.from_numpy(sample[k])[None].cuda()
+                for k in ("imgs", "proj_matrices", "depth_values")]
+        with torch.inference_mode():
+            return forward(model, *args, SweepConfig(depth_block=8, **config))
+
+    near = scene(2.0)
+    expect_mode(near, (True, 2, 4), gather_pack=2)
+    exact = run(near)
+    packed = run(near, packed_rows=True)
+    _packed_bars("packed rows (4x4)", packed, exact)
+    fused = run(near, packed_rows=True, fused_residual=True)
+    same = torch.equal(fused["cost_volume"], packed["cost_volume"])
+    print(f"packed: fused residual equals the unfused one bit for bit: {same}", flush=True)
+    if not same:
+        _fail("the fused residual differs from the unfused one")
+    _packed_bars("gather_pack=2 (4x4)", run(near, packed_rows=True, gather_pack=2), exact)
+
+    # Cameras 15 apart: one step moves a sample 0.165 px, so 16 hypotheses
+    # span 2.5 px, past the 4x4 window's 2 px and within the 6x6 one's 4.
+    far = scene(15.0)
+    block16 = (far["proj_matrices"], far["depth_values"], SMALL_H, SMALL_W, 16)
+    if pick_packed_rows(*block16, taps=4) or not pick_packed_rows(*block16, taps=6):
+        _fail("the 6x6 scene's 16-hypothesis span is not in (2, 4] px")
+    expect_mode(far, (True, 2, 6), gather_pack=2, table_taps=6)
+    _packed_bars("6x6 tables with gather_pack=2",
+                 run(far, packed_rows=True, gather_pack=2, table_taps=6, fused_residual=True),
+                 run(far))
+
+
+def phase_bf16_guardrail() -> None:
+    from aa_rmvsnet_tpu_torch.models import SweepConfig, forward
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, resolve_packed_mode, sweep_config
+    from aa_rmvsnet_tpu_torch.utils.synthetic import matching_model, plane_scene
+
+    # The middle of three cameras 16 apart, the plane at 480 (a hypothesis):
+    # the sources are the texture shifted by exactly 20 px either way, so at
+    # the plane's depth the warp hits whole pixels and the residual vanishes,
+    # and the nearest depth step moves a sample 0.26 px (8 hypotheses span
+    # 1.85 px, inside the 4x4 gate's 1.9).
+    depth_interval = 2.5
+    sample = plane_scene(GUARD_H, GUARD_W, GUARD_V, GUARD_D, maps=2, seed=SEED + 7,
+                         focal=600.0, baseline=16.0, plane_depth=480.0, depth_min=425.0,
+                         depth_interval=depth_interval)[1]
+    config = InferConfig(out_root="")
+    mode = resolve_packed_mode(sample, config)
+    if mode != (True, 1, 4):
+        _fail(f"the packed gate picked {mode} for the guardrail scene, not (True, 1, 4)")
+    # Random weights give nearly flat costs, whose winner any rounding moves
+    # far: the guardrail assumes a network whose costs peak at the match.
+    model = matching_model(SEED).cuda()
+    args = [torch.from_numpy(sample[k])[None].cuda()
+            for k in ("imgs", "proj_matrices", "depth_values")]
+    with torch.inference_mode():
+        bf16 = forward(model, *args, sweep_config(config, mode))
+        fp32 = forward(model, *args, SweepConfig(depth_block=8, collect_volume=False))
+    within = ((bf16["depth"] - fp32["depth"]).abs() <= depth_interval + 1e-6).cpu().numpy()
+    confident = (fp32["photometric_confidence"] > 0.3).cpu().numpy()
+    share, conf_share = within.mean(), confident.mean()
+    conf_within = within[confident].mean() if confident.any() else 0.0
+    ok = share >= 0.95
+    if conf_share > 0.5:
+        ok = ok and conf_within >= 0.999
+        note = f"{conf_within:.4%} of them within one bin (bar 99.9%)"
+    else:
+        note = ("untrained weights leave too few confident pixels for the confident-pixel "
+                "bar, which applies where they are more than half the map")
+    on_plane = ((fp32["depth"] - 480.0).abs() <= depth_interval + 1e-6).float().mean().item()
+    print(f"bf16 guardrail at {GUARD_H}x{GUARD_W}, V={GUARD_V}, D={GUARD_D}, packed mode "
+          f"{mode}, bf16 vs exact fp32: {share:.4%} of pixels within one depth bin (bar 95%); "
+          f"fp32 confidence > 0.3 on {conf_share:.2%} of pixels, {note}; the fp32 depth is "
+          f"within one bin of the plane on {on_plane:.2%} of pixels "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail("the bf16 packed path fails the bf16 guardrail")
+
+
+def _check_maps(out_root: str, maps: int, depth_min: float, depth_max: float) -> np.ndarray:
+    """The PFMs of ``maps`` maps: shapes, finite values, depth in the sweep,
+    confidence in (0, 1].  Returns map 0's depth."""
+    from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
+
+    first = None
+    for ref in range(maps):
+        depth, _ = read_pfm(os.path.join(out_root, "scan1", "depth_est_0", f"{ref:08d}.pfm"))
+        conf, _ = read_pfm(os.path.join(out_root, "scan1", "confidence_0", f"{ref:08d}.pfm"))
+        if depth.shape != (MAIN_H, MAIN_W) or conf.shape != (MAIN_H, MAIN_W):
+            _fail(f"map {ref}: shapes {depth.shape} / {conf.shape}")
+        if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
+            _fail(f"map {ref}: non-finite values")
+        if depth.min() < depth_min or depth.max() > depth_max:
+            _fail(f"map {ref}: depth outside the sweep [{depth_min}, {depth_max}]")
+        if conf.min() <= 0.0 or conf.max() > 1.0 + 1e-6:
+            _fail(f"map {ref}: confidence outside (0, 1]")
+        first = depth if first is None else first
+    return first
+
+
+
+def _main_scene():
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene
+
+    # Cameras 2 apart: the worst depth step moves a sample < 0.1 px, so 8
+    # hypotheses span < 1 px and the 4x4 packed gate passes.
+    return plane_scene(MAIN_H, MAIN_W, MAIN_V, MAIN_D, maps=MAIN_MAPS, seed=SEED + 3,
+                       focal=2000.0, baseline=2.0, plane_depth=600.0,
+                       depth_min=MAIN_DEPTH_MIN, depth_interval=MAIN_DEPTH_INTERVAL)
+
+
+def phase_main(samples) -> tuple[int, np.ndarray]:
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.ops.homography import max_depth_step_displacement
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    steps = [max_depth_step_displacement(s["proj_matrices"][1:], s["proj_matrices"][0],
+                                         s["depth_values"], MAIN_H, MAIN_W) for s in samples]
     model = seeded_model(SEED)
     with tempfile.TemporaryDirectory() as out_root:
         torch.cuda.reset_peak_memory_stats()
         gates.launches = gates.backward_launches = 0
-        stats = run_inference(
-            model, samples,
-            InferConfig(out_root=out_root, depth_block=MAIN_BLOCK, num_workers=2,
-                        device="cuda"),
-        )
+        stats = run_inference(model, samples,
+                              InferConfig(out_root=out_root, num_workers=2, device="cuda"))
         launches = gates.launches
         backward = gates.backward_launches
         peak = torch.cuda.max_memory_allocated()
@@ -596,26 +770,51 @@ def phase_main() -> int:
             _fail(f"main path wrote {stats['count']} maps with {launches} gate "
                   f"kernel and {backward} backward launches; expected {MAIN_MAPS}, "
                   f"{expect} and 0")
-        depth_max = depth_min + depth_interval * (MAIN_D - 1)
-        for ref in range(MAIN_MAPS):
-            depth, _ = read_pfm(os.path.join(out_root, "scan1", "depth_est_0",
-                                             f"{ref:08d}.pfm"))
-            conf, _ = read_pfm(os.path.join(out_root, "scan1", "confidence_0",
-                                            f"{ref:08d}.pfm"))
-            if depth.shape != (MAIN_H, MAIN_W) or conf.shape != (MAIN_H, MAIN_W):
-                _fail(f"map {ref}: shapes {depth.shape} / {conf.shape}")
-            if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
-                _fail(f"map {ref}: non-finite values")
-            if depth.min() < depth_min or depth.max() > depth_max:
-                _fail(f"map {ref}: depth outside the sweep [{depth_min}, {depth_max}]")
-            if conf.min() <= 0.0 or conf.max() > 1.0 + 1e-6:
-                _fail(f"map {ref}: confidence outside (0, 1]")
+        if stats["modes"] != [(True, 1, 4)] * MAIN_MAPS:
+            _fail(f"main path took packed modes {stats['modes']}, not (True, 1, 4)")
+        depth0 = _check_maps(out_root, MAIN_MAPS, MAIN_DEPTH_MIN,
+                             MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
     secs = ", ".join(f"{s:.3f}" for s in stats["map_seconds"])
-    print(f"main: run_inference at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}, "
-          f"depth_block {MAIN_BLOCK}: {MAIN_MAPS} maps, seconds per map [{secs}], "
-          f"peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
-          f"(= 5 x {MAIN_D} x {MAIN_MAPS}); PFMs finite, depth in the sweep, "
+    gate_secs = ", ".join(f"{s:.3f}" for s in stats["gate_seconds"])
+    print(f"main: run_inference, InferConfig() defaults (bf16, packed rows, fused residual), "
+          f"at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}, depth_block {MAIN_BLOCK}: "
+          f"{MAIN_MAPS} maps, packed modes {stats['modes']}, gate's worst step "
+          f"[{', '.join(f'{x:.4f}' for x in steps)}] px (8 hypotheses span "
+          f"{7 * max(steps):.3f} px), gate host seconds [{gate_secs}], seconds per map "
+          f"[{secs}], peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
+          f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16); PFMs finite, depth in the sweep, "
           "confidence in (0, 1]", flush=True)
+    return launches, depth0
+
+
+def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    model = seeded_model(SEED)
+    with tempfile.TemporaryDirectory() as out_root:
+        torch.cuda.reset_peak_memory_stats()
+        gates.launches = gates.backward_launches = 0
+        stats = run_inference(model, samples[:1], InferConfig(
+            out_root=out_root, feature_dtype=torch.float32, packed_rows=False,
+            fused_residual=False, num_workers=2, device="cuda"))
+        launches = gates.launches
+        backward = gates.backward_launches
+        peak = torch.cuda.max_memory_allocated()
+        if stats["count"] != 1 or launches != 5 * MAIN_D or backward != 0 \
+                or stats["modes"] != [(False, 1, 4)]:
+            _fail(f"exact path wrote {stats['count']} maps in modes {stats['modes']} with "
+                  f"{launches} gate kernel and {backward} backward launches; expected 1, "
+                  f"(False, 1, 4), {5 * MAIN_D} and 0")
+        depth0 = _check_maps(out_root, 1, MAIN_DEPTH_MIN,
+                             MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+    within = np.mean(np.abs(depth0 - packed_depth0) <= MAIN_DEPTH_INTERVAL + 1e-6)
+    print(f"main-exact: run_inference, fp32, packed_rows=False, fused_residual=False, at "
+          f"{MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}: 1 map in {stats['map_seconds'][0]:.3f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
+          f"(= 5 x {MAIN_D}, fp32); the bf16 packed map 0 is within one depth bin of it on "
+          f"{within:.4%} of pixels", flush=True)
     return launches
 
 
@@ -700,11 +899,17 @@ def main() -> int:
     backward = phase_backward_kernel()
     phase_small()
     phase_train_small()
-    infer_launches = phase_main()
+    phase_packed_small()
+    phase_bf16_guardrail()
+    samples = _main_scene()
+    bf16_launches, packed_depth0 = phase_main(samples)
+    fp32_launches = phase_main_exact(samples, packed_depth0)
     forward["launches"], backward["launches"] = phase_train()
-    forward["launches_by_path"] = {"inference": infer_launches,
+    forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
+                                   "inference_fp32": fp32_launches,
                                    "training": forward["launches"]}
-    backward["launches_by_path"] = {"inference": 0, "training": backward["launches"]}
+    backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
+                                    "training": backward["launches"]}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [forward, backward]}), flush=True)
     print(json.dumps({"ok": True, "device": {

