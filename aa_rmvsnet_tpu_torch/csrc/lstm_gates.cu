@@ -25,34 +25,38 @@
 // copies, no concat, and none of the TPU kernel's (rows, 128) padding), and
 // all outputs of a direction come out of one pass.  Neighbouring threads
 // touch neighbouring pixels, so every load and store is coalesced.  The
-// math runs in fp32 whatever the storage type, with the accurate
-// expf/tanhf (no fast-math intrinsics: the fp32 bars are 1e-6 forward,
-// 1e-5 backward).
+// math runs in fp32 whatever the storage type.
 //
-// The backward, 5 x D launches a training step, is laid out for Hopper's
-// memory system; the forward keeps the simpler grid-stride loop, which
-// already runs 2x faster than its library counterpart:
+// At 14 B an element (the bf16 forward) the bytes leave the card only ~120
+// thread instructions an element, so the instruction count matters as much
+// as the bytes.  Both directions share one layout, laid out for Hopper:
 //
 // - No division, 32-bit offsets.  A 2D grid: blockIdx.y is the batch
 //   (looping past 65,535) and blockIdx.x a tile of that batch's plane, so
 //   no thread divides.  Each batch has one 64-bit base; offsets inside a
 //   plane are 32-bit (the wrapper raises for a plane of 2^31 elements or
 //   more).  A grid-stride loop over the flat index would pay an emulated
-//   64-bit division per element to find the batch, some 9 % of the time of
-//   a depth step in fp32 (PERF.md, Findings).
-// - 16-byte accesses.  A thread takes kVec consecutive elements of each of
-//   the twelve streams (4 fp32 or 8 bf16: one float4 / uint4), issues all
-//   seven loads before any math, and writes five 16-byte stores.  A plane
+//   64-bit division per element to find the batch (PERF.md, Findings).
+// - 16-byte accesses.  A thread takes kVec consecutive elements of each
+//   stream (4 fp32 or 8 bf16: one float4 / uint4), issues every load
+//   before any math, and writes one 16-byte store per output.  A plane
 //   that is not a multiple of kVec (gates 1-3 of z then start off the
 //   16-byte grid) or a pointer that is not 16-byte aligned (a contiguous
 //   view at a storage offset) launches the same kernel with kVec = 1:
 //   scalar accesses over the whole tensor.
 // - Default cache policy.  Evict-first loads (__ldcs) of the single-use
 //   inputs, two vectors a thread, 128- or 512-thread blocks, a 32-register
-//   cap and a TMA bulk-copy ring in shared memory were each measured
-//   (PERF.md, Findings) and were each as fast or slower.  Stores keep the
-//   default policy in any case: the gate conv's backward reads dz next and
-//   the previous step's backward reads dc.
+//   cap and a TMA bulk-copy ring in shared memory were each measured on the
+//   backward (PERF.md, Findings) and were each as fast or slower.  Stores
+//   keep the default policy in any case: the next cell's gate conv reads h'
+//   and the next depth step reads c'; the gate conv's backward reads dz
+//   and the previous step's backward reads dc.
+// - Activations.  fp32 storage, and the backward, take the accurate
+//   expf/tanhf (no fast-math intrinsics: the fp32 bars are 1e-6 forward,
+//   1e-5 backward).  The bf16 forward takes them too unless
+//   LSTM_GATES_BF16_TANH_APPROX is 1: then the hardware's tanh.approx.f32
+//   (one MUFU op, ~2^-11 relative error, under bf16's 2^-9 rounding) gives
+//   tanh, and sigmoid(x) = 0.5 tanh(x / 2) + 0.5.
 //
 // Layout: z and dz are (B, 4*hidden, H, W) and c, h', c', dh, dc', dc are
 // (B, hidden, H, W), all contiguous.  Gate k of batch b, channel ch, pixel
@@ -63,43 +67,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#ifndef LSTM_GATES_BF16_TANH_APPROX
+#define LSTM_GATES_BF16_TANH_APPROX 0
+#endif
+
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+// The accurate activations.
+struct Accurate {
+  static __device__ __forceinline__ float sigmoid(float x) {
+    return 1.0f / (1.0f + expf(-x));
+  }
+  static __device__ __forceinline__ float tanh(float x) { return tanhf(x); }
+};
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+// The hardware's tanh (sm_75 and later), for bf16 storage only.
+struct TanhApprox {
+  static __device__ __forceinline__ float tanh(float x) {
+    float y;
+    asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  }
+  static __device__ __forceinline__ float sigmoid(float x) {
+    return fmaf(0.5f, tanh(0.5f * x), 0.5f);
+  }
+};
 
 template <typename T>
-__global__ void lstm_gates_kernel(const T* __restrict__ z,
-                                  const T* __restrict__ c,
-                                  T* __restrict__ h_out,
-                                  T* __restrict__ c_out,
-                                  int64_t plane,  // hidden * H * W
-                                  int64_t total)  // batch * plane
-{
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int64_t b = idx / plane;
-    const T* zb = z + b * 4 * plane + (idx - b * plane);
-    const float i = sigmoid_f32(load_f32(zb));
-    const float f = sigmoid_f32(load_f32(zb + plane));
-    const float o = sigmoid_f32(load_f32(zb + 2 * plane));
-    const float g = tanhf(load_f32(zb + 3 * plane));
-    const float c_next = f * load_f32(c + idx) + i * g;
-    store_f32(h_out + idx, o * tanhf(c_next));
-    store_f32(c_out + idx, c_next);
-  }
-}
+using ForwardActivations =
+    std::conditional_t<std::is_same_v<T, __nv_bfloat16> && LSTM_GATES_BF16_TANH_APPROX,
+                       TanhApprox, Accurate>;
 
 // kVec consecutive elements at p as fp32: one 16-byte load for a whole
 // vector, else kVec scalar loads.
@@ -158,17 +157,49 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
   }
 }
 
-constexpr int kBwdThreads = 256;
+constexpr int kThreads = 256;
 
 template <typename T, int kVec>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
+lstm_gates_kernel(const T* __restrict__ z, const T* __restrict__ c,
+                  T* __restrict__ h_out, T* __restrict__ c_out, int64_t batch,
+                  unsigned plane)  // hidden * H * W < 2^31, a multiple of kVec
+{
+  using Act = ForwardActivations<T>;
+  const unsigned p = (blockIdx.x * kThreads + threadIdx.x) * kVec;
+  if (p >= plane) return;
+  for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
+    const int64_t cell = b * plane;
+    const T* zi = z + 4 * cell + p;  // gate k at zi + k * plane
+    float vi[kVec], vf[kVec], vo[kVec], vg[kVec], vc[kVec];
+    load_vec<kVec>(zi, vi);
+    load_vec<kVec>(zi + plane, vf);
+    load_vec<kVec>(zi + 2 * (int64_t)plane, vo);
+    load_vec<kVec>(zi + 3 * (int64_t)plane, vg);
+    load_vec<kVec>(c + cell + p, vc);
+    // Outputs overwrite the inputs they no longer need: h' -> vi, c' -> vc.
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float c_next =
+          Act::sigmoid(vf[j]) * vc[j] + Act::sigmoid(vi[j]) * Act::tanh(vg[j]);
+      vi[j] = Act::sigmoid(vo[j]) * Act::tanh(c_next);
+      vc[j] = c_next;
+    }
+    store_vec<kVec>(h_out + cell + p, vi);
+    store_vec<kVec>(c_out + cell + p, vc);
+  }
+}
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads)
 lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
                       const T* __restrict__ dh, const T* __restrict__ dc_next,
                       T* __restrict__ dz, T* __restrict__ dc_out,
                       int64_t batch,
                       unsigned plane)  // hidden * H * W < 2^31, a multiple of kVec
 {
-  const unsigned p = (blockIdx.x * kBwdThreads + threadIdx.x) * kVec;
+  using Act = Accurate;
+  const unsigned p = (blockIdx.x * kThreads + threadIdx.x) * kVec;
   if (p >= plane) return;
   for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
     const int64_t cell = b * plane;
@@ -186,12 +217,12 @@ lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
     // di -> vi, df -> vf, do -> vo, dg -> vg, dc -> vc.
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      const float i = sigmoid_f32(vi[j]);
-      const float f = sigmoid_f32(vf[j]);
-      const float o = sigmoid_f32(vo[j]);
-      const float g = tanhf(vg[j]);
+      const float i = Act::sigmoid(vi[j]);
+      const float f = Act::sigmoid(vf[j]);
+      const float o = Act::sigmoid(vo[j]);
+      const float g = Act::tanh(vg[j]);
       const float cv = vc[j];
-      const float tc = tanhf(f * cv + i * g);
+      const float tc = Act::tanh(f * cv + i * g);
       const float dhv = vdh[j];
       const float dct = vdc[j] + dhv * o * (1.0f - tc * tc);
       vi[j] = dct * g * i * (1.0f - i);
@@ -208,44 +239,42 @@ lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
   }
 }
 
-// One element per thread up to a grid of 64 blocks per SM; larger inputs
-// loop (grid-stride) instead of launching more blocks.
-inline unsigned grid_for(int64_t total, int threads) {
-  int64_t blocks = (total + threads - 1) / threads;
-  const int64_t cap = 132 * 64;
-  return (unsigned)(blocks > cap ? cap : blocks);
-}
-
-constexpr int kThreads = 256;
-
-template <typename T>
-cudaError_t launch(const void* z, const void* c, void* h_out, void* c_out,
-                   int64_t batch, int64_t plane, cudaStream_t stream) {
-  const int64_t total = batch * plane;
-  if (total == 0) return cudaSuccess;
-  lstm_gates_kernel<T><<<grid_for(total, kThreads), kThreads, 0, stream>>>(
-      static_cast<const T*>(z), static_cast<const T*>(c),
-      static_cast<T*>(h_out), static_cast<T*>(c_out), plane, total);
-  return cudaGetLastError();
-}
-
-struct BwdArgs {
+// One launch's tensors.  The forward has no dh or dc' (null) and writes
+// (out0, out1) = (h', c'); the backward writes (dz, dc).
+struct Args {
   const void *z, *c, *dh, *dc_next;
-  void *dz, *dc_out;
+  void *out0, *out1;
   int64_t batch, plane;
   cudaStream_t stream;
 };
 
-template <typename T, int kVec>
-cudaError_t launch_bwd_as(const BwdArgs& a) {
-  constexpr int64_t tile = kBwdThreads * kVec;
+struct Forward {
+  template <typename T, int kVec>
+  static void run(dim3 grid, const Args& a) {
+    lstm_gates_kernel<T, kVec><<<grid, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.z), static_cast<const T*>(a.c),
+        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.batch,
+        (unsigned)a.plane);
+  }
+};
+
+struct Backward {
+  template <typename T, int kVec>
+  static void run(dim3 grid, const Args& a) {
+    lstm_gates_bwd_kernel<T, kVec><<<grid, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.z), static_cast<const T*>(a.c),
+        static_cast<const T*>(a.dh), static_cast<const T*>(a.dc_next),
+        static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.batch,
+        (unsigned)a.plane);
+  }
+};
+
+template <typename Direction, typename T, int kVec>
+cudaError_t launch_as(const Args& a) {
+  constexpr int64_t tile = kThreads * kVec;
   const dim3 grid((unsigned)((a.plane + tile - 1) / tile),
                   (unsigned)(a.batch < 65535 ? a.batch : 65535));
-  lstm_gates_bwd_kernel<T, kVec><<<grid, kBwdThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.z), static_cast<const T*>(a.c),
-      static_cast<const T*>(a.dh), static_cast<const T*>(a.dc_next),
-      static_cast<T*>(a.dz), static_cast<T*>(a.dc_out), a.batch,
-      (unsigned)a.plane);
+  Direction::template run<T, kVec>(grid, a);
   return cudaGetLastError();
 }
 
@@ -254,39 +283,44 @@ inline bool aligned16(const void* p) {
 }
 
 // 16-byte accesses where every stream allows them, else scalar ones.
-template <typename T>
-cudaError_t launch_bwd(const BwdArgs& a) {
+template <typename Direction, typename T>
+cudaError_t launch(const Args& a) {
   if (a.batch == 0 || a.plane == 0) return cudaSuccess;
   if (a.plane >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
   constexpr int kVec = 16 / sizeof(T);
   const bool vectorizable = a.plane % kVec == 0 && aligned16(a.z) && aligned16(a.c) &&
                             aligned16(a.dh) && aligned16(a.dc_next) &&
-                            aligned16(a.dz) && aligned16(a.dc_out);
-  return vectorizable ? launch_bwd_as<T, kVec>(a) : launch_bwd_as<T, 1>(a);
+                            aligned16(a.out0) && aligned16(a.out1);
+  return vectorizable ? launch_as<Direction, T, kVec>(a)
+                      : launch_as<Direction, T, 1>(a);
+}
+
+template <typename Direction>
+int launch_dtype(const Args& a, int dtype) {
+  if (dtype == 0) return (int)launch<Direction, float>(a);
+  if (dtype == 1) return (int)launch<Direction, __nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Both entry points return a cudaError_t:
+// 0 on success, cudaErrorInvalidValue for a plane of 2^31 elements or more.
 extern "C" int lstm_gates_forward(const void* z, const void* c, void* h_out,
                                   void* c_out, long long batch,
                                   long long plane, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(z, c, h_out, c_out, batch, plane, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(z, c, h_out, c_out, batch, plane, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<Forward>(
+      Args{z, c, nullptr, nullptr, h_out, c_out, batch, plane,
+           static_cast<cudaStream_t>(stream)},
+      dtype);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success;
-// cudaErrorInvalidValue for a plane of 2^31 elements or more).
 extern "C" int lstm_gates_backward(const void* z, const void* c,
                                    const void* dh, const void* dc_next,
                                    void* dz, void* dc_out, long long batch,
                                    long long plane, int dtype, void* stream) {
-  const BwdArgs a{z, c, dh, dc_next, dz, dc_out, batch, plane,
-                  static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_bwd<float>(a);
-  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(a);
-  return (int)cudaErrorInvalidValue;
+  return launch_dtype<Backward>(
+      Args{z, c, dh, dc_next, dz, dc_out, batch, plane,
+           static_cast<cudaStream_t>(stream)},
+      dtype);
 }

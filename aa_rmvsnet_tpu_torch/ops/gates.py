@@ -34,8 +34,8 @@ launches = 0
 backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: The backward kernel indexes inside a plane (hidden * H * W) with 32-bit offsets.
-_BACKWARD_PLANE_LIMIT = 2**31
+#: Both kernels index inside a plane (hidden * H * W) with 32-bit offsets.
+_PLANE_LIMIT = 2**31
 _kernels: dict = {}  # C entry point name -> ctypes function
 
 
@@ -76,34 +76,53 @@ def lstm_gates_backward_reference(z: torch.Tensor, c: torch.Tensor,
 
 
 def _kernel(name: str, n_pointers: int):
+    """The C entry point ``name`` as a ctypes prototype call, which costs the
+    host less than a function with ``argtypes`` (~2.2 against ~3.1 µs)."""
     fn = _kernels.get(name)
     if fn is None:
-        fn = getattr(_build.load("lstm_gates.cu"), name)
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        prototype = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * n_pointers,
+                                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p)
+        fn = prototype((name, _build.load("lstm_gates.cu")))
         _kernels[name] = fn
     return fn
 
 
-def _check(z: torch.Tensor, *cell_shaped: torch.Tensor, plane_limit: int | None = None) -> int:
+def _check(z: torch.Tensor, *cell_shaped: torch.Tensor) -> int:
     """What the kernels take: one CUDA device, one dtype of fp32 or bf16,
     ``z`` of ``(B, 4*hidden, H, W)`` and the others of ``(B, hidden, H, W)``,
-    all contiguous, and a plane ``hidden * H * W`` under ``plane_limit``.
-    Returns the plane.  Training calls the kernels ~2,000 times a step, so
-    the checks read cheap attributes (``get_device``, one ``shape``)."""
+    all contiguous, and a plane ``hidden * H * W`` under ``_PLANE_LIMIT``.
+    Returns the plane.  The kernels run ~5,000 times a map and ~2,000 a
+    training step, so the accepted case costs one pass over cheap
+    attributes; :func:`_refusal` says what is wrong with the others."""
+    cs = cell_shaped[0].shape
+    if (len(cs) == 4 and z.is_cuda and z.dtype in _DTYPE_CODES and z.is_contiguous()
+            and z.shape == (cs[0], 4 * cs[1], cs[2], cs[3])
+            and cs[1] * cs[2] * cs[3] < _PLANE_LIMIT):
+        index, dtype = z.get_device(), z.dtype
+        for t in cell_shaped:
+            if not (t.is_cuda and t.get_device() == index and t.dtype == dtype
+                    and t.shape == cs and t.is_contiguous()):
+                break
+        else:
+            return cs[1] * cs[2] * cs[3]
+    raise _refusal(z, *cell_shaped)
+
+
+def _refusal(z: torch.Tensor, *cell_shaped: torch.Tensor) -> Exception:
+    """The error for arguments that :func:`_check` refuses: the first rule
+    they break, in the order device, dtype, shape, layout, plane."""
     tensors = (z, *cell_shaped)
     index = z.get_device()
     if not all(t.is_cuda and t.get_device() == index for t in tensors):
-        raise ValueError(
+        return ValueError(
             "lstm_gates: tensors on "
             f"{sorted({str(t.device) for t in tensors})}; all must be "
             "on one CUDA device (or all on the CPU)"
         )
     dtype = z.dtype
     if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in cell_shaped):
-        raise TypeError(
+        return TypeError(
             f"lstm_gates: dtypes {[t.dtype for t in tensors]}; the "
             "kernels take float32 or bfloat16, the same for every tensor"
         )
@@ -112,19 +131,16 @@ def _check(z: torch.Tensor, *cell_shaped: torch.Tensor, plane_limit: int | None 
         len(zs) != 4 or len(cs) != 4 or zs[0] != cs[0] or zs[1] != 4 * cs[1]
         or zs[2:] != cs[2:] or any(t.shape != cs for t in cell_shaped)
     ):
-        raise ValueError(
+        return ValueError(
             f"lstm_gates: z {tuple(zs)} must be (B, 4*hidden, H, W) for "
             f"c {tuple(cs)}, and every cotangent shaped like c"
         )
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("lstm_gates: every tensor must be contiguous")
-    plane = cs[1] * cs[2] * cs[3]
-    if plane_limit is not None and plane >= plane_limit:
-        raise ValueError(
-            f"lstm_gates: a plane of {plane} elements (hidden * H * W); "
-            f"the kernel takes fewer than {plane_limit}"
-        )
-    return plane
+        return ValueError("lstm_gates: every tensor must be contiguous")
+    return ValueError(
+        f"lstm_gates: a plane of {cs[1] * cs[2] * cs[3]} elements (hidden * H * W); "
+        f"the kernels take fewer than {_PLANE_LIMIT}"
+    )
 
 
 def _launch(fn, z: torch.Tensor, plane: int, pointers) -> None:
@@ -146,7 +162,7 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def _forward(z: torch.Tensor, c: torch.Tensor):
-    if _on_cpu(z, c):
+    if z.is_cpu and c.is_cpu:
         return lstm_gates_reference(z, c)
     plane = _check(z, c)
     h_next = torch.empty_like(c)
@@ -166,7 +182,7 @@ def lstm_gates_backward(z: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
     launches the kernel or raises; CPU tensors take the plain version."""
     if _on_cpu(z, c, dh, dc_next):
         return lstm_gates_backward_reference(z, c, dh, dc_next)
-    plane = _check(z, c, dh, dc_next, plane_limit=_BACKWARD_PLANE_LIMIT)
+    plane = _check(z, c, dh, dc_next)
     dz = torch.empty_like(z)
     dc = torch.empty_like(c)
     _launch(_kernel("lstm_gates_backward", 6), z, plane,
@@ -211,4 +227,6 @@ def lstm_gates(z: torch.Tensor, c: torch.Tensor):
       ``(h_next, c_next)``, both shaped and typed like ``c``.  On CUDA the
       math runs in fp32 for fp32 or bf16 storage, forward and backward.
     """
-    return LSTMGates.apply(z, c)
+    if torch.is_grad_enabled() and (z.requires_grad or c.requires_grad):
+        return LSTMGates.apply(z, c)
+    return _forward(z, c)  # no graph to record: skip the Function's host cost

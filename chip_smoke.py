@@ -10,20 +10,19 @@ Phases, each printing a line; any failure exits non-zero:
 2. build: every CUDA source of the port, compiled with nvcc;
 3. kernel vs plain: the ConvLSTM gate kernel against its plain PyTorch
    version on the card, at the five cell shapes of a depth step of the
-   inference main path (864x1152) and at an odd shape, fp32 (atol 1e-6)
-   and bf16 (atol 2e-2); kernel, plain, library-call times and the
-   kernel's bound per depth step, in fp32 and in bf16 (the inference main
-   path's type);
-3b. backward kernel vs plain: the ConvLSTM gate-backward kernel against
-   its plain version at the same shapes, at ``hidden=3`` (2, 3, 7, 5),
-   whose plane is no multiple of the 16-byte vector, and with z and c as
-   contiguous views one element into their storage, off the 16-byte grid
-   (the last two take the kernel's scalar path), fp32 (atol 1e-5) and bf16
-   (atol 5e-2); kernel, plain and library-call times per depth step and
-   the kernel's bound; kernel and library-call times of one depth step at
-   the ``dtu_train`` cell shapes (128x160) with the inputs cold in device
-   memory (launch-bound there, so no bound share); and the host's cost per
-   call of the wrapper and of the library call;
+   inference main path (864x1152), at odd shapes, at ``hidden=3`` (2, 3,
+   7, 5), whose plane is no multiple of the 16-byte vector, and with z
+   and c as contiguous views one element into their storage, off the
+   16-byte grid (the last two take the kernel's scalar path), fp32 (atol
+   1e-6) and bf16 (atol 2e-2), with the share of outputs at the five cells
+   that differ from the plain version's; kernel, plain, library-call times
+   and the kernel's bound per depth step, in fp32 and in bf16 (the
+   inference main path's type); kernel and library-call times of one fp32
+   depth step at the ``dtu_train`` cell shapes (128x160) with the inputs
+   cold in device memory (launch-bound there, so no bound share); and the
+   host's cost per call of the wrapper and of the library call;
+3b. backward kernel vs plain: the same for the ConvLSTM gate-backward
+   kernel, fp32 (atol 1e-5) and bf16 (atol 5e-2), its times in fp32;
 4. CUDA vs CPU: the whole ``forward`` at 64x80, V=3, D=48 on both devices
    (depth equal on >= 99.9 % of pixels, confidence atol 1e-4);
 4b. CUDA vs CPU training gradients: one remat training forward and
@@ -74,7 +73,12 @@ The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
 ``launches_by_path`` gives it for every main path (phases 5, 5b and 6);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
-depth step, and the forward kernel's ``*_bf16`` keys the same in bf16.  The last line is
+depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
+``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
+``dtu_train`` depth step, and ``host_us_per_call`` and
+``library_host_us_per_call`` the host's cost of one call.  Device times
+come from CUDA events around runs queued behind a sleep on the device, so
+that they time the device and not the host.  The last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, made from a seed
 (``utils/synthetic.py:seeded_model``).
 TF32 is off throughout: cuDNN would otherwise run the fp32 convolutions in
@@ -115,12 +119,21 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# ~25 ms of device sleep at the H100's clock, longer than the host takes to
+# queue the launches of one timing.
+HOST_AHEAD_CYCLES = 50_000_000
+
+
 def _cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events."""
+    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events.  The
+    runs are queued behind a sleep on the device, so that the events time
+    the device and not the host's cost of issuing the launches."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -165,11 +178,11 @@ def _cell_shapes(H, W):
             (1, 16, H // 2, W // 2), (1, 8, H, W)]
 
 
-def _library_gates(z, c):
+def _library_gates(zl, zeros, cl):
     """The same gate math as one PyTorch call (``nn.LSTMCell``'s fused CUDA
     cell), on ``(N, 4h)`` gates in its (i, f, g, o) order plus a zero
     hidden-gate tensor.  A yardstick only: the port never calls it."""
-    return torch.ops.aten._thnn_fused_lstm_cell(z, torch.zeros_like(z), c)
+    return torch.ops.aten._thnn_fused_lstm_cell(zl, zeros, cl)
 
 
 def _to_library_layout(z, c):
@@ -181,116 +194,11 @@ def _to_library_layout(z, c):
     return zl, cl
 
 
-def phase_kernel() -> dict:
-    from aa_rmvsnet_tpu_torch.ops import gates
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cells = _cell_shapes(MAIN_H, MAIN_W)
-    odd = [(2, 16, 9, 13), (2, 8, 9, 13)]
-    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    bars = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
-    inputs = {torch.float32: [], torch.bfloat16: []}  # the five cells' (z, c)
-    times = {}
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            for shape in cells + odd:
-                B, h, H, W = shape
-                z = torch.randn(B, 4 * h, H, W, device="cuda", generator=gen)
-                if dtype == torch.float32:
-                    c = torch.randn(B, h, H, W, device="cuda", generator=gen)
-                else:
-                    # |c'| < 2 keeps one bf16 ulp of the output (<= 2^-7)
-                    # inside the 2e-2 bar; larger cells round across ulps.
-                    c = torch.rand(B, h, H, W, device="cuda", generator=gen) * 2 - 1
-                z, c = z.to(dtype), c.to(dtype)
-                h_k, c_k = gates.lstm_gates(z, c)
-                torch.cuda.synchronize()
-                h_p, c_p = gates.lstm_gates_reference(z, c)
-                err = max((h_k.float() - h_p.float()).abs().max().item(),
-                          (c_k.float() - c_p.float()).abs().max().item())
-                ok = err <= bars[dtype]
-                print(f"kernel: lstm_gates {str(dtype)[6:]} {shape} max_abs_err "
-                      f"{err:.3e} (bar {bars[dtype]:g}) {'ok' if ok else 'FAIL'}",
-                      flush=True)
-                if not ok:
-                    _fail(f"lstm_gates disagrees with its plain version at {shape} {dtype}")
-                max_err[dtype] = max(max_err[dtype], err)
-                if shape in cells:
-                    inputs[dtype].append((z, c))
-
-        for dtype, step_inputs in inputs.items():
-            # One depth step's five launches in main-path order: 0.92 GB in
-            # fp32, 0.46 GB in bf16, far beyond the 50 MB L2, so each launch
-            # finds its inputs cold.
-            def kernel_step():
-                for z, c in step_inputs:
-                    gates.lstm_gates(z, c)
-
-            def plain_step():
-                for z, c in step_inputs:
-                    gates.lstm_gates_reference(z, c)
-
-            lib_inputs = [_to_library_layout(z, c) for z, c in step_inputs]
-            lib_err = 0.0
-            for (z, c), (zl, cl) in zip(step_inputs, lib_inputs):
-                hy, cy, _ = _library_gates(zl, cl)
-                h_p, c_p = gates.lstm_gates_reference(z, c)
-                B, h, H, W = c.shape
-                h_p = h_p.permute(0, 2, 3, 1).reshape(-1, h)
-                c_p = c_p.permute(0, 2, 3, 1).reshape(-1, h)
-                lib_err = max(lib_err, (hy.float() - h_p.float()).abs().max().item(),
-                              (cy.float() - c_p.float()).abs().max().item())
-            if lib_err > (1e-5 if dtype == torch.float32 else bars[dtype]):
-                _fail(f"library yardstick computes another function in {dtype} "
-                      f"(err {lib_err:.3e})")
-
-            def library_step():
-                for zl, cl in lib_inputs:
-                    _library_gates(zl, cl)
-
-            ms = _cuda_time_ms(kernel_step, reps=50)
-            plain_ms = _cuda_time_ms(plain_step, reps=10)
-            library_ms = _cuda_time_ms(library_step, reps=20)
-            ms_again = _cuda_time_ms(kernel_step, reps=50)
-            del lib_inputs
-
-            elems = sum(B * h * H * W for B, h, H, W in cells)
-            nbytes = elems * step_inputs[0][0].element_size() * (4 + 1 + 2)  # i, f, o, g, c; h', c'
-            bytes_ms = nbytes / memory_bytes_per_s() * 1e3
-            # ~30 fp32 operations per element (3 sigmoids, 2 tanh, 3 FMAs) at
-            # the card's 67 TFLOP/s non-tensor fp32 peak, whatever the storage
-            # type: far under the byte bound.
-            ops_ms = elems * 30 / 67e12 * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            times[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                bound_ms=bound_ms,
-                                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-            print(f"kernel: {str(dtype)[6:]}, one depth step = 5 launches, "
-                  f"{elems / 1e6:.2f} M elements, {nbytes / 1e9:.3f} GB: kernel {ms:.4f} ms "
-                  f"(again {ms_again:.4f}), plain {plain_ms:.4f} ms, library "
-                  f"{library_ms:.4f} ms (_thnn_fused_lstm_cell, max_abs_err vs plain "
-                  f"{lib_err:.1e}), bound {bound_ms:.4f} ms by bytes ({bound_ms / ms:.0%} "
-                  "of it)", flush=True)
-    fp32, bf16 = times[torch.float32], times[torch.bfloat16]
-    return {
-        "name": "lstm_gates",
-        "route": "cuda",
-        "source": "aa_rmvsnet_tpu_torch/csrc/lstm_gates.cu",
-        "replaces": "aa_rmvsnet_tpu/ops/pallas/gates.py:41",
-        "launches": None,
-        "max_abs_err": max_err[torch.float32],
-        **fp32,
-        **{f"{k}_bf16": v for k, v in bf16.items()},
-        "max_abs_err_bf16": max_err[torch.bfloat16],
-    }
-
-
-def _library_gates_backward(dhl, dcl, cl, cyl, workspace):
-    """The same backward as one PyTorch call (``nn.LSTMCell``'s fused CUDA
-    cell backward), on the ``(N, 4h)`` layout with the forward's workspace
-    of activated gates.  A yardstick only: the port never calls it."""
-    return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dhl, dcl, cl, cyl,
-                                                              workspace, False)
+def _library_inputs(z, c):
+    """The library call's inputs for ``(z, c)``: the ``(N, 4h)`` layout and
+    its zero hidden gates, made once so that no timing includes them."""
+    zl, cl = _to_library_layout(z, c)
+    return zl, torch.zeros_like(zl), cl
 
 
 def _at_storage_offset(t):
@@ -298,17 +206,6 @@ def _at_storage_offset(t):
     so that its data pointer is off the 16-byte grid."""
     out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
     return out.copy_(t)
-
-
-def _backward_library_inputs(z, c, dh, dcn):
-    """The library backward's inputs for the same function: the ``(N, 4h)``
-    layout and the forward's workspace of activated gates."""
-    zl, cl = _to_library_layout(z, c)
-    _, cyl, workspace = _library_gates(zl, cl)
-    h = c.shape[1]
-    dhl = dh.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
-    dcl = dcn.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
-    return dhl, dcl, cl, cyl, workspace
 
 
 def _cold_step_ms(step, flush, reps: int = 50, warmup: int = 3) -> float:
@@ -342,6 +239,188 @@ def _host_us(fn, calls: int = 1000) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / calls * 1e6
+
+
+def phase_kernel() -> dict:
+    from aa_rmvsnet_tpu_torch.ops import gates
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cells = _cell_shapes(MAIN_H, MAIN_W)
+    # (shape, z and c one element into their storage): the cells and the
+    # odd shapes take the 16-byte path; hidden=3 (a plane of 105) and the
+    # offset views the scalar one.
+    cases = [(shape, False) for shape in cells + [(2, 16, 9, 13), (2, 8, 9, 13), (2, 3, 7, 5)]]
+    cases.append(((2, 16, 9, 13), True))
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bars = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+    inputs = {torch.float32: [], torch.bfloat16: []}  # the five cells' (z, c)
+    unequal = {torch.float32: [0, 0], torch.bfloat16: [0, 0]}  # at the cells: differ, all
+    times = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, offset in cases:
+                B, h, H, W = shape
+                z = torch.randn(B, 4 * h, H, W, device="cuda", generator=gen)
+                if dtype == torch.float32:
+                    c = torch.randn(B, h, H, W, device="cuda", generator=gen)
+                else:
+                    # |c'| < 2 keeps one bf16 ulp of the output (<= 2^-7)
+                    # inside the 2e-2 bar; larger cells round across ulps.
+                    c = torch.rand(B, h, H, W, device="cuda", generator=gen) * 2 - 1
+                z, c = z.to(dtype), c.to(dtype)
+                if offset:
+                    z, c = _at_storage_offset(z), _at_storage_offset(c)
+                h_k, c_k = gates.lstm_gates(z, c)
+                torch.cuda.synchronize()
+                h_p, c_p = gates.lstm_gates_reference(z, c)
+                err = max((h_k.float() - h_p.float()).abs().max().item(),
+                          (c_k.float() - c_p.float()).abs().max().item())
+                ok = err <= bars[dtype]
+                print(f"kernel: lstm_gates {str(dtype)[6:]} {shape}"
+                      f"{' z, c at storage offset 1' if offset else ''} max_abs_err "
+                      f"{err:.3e} (bar {bars[dtype]:g}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    _fail(f"lstm_gates disagrees with its plain version at {shape} {dtype}")
+                max_err[dtype] = max(max_err[dtype], err)
+                if shape in cells and not offset:
+                    inputs[dtype].append((z, c))
+                    unequal[dtype][0] += (h_k != h_p).sum().item() + (c_k != c_p).sum().item()
+                    unequal[dtype][1] += 2 * c.numel()
+
+        for dtype, step_inputs in inputs.items():
+            # One depth step's five launches in main-path order: 0.92 GB in
+            # fp32, 0.46 GB in bf16, far beyond the 50 MB L2, so each launch
+            # finds its inputs cold.
+            def kernel_step():
+                for z, c in step_inputs:
+                    gates.lstm_gates(z, c)
+
+            def plain_step():
+                for z, c in step_inputs:
+                    gates.lstm_gates_reference(z, c)
+
+            lib_inputs = [_library_inputs(z, c) for z, c in step_inputs]
+            lib_err = 0.0
+            for (z, c), args in zip(step_inputs, lib_inputs):
+                hy, cy, _ = _library_gates(*args)
+                h_p, c_p = gates.lstm_gates_reference(z, c)
+                B, h, H, W = c.shape
+                h_p = h_p.permute(0, 2, 3, 1).reshape(-1, h)
+                c_p = c_p.permute(0, 2, 3, 1).reshape(-1, h)
+                lib_err = max(lib_err, (hy.float() - h_p.float()).abs().max().item(),
+                              (cy.float() - c_p.float()).abs().max().item())
+            if lib_err > (1e-5 if dtype == torch.float32 else bars[dtype]):
+                _fail(f"library yardstick computes another function in {dtype} "
+                      f"(err {lib_err:.3e})")
+
+            def library_step():
+                for args in lib_inputs:
+                    _library_gates(*args)
+
+            ms = _cuda_time_ms(kernel_step, reps=50)
+            plain_ms = _cuda_time_ms(plain_step, reps=10)
+            library_ms = _cuda_time_ms(library_step, reps=20)
+            ms_again = _cuda_time_ms(kernel_step, reps=50)
+            del lib_inputs
+
+            elems = sum(B * h * H * W for B, h, H, W in cells)
+            nbytes = elems * step_inputs[0][0].element_size() * (4 + 1 + 2)  # i, f, o, g, c; h', c'
+            bytes_ms = nbytes / memory_bytes_per_s() * 1e3
+            # ~30 fp32 operations per element (3 sigmoids, 2 tanh, 3 FMAs) at
+            # the card's 67 TFLOP/s non-tensor fp32 peak, whatever the storage
+            # type: far under the byte bound.
+            ops_ms = elems * 30 / 67e12 * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            times[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound_ms,
+                                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            differ, total = unequal[dtype]
+            print(f"kernel: {str(dtype)[6:]}, one depth step = 5 launches, "
+                  f"{elems / 1e6:.2f} M elements, {nbytes / 1e9:.3f} GB: kernel {ms:.4f} ms "
+                  f"(again {ms_again:.4f}), plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms (_thnn_fused_lstm_cell, max_abs_err vs plain "
+                  f"{lib_err:.1e}), bound {bound_ms:.4f} ms by bytes ({bound_ms / ms:.0%} "
+                  f"of it); outputs unequal to the plain version's {differ / total:.4%}",
+                  flush=True)
+
+        # The training main path's shapes (fp32): one depth step at
+        # dtu_train, 0.68 M elements, 19 MB.  The forward of a remat block's
+        # recompute finds its inputs in device memory, so a 1 GiB buffer is
+        # written between runs (see phase 3b).
+        train_cells = _cell_shapes(TRAIN_H, TRAIN_W)
+        train_inputs = [(torch.randn(B, 4 * h, H, W, device="cuda", generator=gen),
+                         torch.randn(B, h, H, W, device="cuda", generator=gen))
+                        for B, h, H, W in train_cells]
+        train_lib_inputs = [_library_inputs(z, c) for z, c in train_inputs]
+        flush = torch.empty(2**28, device="cuda")
+
+        def train_kernel_step():
+            for args in train_inputs:
+                gates.lstm_gates(*args)
+
+        def train_library_step():
+            for args in train_lib_inputs:
+                _library_gates(*args)
+
+        train_ms = _cold_step_ms(train_kernel_step, flush)
+        train_library_ms = _cold_step_ms(train_library_step, flush)
+        train_ms_again = _cold_step_ms(train_kernel_step, flush)
+        train_library_ms_again = _cold_step_ms(train_library_step, flush)
+        del flush
+
+        # The host's cost of one call at the smallest dtu_train cell.
+        small, small_lib = train_inputs[2], train_lib_inputs[2]
+        host_us = [_host_us(lambda: gates.lstm_gates(*small))]
+        library_host_us = [_host_us(lambda: _library_gates(*small_lib))]
+        library_host_us.append(_host_us(lambda: _library_gates(*small_lib)))
+        host_us.append(_host_us(lambda: gates.lstm_gates(*small)))
+
+    train_elems = sum(B * h * H * W for B, h, H, W in train_cells)
+    print(f"kernel: forward at the dtu_train cell shapes ({TRAIN_H}x{TRAIN_W}), fp32, one "
+          f"depth step = 5 launches, {train_elems / 1e6:.3f} M elements, inputs cold in "
+          f"device memory: kernel {train_ms * 1e3:.2f} us (again {train_ms_again * 1e3:.2f}), "
+          f"{train_ms * 1e3 / 5:.2f} us a launch; library {train_library_ms * 1e3:.2f} us "
+          f"(again {train_library_ms_again * 1e3:.2f}), {train_library_ms * 1e3 / 5:.2f} us "
+          "a launch; launch-bound at these shapes, so no bound share", flush=True)
+    print(f"kernel: host cost per call at {train_cells[2]}, 1000 calls, no sync, no "
+          f"autograd graph: wrapper gates.lstm_gates {host_us[0]:.2f}, {host_us[1]:.2f} us; "
+          f"library call {library_host_us[0]:.2f}, {library_host_us[1]:.2f} us", flush=True)
+    fp32, bf16 = times[torch.float32], times[torch.bfloat16]
+    return {
+        "name": "lstm_gates",
+        "route": "cuda",
+        "source": "aa_rmvsnet_tpu_torch/csrc/lstm_gates.cu",
+        "replaces": "aa_rmvsnet_tpu/ops/pallas/gates.py:41",
+        "launches": None,
+        "max_abs_err": max_err[torch.float32],
+        **fp32,
+        **{f"{k}_bf16": v for k, v in bf16.items()},
+        "max_abs_err_bf16": max_err[torch.bfloat16],
+        "ms_train_shapes": train_ms,
+        "library_ms_train_shapes": train_library_ms,
+        "host_us_per_call": min(host_us),
+        "library_host_us_per_call": min(library_host_us),
+    }
+
+
+def _library_gates_backward(dhl, dcl, cl, cyl, workspace):
+    """The same backward as one PyTorch call (``nn.LSTMCell``'s fused CUDA
+    cell backward), on the ``(N, 4h)`` layout with the forward's workspace
+    of activated gates.  A yardstick only: the port never calls it."""
+    return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dhl, dcl, cl, cyl,
+                                                              workspace, False)
+
+
+def _backward_library_inputs(z, c, dh, dcn):
+    """The library backward's inputs for the same function: the ``(N, 4h)``
+    layout and the forward's workspace of activated gates."""
+    zl, zeros, cl = _library_inputs(z, c)
+    _, cyl, workspace = _library_gates(zl, zeros, cl)
+    h = c.shape[1]
+    dhl = dh.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
+    dcl = dcn.permute(0, 2, 3, 1).reshape(-1, h).contiguous()
+    return dhl, dcl, cl, cyl, workspace
 
 
 def phase_backward_kernel() -> dict:

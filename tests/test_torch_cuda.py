@@ -1,4 +1,4 @@
-"""The port's gate-backward kernel on the card, against its plain version.
+"""The port's ConvLSTM gate kernels on the card, against their plain versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports nothing of JAX, so it also runs on a machine
@@ -6,11 +6,15 @@ that has only the port's dependencies:
 
     PYTHONPATH=. python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Bars: fp32 atol 1e-5 and bf16 5e-2, those of the JAX package's
-backward-kernel tests (``tests/test_pallas.py:61-103``).  In bf16 every
-input is drawn in (-1, 1), which keeps each output below 2 in magnitude:
-there one bf16 ulp is at most 2^-7, and the kernel and the plain version
-may round one ulp apart.
+Each kernel is checked on its 16-byte path (hidden 16 and 8 at an odd
+shape) and on its scalar path (``hidden=3``, whose plane of 105 elements
+no 16-byte vector divides, and z and c one element into their storage).
+Bars: the forward fp32 atol 1e-6 and bf16 2e-2, the backward fp32 1e-5 and
+bf16 5e-2, those of the JAX package's kernel tests
+(``tests/test_pallas.py:21-103``).  In bf16 every input but z is drawn in
+(-1, 1), which keeps each output below 2 in magnitude: there one bf16 ulp
+is at most 2^-7, and the kernel and the plain version may round one ulp
+apart.
 """
 
 import numpy as np
@@ -22,6 +26,7 @@ from aa_rmvsnet_tpu_torch.ops import gates
 from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
 
 _DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 5e-2)}
+_FORWARD_DTYPES = {"float32": (torch.float32, 1e-6), "bfloat16": (torch.bfloat16, 2e-2)}
 
 
 def _card():
@@ -37,6 +42,56 @@ def _inputs(hidden, dtype, seed, hw=(9, 13)):
     if dtype == torch.bfloat16:
         rest = [np.clip(a, -1, 1) for a in rest]
     return [torch.from_numpy(a.astype(np.float32)).to(dtype).cuda() for a in (z, *rest)]
+
+
+def _at_storage_offset(t):
+    """A contiguous copy of ``t`` one element into its storage, so that its
+    data pointer is off the 16-byte grid."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def _scalar_path_inputs(case, dtype, seed):
+    """z, c, dh, dc' that take the kernels' scalar path."""
+    if case == "hidden3":
+        return _inputs(3, dtype, seed=seed, hw=(7, 5))
+    z, c, dh, dcn = _inputs(16, dtype, seed=seed)
+    z, c = _at_storage_offset(z), _at_storage_offset(c)
+    assert z.is_contiguous() and z.data_ptr() % 16 != 0 and c.data_ptr() % 16 != 0
+    return z, c, dh, dcn
+
+
+def _forward_matches_plain(z, c, atol):
+    before = gates.launches
+    h_k, c_k = gates.lstm_gates(z, c)
+    torch.cuda.synchronize()
+    assert gates.launches == before + 1
+    h_p, c_p = gates.lstm_gates_reference(z, c)
+    assert h_k.dtype == c_k.dtype == c.dtype and h_k.shape == c.shape
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [16, 8])
+@pytest.mark.parametrize("dtype", sorted(_FORWARD_DTYPES))
+def test_forward_kernel_matches_plain(hidden, dtype):
+    _card()
+    tdt, atol = _FORWARD_DTYPES[dtype]
+    z, c, _, _ = _inputs(hidden, tdt, seed=2)
+    _forward_matches_plain(z, c, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hidden3", "storage_offset"])
+@pytest.mark.parametrize("dtype", sorted(_FORWARD_DTYPES))
+def test_forward_kernel_scalar_path_matches_plain(case, dtype):
+    """The forward's scalar path: ``hidden=3`` at (2, 3, 7, 5) and z and c
+    as contiguous views one element into their storage."""
+    _card()
+    tdt, atol = _FORWARD_DTYPES[dtype]
+    z, c, _, _ = _scalar_path_inputs(case, tdt, seed=3)
+    _forward_matches_plain(z, c, atol)
 
 
 @pytest.mark.cuda
@@ -57,13 +112,6 @@ def test_backward_kernel_matches_plain(hidden, dtype):
     torch.testing.assert_close(ct.grad.float(), dc_p.float(), atol=atol, rtol=0)
 
 
-def _at_storage_offset(t):
-    """A contiguous copy of ``t`` one element into its storage, so that its
-    data pointer is off the 16-byte grid."""
-    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
-    return out.copy_(t)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["hidden3", "storage_offset"])
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
@@ -73,12 +121,7 @@ def test_backward_kernel_scalar_path_matches_plain(case, dtype):
     views one element into their storage."""
     _card()
     tdt, atol = _DTYPES[dtype]
-    if case == "hidden3":
-        z, c, dh, dcn = _inputs(3, tdt, seed=7, hw=(7, 5))
-    else:
-        z, c, dh, dcn = _inputs(16, tdt, seed=8)
-        z, c = _at_storage_offset(z), _at_storage_offset(c)
-        assert z.is_contiguous() and z.data_ptr() % 16 != 0 and c.data_ptr() % 16 != 0
+    z, c, dh, dcn = _scalar_path_inputs(case, tdt, seed=7 if case == "hidden3" else 8)
     before = gates.backward_launches
     dz, dc = gates.lstm_gates_backward(z, c, dh, dcn)
     torch.cuda.synchronize()

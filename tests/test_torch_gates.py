@@ -3,9 +3,11 @@
 The port's plain version (what ``lstm_gates`` runs on CPU tensors) is held
 to the Pallas kernel (interpret mode on the CPU, as ``tests/test_pallas.py``
 runs it) and to the XLA chain, at the bars of ``tests/test_pallas.py``:
-fp32 atol 1e-6, bf16 atol 2e-2 (one bf16 ulp of the O(1) outputs).  The
-CUDA kernel itself runs only on the card: ``test_kernel_matches_plain``
-carries the ``cuda`` marker and skips here.
+fp32 atol 1e-6, bf16 atol 2e-2 (one bf16 ulp of the O(1) outputs), also
+at the two inputs that take the CUDA kernel's scalar path: ``hidden=3``,
+whose plane is no multiple of the 16-byte vector, and a contiguous view
+one element into its storage.  The CUDA kernel itself runs only on the
+card, against this plain version: ``tests/test_torch_cuda.py``.
 """
 
 import jax
@@ -30,11 +32,11 @@ def _xla_gates(z, c):
     return jax.nn.sigmoid(o) * jnp.tanh(c_next), c_next
 
 
-def _inputs(hidden, seed=0):
-    """NHWC numpy inputs at the odd shape (2, 9, 13, hidden)."""
+def _inputs(hidden, seed=0, hw=(9, 13)):
+    """NHWC numpy inputs at the odd shape (2, *hw, hidden)."""
     rng = np.random.RandomState(seed)
-    z = rng.randn(2, 9, 13, 4 * hidden).astype(np.float32)
-    c = rng.randn(2, 9, 13, hidden).astype(np.float32)
+    z = rng.randn(2, *hw, 4 * hidden).astype(np.float32)
+    c = rng.randn(2, *hw, hidden).astype(np.float32)
     return z, c
 
 
@@ -46,14 +48,29 @@ def _nhwc(t):
     return t.float().permute(0, 2, 3, 1).numpy()
 
 
-@pytest.mark.parametrize("hidden", [16, 8])
+def _at_storage_offset(t):
+    """A contiguous copy of ``t`` one element into its storage."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("case", [16, 8, "hidden3", "storage_offset"])
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
-def test_plain_matches_pallas_kernel(hidden, dtype):
+def test_plain_matches_pallas_kernel(case, dtype):
+    """Hidden 16 and 8 at (2, 9, 13); ``hidden3`` at (2, 7, 5);
+    ``storage_offset``: hidden 16 with z and c one element into their
+    storage."""
     jdt, tdt, atol = _DTYPES[dtype]
-    z, c = _inputs(hidden)
+    hidden, hw = {"hidden3": (3, (7, 5)), "storage_offset": (16, (9, 13))}.get(
+        case, (case, (9, 13)))
+    z, c = _inputs(hidden, hw=hw)
     h_j, c_j = fused_lstm_gates(jnp.asarray(z, jdt), jnp.asarray(c, jdt))
-    h_t, c_t = gates.lstm_gates(_nchw(z, tdt), _nchw(c, tdt))
-    assert h_t.dtype == tdt and c_t.shape == (2, hidden, 9, 13)
+    zt, ct = _nchw(z, tdt), _nchw(c, tdt)
+    if case == "storage_offset":
+        zt, ct = _at_storage_offset(zt), _at_storage_offset(ct)
+        assert zt.is_contiguous() and zt.storage_offset() == ct.storage_offset() == 1
+    h_t, c_t = gates.lstm_gates(zt, ct)
+    assert h_t.dtype == tdt and c_t.shape == (2, hidden, *hw)
     np.testing.assert_allclose(_nhwc(h_t), np.asarray(h_j, np.float32), atol=atol)
     np.testing.assert_allclose(_nhwc(c_t), np.asarray(c_j, np.float32), atol=atol)
 
@@ -74,6 +91,23 @@ def test_cpu_wrapper_does_not_count_launches():
     assert gates.launches == before
 
 
+def test_graph_recorded_only_where_a_gradient_is_needed():
+    """The wrapper goes through ``LSTMGates`` only in grad mode with an
+    input that needs a gradient; otherwise it records no graph.  Both give
+    the same values."""
+    z, c = _inputs(8)
+    zt, ct = _nchw(z), _nchw(c)
+    h_plain, c_plain = gates.lstm_gates(zt, ct)
+    assert h_plain.grad_fn is None and c_plain.grad_fn is None
+    zg = zt.clone().requires_grad_()
+    h_graph, c_graph = gates.lstm_gates(zg, ct)
+    assert type(h_graph.grad_fn).__name__ == "LSTMGatesBackward"
+    with torch.no_grad():
+        assert gates.lstm_gates(zg, ct)[0].grad_fn is None
+    torch.testing.assert_close(h_graph.detach(), h_plain, atol=0, rtol=0)
+    torch.testing.assert_close(c_graph.detach(), c_plain, atol=0, rtol=0)
+
+
 def test_non_cpu_tensors_never_take_the_plain_path():
     """Off the CPU the wrapper launches the kernel or raises: tensors on a
     device that is neither CPU nor CUDA, or split across devices, raise."""
@@ -90,21 +124,3 @@ def test_cuda_without_a_card_raises():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [16, 8])
-@pytest.mark.parametrize("dtype", sorted(_DTYPES))
-def test_kernel_matches_plain(hidden, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, tdt, atol = _DTYPES[dtype]
-    z, c = _inputs(hidden, seed=2)
-    zc, cc = _nchw(z, tdt).cuda(), _nchw(c, tdt).cuda()
-    before = gates.launches
-    h_k, c_k = gates.lstm_gates(zc, cc)
-    torch.cuda.synchronize()
-    assert gates.launches == before + 1
-    h_p, c_p = gates.lstm_gates_reference(zc, cc)
-    torch.testing.assert_close(h_k.float(), h_p.float(), atol=atol, rtol=0)
-    torch.testing.assert_close(c_k.float(), c_p.float(), atol=atol, rtol=0)
