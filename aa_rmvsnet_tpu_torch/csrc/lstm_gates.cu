@@ -27,9 +27,11 @@
 // touch neighbouring pixels, so every load and store is coalesced.  The
 // math runs in fp32 whatever the storage type.
 //
-// At 14 B an element (the bf16 forward) the bytes leave the card only ~120
-// thread instructions an element, so the instruction count matters as much
-// as the bytes.  Both directions share one layout, laid out for Hopper:
+// At 14 B an element (the bf16 forward) the byte bound leaves the card's
+// warp schedulers time for ~140 thread instructions an element at 1.98 GHz,
+// and the accurate math alone takes ~130 (the SASS), so the instruction
+// count matters as much as the bytes.  Both directions share one layout,
+// laid out for Hopper:
 //
 // - No division, 32-bit offsets.  A 2D grid: blockIdx.y is the batch
 //   (looping past 65,535) and blockIdx.x a tile of that batch's plane, so
@@ -51,12 +53,11 @@
 //   keep the default policy in any case: the next cell's gate conv reads h'
 //   and the next depth step reads c'; the gate conv's backward reads dz
 //   and the previous step's backward reads dc.
-// - Activations.  fp32 storage, and the backward, take the accurate
-//   expf/tanhf (no fast-math intrinsics: the fp32 bars are 1e-6 forward,
-//   1e-5 backward).  The bf16 forward takes them too unless
-//   LSTM_GATES_BF16_TANH_APPROX is 1: then the hardware's tanh.approx.f32
-//   (one MUFU op, ~2^-11 relative error, under bf16's 2^-9 rounding) gives
-//   tanh, and sigmoid(x) = 0.5 tanh(x / 2) + 0.5.
+// - Accurate activations, expf and tanhf, in both storage types (no
+//   fast-math intrinsics: the fp32 bars are 1e-6 forward, 1e-5 backward).
+//   The bf16 forward on tanh.approx.f32 was 6 % faster, and rounded 0.25 %
+//   of its outputs one ulp away from the plain version's against 0.002 %;
+//   the accurate build already reaches 78 % of its bound (PERF.md, Findings).
 //
 // Layout: z and dz are (B, 4*hidden, H, W) and c, h', c', dh, dc', dc are
 // (B, hidden, H, W), all contiguous.  Gate k of batch b, channel ch, pixel
@@ -67,38 +68,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#ifndef LSTM_GATES_BF16_TANH_APPROX
-#define LSTM_GATES_BF16_TANH_APPROX 0
-#endif
-
 namespace {
 
-// The accurate activations.
-struct Accurate {
-  static __device__ __forceinline__ float sigmoid(float x) {
-    return 1.0f / (1.0f + expf(-x));
-  }
-  static __device__ __forceinline__ float tanh(float x) { return tanhf(x); }
-};
-
-// The hardware's tanh (sm_75 and later), for bf16 storage only.
-struct TanhApprox {
-  static __device__ __forceinline__ float tanh(float x) {
-    float y;
-    asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-  }
-  static __device__ __forceinline__ float sigmoid(float x) {
-    return fmaf(0.5f, tanh(0.5f * x), 0.5f);
-  }
-};
-
-template <typename T>
-using ForwardActivations =
-    std::conditional_t<std::is_same_v<T, __nv_bfloat16> && LSTM_GATES_BF16_TANH_APPROX,
-                       TanhApprox, Accurate>;
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
 
 // kVec consecutive elements at p as fp32: one 16-byte load for a whole
 // vector, else kVec scalar loads.
@@ -165,7 +139,6 @@ lstm_gates_kernel(const T* __restrict__ z, const T* __restrict__ c,
                   T* __restrict__ h_out, T* __restrict__ c_out, int64_t batch,
                   unsigned plane)  // hidden * H * W < 2^31, a multiple of kVec
 {
-  using Act = ForwardActivations<T>;
   const unsigned p = (blockIdx.x * kThreads + threadIdx.x) * kVec;
   if (p >= plane) return;
   for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
@@ -180,9 +153,8 @@ lstm_gates_kernel(const T* __restrict__ z, const T* __restrict__ c,
     // Outputs overwrite the inputs they no longer need: h' -> vi, c' -> vc.
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      const float c_next =
-          Act::sigmoid(vf[j]) * vc[j] + Act::sigmoid(vi[j]) * Act::tanh(vg[j]);
-      vi[j] = Act::sigmoid(vo[j]) * Act::tanh(c_next);
+      const float c_next = sigmoid_f32(vf[j]) * vc[j] + sigmoid_f32(vi[j]) * tanhf(vg[j]);
+      vi[j] = sigmoid_f32(vo[j]) * tanhf(c_next);
       vc[j] = c_next;
     }
     store_vec<kVec>(h_out + cell + p, vi);
@@ -198,7 +170,6 @@ lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
                       int64_t batch,
                       unsigned plane)  // hidden * H * W < 2^31, a multiple of kVec
 {
-  using Act = Accurate;
   const unsigned p = (blockIdx.x * kThreads + threadIdx.x) * kVec;
   if (p >= plane) return;
   for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
@@ -217,12 +188,12 @@ lstm_gates_bwd_kernel(const T* __restrict__ z, const T* __restrict__ c,
     // di -> vi, df -> vf, do -> vo, dg -> vg, dc -> vc.
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      const float i = Act::sigmoid(vi[j]);
-      const float f = Act::sigmoid(vf[j]);
-      const float o = Act::sigmoid(vo[j]);
-      const float g = Act::tanh(vg[j]);
+      const float i = sigmoid_f32(vi[j]);
+      const float f = sigmoid_f32(vf[j]);
+      const float o = sigmoid_f32(vo[j]);
+      const float g = tanhf(vg[j]);
       const float cv = vc[j];
-      const float tc = Act::tanh(f * cv + i * g);
+      const float tc = tanhf(f * cv + i * g);
       const float dhv = vdh[j];
       const float dct = vdc[j] + dhv * o * (1.0f - tc * tc);
       vi[j] = dct * g * i * (1.0f - i);

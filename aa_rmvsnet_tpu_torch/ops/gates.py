@@ -18,6 +18,8 @@ tensors they run :func:`lstm_gates_reference` and
 ``backward_launches`` count kernel launches so a run can show that its
 main path went through the kernels.  ``lstm_gates_backward`` is the
 backward kernel's own wrapper, for callers that time or check it alone.
+Where there is no graph to record (inference), the forward skips the
+``Function``, whose host cost is a large share of a small cell's call.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def lstm_gates_backward_reference(z: torch.Tensor, c: torch.Tensor,
 
 def _kernel(name: str, n_pointers: int):
     """The C entry point ``name`` as a ctypes prototype call, which costs the
-    host less than a function with ``argtypes`` (~2.2 against ~3.1 µs)."""
+    host less per call than a function with ``argtypes``."""
     fn = _kernels.get(name)
     if fn is None:
         prototype = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * n_pointers,
@@ -88,30 +90,12 @@ def _kernel(name: str, n_pointers: int):
     return fn
 
 
-def _check(z: torch.Tensor, *cell_shaped: torch.Tensor) -> int:
-    """What the kernels take: one CUDA device, one dtype of fp32 or bf16,
-    ``z`` of ``(B, 4*hidden, H, W)`` and the others of ``(B, hidden, H, W)``,
-    all contiguous, and a plane ``hidden * H * W`` under ``_PLANE_LIMIT``.
-    Returns the plane.  The kernels run ~5,000 times a map and ~2,000 a
-    training step, so the accepted case costs one pass over cheap
-    attributes; :func:`_refusal` says what is wrong with the others."""
-    cs = cell_shaped[0].shape
-    if (len(cs) == 4 and z.is_cuda and z.dtype in _DTYPE_CODES and z.is_contiguous()
-            and z.shape == (cs[0], 4 * cs[1], cs[2], cs[3])
-            and cs[1] * cs[2] * cs[3] < _PLANE_LIMIT):
-        index, dtype = z.get_device(), z.dtype
-        for t in cell_shaped:
-            if not (t.is_cuda and t.get_device() == index and t.dtype == dtype
-                    and t.shape == cs and t.is_contiguous()):
-                break
-        else:
-            return cs[1] * cs[2] * cs[3]
-    raise _refusal(z, *cell_shaped)
-
-
 def _refusal(z: torch.Tensor, *cell_shaped: torch.Tensor) -> Exception:
-    """The error for arguments that :func:`_check` refuses: the first rule
-    they break, in the order device, dtype, shape, layout, plane."""
+    """The error for arguments the kernels do not take: the first rule they
+    break, in the order device, dtype, shape, layout, plane.  The kernels
+    take one CUDA device, one dtype of fp32 or bf16, ``z`` of ``(B,
+    4*hidden, H, W)`` and the others of ``(B, hidden, H, W)``, all
+    contiguous, and a plane ``hidden * H * W`` under ``_PLANE_LIMIT``."""
     tensors = (z, *cell_shaped)
     index = z.get_device()
     if not all(t.is_cuda and t.get_device() == index for t in tensors):
@@ -143,32 +127,38 @@ def _refusal(z: torch.Tensor, *cell_shaped: torch.Tensor) -> Exception:
     )
 
 
-def _launch(fn, z: torch.Tensor, plane: int, pointers) -> None:
-    """Launch ``fn`` on the current stream of z's device.  The device is
-    entered only when it is not already current, and the stream is read
-    as the raw handle (as Triton's launcher does), not as a ``Stream``."""
-    index = z.get_device()
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return _launch(fn, z, plane, pointers)
-    rc = fn(*pointers, z.shape[0], plane, _DTYPE_CODES[z.dtype],
-            torch._C._cuda_getCurrentRawStream(index))
+def _check_launch(rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"lstm_gates: kernel launch failed (cudaError {rc})")
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.is_cpu for t in tensors)
-
+# The wrappers below run ~5,000 times a map and ~2,000 times a training
+# step, so the case the kernels take reads each tensor attribute once, in
+# one condition; ``_refusal`` explains the others.  A launch goes to the
+# current stream of the tensors' device, entered only when it is not
+# already current (as the CUDA runtime reports it), with the stream read as
+# the raw handle (as Triton's launcher does), not as a ``Stream``.
 
 def _forward(z: torch.Tensor, c: torch.Tensor):
-    if z.is_cpu and c.is_cpu:
-        return lstm_gates_reference(z, c)
-    plane = _check(z, c)
+    if not z.is_cuda:
+        if z.is_cpu and c.is_cpu:
+            return lstm_gates_reference(z, c)
+        raise _refusal(z, c)
+    cs, dtype, index = c.shape, z.dtype, z.get_device()
+    if not (c.is_cuda and c.get_device() == index and dtype in _DTYPE_CODES
+            and c.dtype == dtype and len(cs) == 4
+            and z.shape == (cs[0], 4 * cs[1], cs[2], cs[3])
+            and z.is_contiguous() and c.is_contiguous()
+            and cs[1] * cs[2] * cs[3] < _PLANE_LIMIT):
+        raise _refusal(z, c)
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return _forward(z, c)
     h_next = torch.empty_like(c)
     c_next = torch.empty_like(c)
-    _launch(_kernel("lstm_gates_forward", 4), z, plane,
-            (z.data_ptr(), c.data_ptr(), h_next.data_ptr(), c_next.data_ptr()))
+    _check_launch(_kernel("lstm_gates_forward", 4)(
+        z.data_ptr(), c.data_ptr(), h_next.data_ptr(), c_next.data_ptr(), cs[0],
+        cs[1] * cs[2] * cs[3], _DTYPE_CODES[dtype], torch._C._cuda_getCurrentRawStream(index)))
     global launches
     launches += 1
     return h_next, c_next
@@ -180,14 +170,26 @@ def lstm_gates_backward(z: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
     and the cotangents of its outputs, as
     :func:`lstm_gates_backward_reference` gives them.  On CUDA tensors it
     launches the kernel or raises; CPU tensors take the plain version."""
-    if _on_cpu(z, c, dh, dc_next):
-        return lstm_gates_backward_reference(z, c, dh, dc_next)
-    plane = _check(z, c, dh, dc_next)
+    if not z.is_cuda:
+        if z.is_cpu and c.is_cpu and dh.is_cpu and dc_next.is_cpu:
+            return lstm_gates_backward_reference(z, c, dh, dc_next)
+        raise _refusal(z, c, dh, dc_next)
+    cs, dtype, index = c.shape, z.dtype, z.get_device()
+    if not (dtype in _DTYPE_CODES and len(cs) == 4
+            and z.shape == (cs[0], 4 * cs[1], cs[2], cs[3]) and z.is_contiguous()
+            and cs[1] * cs[2] * cs[3] < _PLANE_LIMIT
+            and all(t.is_cuda and t.get_device() == index and t.dtype == dtype
+                    and t.shape == cs and t.is_contiguous() for t in (c, dh, dc_next))):
+        raise _refusal(z, c, dh, dc_next)
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return lstm_gates_backward(z, c, dh, dc_next)
     dz = torch.empty_like(z)
     dc = torch.empty_like(c)
-    _launch(_kernel("lstm_gates_backward", 6), z, plane,
-            (z.data_ptr(), c.data_ptr(), dh.data_ptr(), dc_next.data_ptr(),
-             dz.data_ptr(), dc.data_ptr()))
+    _check_launch(_kernel("lstm_gates_backward", 6)(
+        z.data_ptr(), c.data_ptr(), dh.data_ptr(), dc_next.data_ptr(), dz.data_ptr(),
+        dc.data_ptr(), cs[0], cs[1] * cs[2] * cs[3], _DTYPE_CODES[dtype],
+        torch._C._cuda_getCurrentRawStream(index)))
     global backward_launches
     backward_launches += 1
     return dz, dc

@@ -19,10 +19,9 @@ for the forward kernel, the backward kernel or both:
    ``lstm_gates_backward_reference``, 1e-5 and 5e-2): ``vec16``, the
    wrapper on aligned tensors (the kernel's 16-byte path); ``scalar``, the
    same wrapper with every tensor one element into its storage (the scalar
-   path); for the bf16 forward, ``tanh-approx`` or ``accurate``, the same
-   source built with the other setting of ``LSTM_GATES_BF16_TANH_APPROX``;
-   and, with ``--baseline-source``, another ``lstm_gates.cu`` built with
-   the same nvcc flags (an earlier commit's, unpacked by ``git archive``);
+   path); and, with ``--baseline-source``, another ``lstm_gates.cu`` built
+   with the same nvcc flags (an earlier commit's, unpacked by ``git
+   archive``);
 3. times one depth step (the five launches) of each by CUDA events, mean
    over ``--reps`` steps, in two rounds, the second in reverse order;
 4. times each cell's launch alone, for the share of its own bound (the
@@ -31,11 +30,12 @@ for the forward kernel, the backward kernel or both:
 Inputs: z ~ N(0, 1), c, dh and dc' uniform in (-1, 1), which keeps every
 bf16 output below 2 in magnitude, where one ulp (<= 2^-7) is inside the
 bars.  Prints the card's name and power limit, one line per candidate with
-its share of the byte bound (and, for the bf16 forward, the share of
-outputs that differ from the plain version's), and, last, one JSON line.
-The backward's design steps that lost (evict-first loads, two vectors a
-thread, other block sizes, a TMA pipeline) were timed by the tool of
-commit 91c0f74; see PERF.md.
+its share of the byte bound and the share of outputs that differ from the
+plain version's, and, last, one JSON line.  Design steps that lost were
+timed by this tool at the commits that still had them (PERF.md): the
+backward's evict-first loads, two vectors a thread, other block sizes and
+TMA pipeline at 91c0f74, the bf16 forward on ``tanh.approx.f32`` at
+38973aa.
 """
 
 from __future__ import annotations
@@ -60,7 +60,6 @@ SOURCE = _build.CSRC_DIR / "lstm_gates.cu"
 # ~25 ms of device sleep at the H100's clock: longer than the host takes to
 # queue the launches that one timing covers.
 HOST_AHEAD_CYCLES = 50_000_000
-APPROX_MACRO = "LSTM_GATES_BF16_TANH_APPROX"
 # Per direction: the C entry point, its pointer count, the inputs it takes
 # of (z, c, dh, dc'), bytes moved per element in units of the storage type,
 # the plain version, the wrapper, and the bars.
@@ -95,11 +94,11 @@ def _nvcc(*args: str) -> subprocess.CompletedProcess:
                           check=True)
 
 
-def _ptxas_report(source: Path, direction: str, defines: tuple[str, ...] = ()) -> list[str]:
+def _ptxas_report(source: Path, direction: str) -> list[str]:
     """ptxas's lines for the direction's kernels of ``source``."""
     with tempfile.TemporaryDirectory() as tmp:
         flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-        proc = _nvcc(*flags, *defines, "-Xptxas", "-v", "-cubin", "-o",
+        proc = _nvcc(*flags, "-Xptxas", "-v", "-cubin", "-o",
                      str(Path(tmp) / "k.cubin"), str(source))
     lines, keep = [], False
     for line in proc.stderr.splitlines():
@@ -136,10 +135,10 @@ def _sass_counts(library: Path) -> dict:
     return counts
 
 
-def _build_other(source: Path, lib_path: Path, direction: str, defines: tuple[str, ...] = ()):
+def _build_other(source: Path, lib_path: Path, direction: str):
     """A function of the direction's inputs that launches the entry point of
     ``source`` built into ``lib_path`` with the library's nvcc flags."""
-    _nvcc(*_build.NVCC_FLAGS, *defines, "-o", str(lib_path), str(source))
+    _nvcc(*_build.NVCC_FLAGS, "-o", str(lib_path), str(source))
     spec = DIRECTIONS[direction]
     fn = getattr(ctypes.CDLL(str(lib_path)), spec["entry"])
     fn.argtypes = [ctypes.c_void_p] * spec["pointers"] + [
@@ -201,9 +200,9 @@ def _issue_ms(instructions_per_element: float, elems: int, clock_mhz: float) -> 
 
 
 def _report_build(build: str, source: Path, library: Path, direction: str, elems: int,
-                  clock_mhz: float, defines: tuple[str, ...] = ()) -> dict:
+                  clock_mhz: float) -> dict:
     """Print ptxas's and the SASS's figures of one build's kernels."""
-    for line in _ptxas_report(source, direction, defines):
+    for line in _ptxas_report(source, direction):
         print(f"ptxas {build}: {line}", flush=True)
     sass = {}
     for (kernel, dtype, vec), n in sorted(_sass_counts(library).items()):
@@ -227,9 +226,6 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=50)
     parser.add_argument("--baseline-source", type=Path, default=None,
                         help="another lstm_gates.cu whose entry points to time")
-    parser.add_argument("--once", action="store_true",
-                        help="launch each candidate once on the largest cell and stop, "
-                             "for a profiler such as ncu")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_gates: needs a CUDA device")
@@ -243,7 +239,6 @@ def main(argv=None) -> int:
     props = torch.cuda.get_device_properties(0)
     rate = props.memory_clock_rate * 1e3 * 2 * props.memory_bus_width / 8
     elems = sum(B * h * hh * ww for B, h, hh, ww in CELLS)
-    approx_default = f"#define {APPROX_MACRO} 1" in SOURCE.read_text()
     results, sass = {}, {}
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -252,30 +247,16 @@ def main(argv=None) -> int:
             (library,) = _build.build_all([SOURCE.name])
             sass[direction] = {"wrapper": _report_build("wrapper", SOURCE, library, direction,
                                                          elems, float(clock))}
-            others = {}  # candidate -> (source, nvcc defines)
+            runners = {"vec16": spec["wrapper"], "scalar": spec["wrapper"]}
             if args.baseline_source is not None:
-                others["baseline"] = (args.baseline_source, ())
-            other_math = "accurate" if approx_default else "tanh-approx"
-            if direction == "forward":
-                others[other_math] = (SOURCE, (f"-D{APPROX_MACRO}={0 if approx_default else 1}",))
-            builds = {}
-            for name, (source, defines) in others.items():
-                lib_path = Path(tmp) / f"{name}-{direction}.so"
-                builds[name] = _build_other(source, lib_path, direction, defines)
-                sass[direction][name] = _report_build(name, source, lib_path, direction, elems,
-                                                      float(clock), defines)
+                lib_path = Path(tmp) / f"baseline-{direction}.so"
+                runners["baseline"] = _build_other(args.baseline_source, lib_path, direction)
+                sass[direction]["baseline"] = _report_build(
+                    "baseline", args.baseline_source, lib_path, direction, elems, float(clock))
             for dtype in (torch.float32, torch.bfloat16):
                 aligned = [a[:spec["inputs"]] for a in _inputs(dtype, gen)]
-                runners = {"vec16": spec["wrapper"], "scalar": spec["wrapper"], **builds}
-                if dtype == torch.float32:
-                    runners.pop(other_math, None)  # the same code as vec16 in fp32
                 inputs = {name: aligned for name in runners}
                 inputs["scalar"] = [tuple(_at_storage_offset(t) for t in a) for a in aligned]
-                if args.once:
-                    for name, run in runners.items():
-                        run(*inputs[name][0])
-                    torch.cuda.synchronize()
-                    continue
                 for name, run in runners.items():
                     err, differ, total = 0.0, 0, 0
                     for a in inputs[name]:

@@ -77,8 +77,9 @@ depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
 ``dtu_train`` depth step, and ``host_us_per_call`` and
 ``library_host_us_per_call`` the host's cost of one call.  Device times
-come from CUDA events around runs queued behind a sleep on the device, so
-that they time the device and not the host.  The last line is
+come from CUDA events around runs queued behind a sleep on the device
+(``dtu_eval`` shapes) or a 1 GiB write (``dtu_train`` shapes), so that they
+time the device and not the host.  The last line is
 ``{"ok": true, "device": {...}}``.  Weights are random, made from a seed
 (``utils/synthetic.py:seeded_model``).
 TF32 is off throughout: cuDNN would otherwise run the fp32 convolutions in
@@ -227,18 +228,21 @@ def _cold_step_ms(step, flush, reps: int = 50, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def _host_us(fn, calls: int = 1000) -> float:
-    """Host microseconds per call of ``fn()`` over ``calls`` calls, with no
-    synchronisation inside the timed loop."""
+def _host_us(fn, calls: int = 1000, rounds: int = 3) -> float:
+    """Host microseconds per call of ``fn()``: the least over ``rounds``
+    rounds of ``calls`` calls each, with no synchronisation inside a round
+    (the least, since the host's other work only adds time)."""
     for _ in range(10):
         fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
+    return best / calls * 1e6
 
 
 def phase_kernel() -> dict:
