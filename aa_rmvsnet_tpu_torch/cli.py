@@ -2,7 +2,8 @@
 {eval,train}``.
 
 - ``eval``: depth and confidence maps for a scene list, from a reference
-  torch ``.ckpt`` (or one that ``train`` wrote).
+  torch ``.ckpt`` (or one that ``train`` wrote); with ``--evidential_ckpt``
+  also the evidential head's aleatoric and epistemic maps.
 - ``train``: the core network on DTU (``data/dtu.py``), from scratch or
   from ``--loadckpt``, with checkpoints in ``--logdir`` and ``--resume``.
 
@@ -20,12 +21,12 @@ from __future__ import annotations
 import argparse
 
 #: JAX ``eval`` flags the port does not implement yet (FeatNet view
-#: chunks, quantized tables and residuals, multi-device layouts, the
-#: evidential head, previews, dataset checks).
+#: chunks, quantized tables and residuals, multi-device layouts, previews,
+#: dataset checks).
 NOT_PORTED = (
     "feat_chunk", "fp8_residual", "dual_residual", "int8_residual",
     "fp8_tables", "int8_tables", "fanout", "spatial", "depth_stages",
-    "pipeline_maps", "evidential_ckpt", "depth_source", "save_png", "dry_check",
+    "pipeline_maps", "save_png", "dry_check",
 )
 
 
@@ -102,6 +103,12 @@ def _add_eval(sub):
     p.add_argument("--no_fused_residual", action="store_true",
                    help="materialise the warped volume on packed samples "
                         "(same result as the fused squared residual)")
+    p.add_argument("--evidential_ckpt",
+                   help="evidential head weights (torch .ckpt, evidential.* keys or the "
+                        "head's own); writes aleatoric_0/epistemic_0 maps")
+    p.add_argument("--depth_source", choices=["wta", "evidential"],
+                   help="depth map source; defaults to 'evidential' when "
+                        "--evidential_ckpt is given, else the core WTA depth")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails where there is no card")
     _add_not_ported(p, NOT_PORTED)
@@ -145,10 +152,21 @@ def cmd_eval(args):
     import torch
 
     from .data.eval_dataset import EvalDataset
-    from .models.convert import load_reference_checkpoint
+    from .models.convert import load_evidential_checkpoint, load_reference_checkpoint
+    from .models.evidential import EvidentialHead
     from .models.network import AARMVSNetCore
     from .pipeline.infer import InferConfig, run_inference
     from .utils.config import eval_preset
+
+    head = None
+    if args.evidential_ckpt:
+        try:
+            head = load_evidential_checkpoint(EvidentialHead(), args.evidential_ckpt)
+        except NotImplementedError as exc:
+            raise SystemExit(str(exc)) from exc
+    depth_source = args.depth_source or ("evidential" if head is not None else "wta")
+    if depth_source == "evidential" and head is None:
+        raise SystemExit("--depth_source evidential requires --evidential_ckpt")
 
     overrides = {
         k: v
@@ -178,6 +196,7 @@ def cmd_eval(args):
             fold_omega=args.fold_omega, packed_rows=args.packed_rows,
             gather_pack=args.gather_pack, table_taps=args.table_taps,
             fused_residual=not args.no_fused_residual, device=args.device,
+            evidential=head, depth_source=depth_source,
         ),
     )
     print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s")

@@ -1,5 +1,6 @@
 """The AA-RMVSNet core network, its blocks, the depth sweep, the training
-loss and the weight bridge (port of ``aa_rmvsnet_tpu/models``)."""
+loss, the evidential head, the JAX package's init and the weight bridge
+(port of ``aa_rmvsnet_tpu/models``)."""
 
 from .network import (
     AARMVSNetCore,
@@ -11,13 +12,25 @@ from .network import (
     probability_volume,
     sweep,
 )
-from .convert import load_reference_checkpoint, params_from_jax
+from .convert import (
+    evidential_params_from_jax,
+    load_evidential_checkpoint,
+    load_reference_checkpoint,
+    params_from_jax,
+)
+from .evidential import EvidentialHead, evidential_apply
+from .init import init_like_jax
 
 __all__ = [
     "AARMVSNetCore",
+    "EvidentialHead",
     "SweepConfig",
+    "evidential_apply",
+    "evidential_params_from_jax",
     "extract_features",
     "forward",
+    "init_like_jax",
+    "load_evidential_checkpoint",
     "load_reference_checkpoint",
     "params_from_jax",
     "pick_depth_block",

@@ -82,7 +82,10 @@ class ConvLSTMCell(nn.Module):
 
 class DeformConv(nn.Module):
     """Modulated deformable conv v2 (3x3): offset (18 ch) and sigmoid
-    modulation (9 ch) branches, zero-initialised as in the reference.
+    modulation (9 ch) branches.  :func:`.init.init_like_jax`, which
+    :class:`.network.AARMVSNetCore` applies, zeroes both branches' weights
+    and biases as the JAX package does, so every offset starts at 0 and
+    every modulation at 0.5.
 
     ``conv`` holds the tap weights (the reference applies it as a stride-3
     conv over re-tiled taps); :func:`..ops.deform.deform_conv` contracts
@@ -94,8 +97,6 @@ class DeformConv(nn.Module):
         self.conv = nn.Conv2d(in_c, out_c, 3, stride=3)
         self.p_conv = nn.Conv2d(in_c, 18, 3, padding=1)
         self.m_conv = nn.Conv2d(in_c, 9, 3, padding=1)
-        nn.init.zeros_(self.p_conv.weight)
-        nn.init.zeros_(self.m_conv.weight)
 
     def forward(self, x):
         offset = self.p_conv(x)

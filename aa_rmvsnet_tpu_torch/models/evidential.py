@@ -1,0 +1,258 @@
+"""Evidential (NIG) uncertainty head at inference (port of
+``aa_rmvsnet_tpu/models/evidential.py``), NCDHW.
+
+A 3D-CNN hourglass stack over the depth probability volume predicts
+Normal-Inverse-Gamma parameters (gamma, nu, alpha, beta) per pixel at three
+depths of the stack and fuses them by the analytic mixture-of-NIG rule.  The
+JAX package's two deliberate deviations from the reference are kept:
+
+1. the third input volume is all ones (the reference softmaxes it over its
+   size-1 batch axis, ``evidential.py:184-187``);
+2. with D != maxdisp hypotheses the depth values are resampled onto the
+   maxdisp grid by the align-corners map that resamples the volume
+   (``evidential.py:204-207``); the identity when D == maxdisp.
+
+Submodule names are those of the reference torch module, so
+``state_dict`` keys are the ones ``aa_rmvsnet_tpu/models/convert.py``
+``_evidential_rules`` lists: a ``convbn_3d`` is ``Sequential(conv, bn)``, a
+Mish-wrapped stack is ``Sequential(convbn, Mish, ...)``, a transposed conv
+with its BN is ``Sequential(deconv, bn)``.  BatchNorm runs in eval mode
+(running statistics, eps 1e-5).  The JAX package computes all of it in XLA;
+here the 3D convolutions are cuDNN's and the rest plain torch ops.
+Profiler ranges (``evidential.volumes``, ``.dres``, ``.hourglass_up``,
+``.hourglass``, ``.classify``) name its stages for
+``tools/profile_head.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
+
+from ..ops.resize import interp_matrix, resize_trilinear_align_corners
+from .init import init_like_jax
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """``x * tanh(softplus(x))`` (``evidential.py:37``)."""
+    return F.mish(x)
+
+
+class ConvBN3d(nn.Sequential):
+    """Conv3d without bias + BatchNorm3d (``evidential.py:41``)."""
+
+    def __init__(self, in_c: int, out_c: int, kernel: int = 3, stride: int = 1,
+                 pad: int = 1):
+        super().__init__(
+            nn.Conv3d(in_c, out_c, kernel, stride=stride, padding=pad, bias=False),
+            nn.BatchNorm3d(out_c, eps=1e-5),
+        )
+
+
+def conv3d_stride2(in_c: int, out_c: int) -> nn.Conv3d:
+    """Bare strided Conv3d, no BN or bias (``evidential.py:64``)."""
+    return nn.Conv3d(in_c, out_c, 3, stride=2, padding=1, bias=False)
+
+
+class Deconv3dBN(nn.Sequential):
+    """``ConvTranspose3d(k3, s2, p1, output_padding 1)`` without bias + BN
+    (``evidential.py:77``, which writes it as an input-dilated conv padded
+    (1, 2))."""
+
+    def __init__(self, in_c: int, out_c: int):
+        super().__init__(
+            nn.ConvTranspose3d(in_c, out_c, 3, stride=2, padding=1, output_padding=1,
+                               bias=False),
+            nn.BatchNorm3d(out_c, eps=1e-5),
+        )
+
+
+def _conv_mish(in_c: int, out_c: int, stride: int = 1) -> nn.Sequential:
+    return nn.Sequential(ConvBN3d(in_c, out_c, stride=stride), nn.Mish())
+
+
+class HourGlass(nn.Module):
+    """Two-level 3D hourglass with skip redirections (``evidential.py:99``)."""
+
+    def __init__(self, features: int = 32):
+        super().__init__()
+        f = features
+        self.conv1 = _conv_mish(f, 2 * f, stride=2)
+        self.conv2 = _conv_mish(2 * f, 2 * f)
+        self.conv3 = _conv_mish(2 * f, 4 * f, stride=2)
+        self.conv4 = _conv_mish(4 * f, 4 * f)
+        self.conv5 = Deconv3dBN(4 * f, 2 * f)
+        self.conv6 = Deconv3dBN(2 * f, f)
+        self.redir1 = ConvBN3d(f, f, kernel=1, pad=0)
+        self.redir2 = ConvBN3d(2 * f, 2 * f, kernel=1, pad=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv2 = self.conv2(self.conv1(x))
+        conv4 = self.conv4(self.conv3(conv2))
+        conv5 = mish(self.conv5(conv4) + self.redir2(conv2))
+        del conv2, conv4
+        return mish(self.conv6(conv5) + self.redir1(x))
+
+
+class HourGlassUp(nn.Module):
+    """Hourglass that merges two lower-scale volumes on the way down
+    (``evidential.py:123``); ``cat`` runs on the channel axis."""
+
+    def __init__(self, features: int = 32):
+        super().__init__()
+        f = features
+        self.conv1 = conv3d_stride2(f, 2 * f)
+        self.combine1 = _conv_mish(2 * f + 32, 2 * f)
+        self.conv2 = _conv_mish(2 * f, 2 * f)
+        self.conv3 = conv3d_stride2(2 * f, 4 * f)
+        self.combine2 = _conv_mish(4 * f + 32, 4 * f)
+        self.conv4 = _conv_mish(4 * f, 4 * f)
+        self.redir3 = ConvBN3d(4 * f, 4 * f, kernel=1, pad=0)
+        self.conv8 = Deconv3dBN(4 * f, 2 * f)
+        self.redir2 = ConvBN3d(2 * f, 2 * f, kernel=1, pad=0)
+        self.conv9 = Deconv3dBN(2 * f, f)
+        self.redir1 = ConvBN3d(f, f, kernel=1, pad=0)
+
+    def forward(self, x: torch.Tensor, feat4: torch.Tensor,
+                feat5: torch.Tensor) -> torch.Tensor:
+        conv1 = self.combine1(torch.cat([self.conv1(x), feat4], dim=1))
+        conv2 = self.conv2(conv1)
+        del conv1
+        conv3 = self.combine2(torch.cat([self.conv3(conv2), feat5], dim=1))
+        conv4 = self.conv4(conv3)
+        del conv3
+        conv7 = mish(self.redir3(conv4))
+        del conv4
+        conv8 = mish(self.conv8(conv7) + self.redir2(conv2))
+        del conv2, conv7
+        return mish(self.conv9(conv8) + self.redir1(x))
+
+
+def moe_nig(u1, la1, a1, b1, u2, la2, a2, b2):
+    """Mixture of two NIG estimates, Eq. 9 (``evidential.py:154``)."""
+    la = la1 + la2
+    u = (la1 * u1 + la2 * u2) / la
+    alpha = a1 + a2 + 0.5
+    beta = b1 + b2 + 0.5 * (la1 * (u1 - u) ** 2 + la2 * (u2 - u) ** 2)
+    return u, la, alpha, beta
+
+
+def _classifier() -> nn.Sequential:
+    return nn.Sequential(ConvBN3d(32, 32), nn.Mish(),
+                         nn.Conv3d(32, 4, 3, padding=1, bias=False))
+
+
+class EvidentialHead(nn.Module):
+    """NIG parameter head over the probability volume
+    (``evidential.py:163``), 4,311,328 parameters and BN statistics.
+
+    ``forward(prob_volume (B, D, H, W), depth_values (B, D))`` returns
+    ``gamma``, ``nu``, ``alpha`` and ``beta``, each ``(B, H, W)``, and the
+    three scales' mean probability volume ``prob_combine`` ``(B, maxdisp, H,
+    W)``.  H and W must be divisible by 4.  A fresh head draws the JAX
+    package's ``init_evidential`` distributions (:func:`.init.init_like_jax`)
+    from ``generator``, else from torch's global generator.
+    """
+
+    def __init__(self, maxdisp: int = 32, generator: torch.Generator | None = None):
+        super().__init__()
+        self.maxdisp = maxdisp
+        self.dres0 = nn.Sequential(ConvBN3d(1, 32), nn.Mish(), ConvBN3d(32, 32), nn.Mish())
+        self.dres1 = nn.Sequential(ConvBN3d(32, 32), nn.Mish(), ConvBN3d(32, 32), nn.Mish())
+        self.conv_vol2 = nn.Sequential(ConvBN3d(1, 32), nn.Mish(), ConvBN3d(32, 32))
+        self.conv_vol3 = nn.Sequential(ConvBN3d(1, 32), nn.Mish(), ConvBN3d(32, 32))
+        self.combine1 = HourGlassUp(32)
+        self.dres2 = HourGlass(32)
+        self.dres3 = HourGlass(32)
+        self.classif0 = _classifier()
+        self.classif1 = _classifier()
+        self.classif2 = _classifier()
+        init_like_jax(self, generator)
+
+    def forward(self, prob_volume: torch.Tensor, depth_values: torch.Tensor) -> dict:
+        B, D, H, W = prob_volume.shape
+        M = self.maxdisp
+        if H % 4 or W % 4:
+            raise ValueError(f"the evidential head needs H and W divisible by 4, got {H}x{W}")
+        x = prob_volume[:, None]  # (B, 1, D, H, W)
+
+        with record_function("evidential.volumes"):
+            vol1 = torch.softmax(resize_trilinear_align_corners(x, M, H, W), dim=2)
+            vol2 = torch.softmax(resize_trilinear_align_corners(x, M // 2, H // 2, W // 2),
+                                 dim=2)
+            # The reference softmaxes its third volume over the (size-1)
+            # batch axis, which makes it all ones; kept as the JAX package
+            # keeps it.
+            vol3 = x.new_ones(B, 1, M // 4, H // 4, W // 4)
+
+        with record_function("evidential.dres"):
+            cost0 = self.dres0(vol1)
+            del vol1
+            cost0 = self.dres1(cost0) + cost0
+            v2 = self.conv_vol2(vol2)
+            v3 = self.conv_vol3(vol3)
+            del vol2, vol3
+
+        with record_function("evidential.hourglass_up"):
+            combine = self.combine1(cost0, v2, v3)
+            del v2, v3
+        with record_function("evidential.hourglass"):
+            out1 = self.dres2(combine)
+            del combine
+            out2 = self.dres3(out1)
+
+        # Depth hypotheses resampled onto the maxdisp grid (the identity
+        # when D == maxdisp).
+        interp = torch.from_numpy(interp_matrix(D, M)).to(depth_values.device)
+        dvals = depth_values.float() @ interp.T  # (B, M)
+
+        def classify(classif, feat):
+            cost, logla, logalpha, logbeta = classif(feat).unbind(1)  # (B, M, H, W) each
+            prob = torch.softmax(cost, dim=1)
+            pred = torch.sum(prob * dvals[:, :, None, None], dim=1)
+            la = F.softplus(torch.sum(logla * prob, dim=1))
+            alpha = F.softplus(torch.sum(logalpha * prob, dim=1)) + 1.0
+            beta = F.softplus(torch.sum(logbeta * prob, dim=1))
+            return (pred, la, alpha, beta), prob
+
+        with record_function("evidential.classify"):
+            est0, prob0 = classify(self.classif0, cost0)
+            del cost0
+            est1, prob1 = classify(self.classif1, out1)
+            del out1
+            est2, prob2 = classify(self.classif2, out2)
+            del out2
+
+            u, la, alpha, beta = moe_nig(*est0, *est1)
+            u, la, alpha, beta = moe_nig(u, la, alpha, beta, *est2)
+        return {
+            "gamma": u,
+            "nu": la,
+            "alpha": alpha,
+            "beta": beta,
+            "prob_combine": (prob0 + prob1 + prob2) / 3.0,
+        }
+
+
+def evidential_apply(head: EvidentialHead, cost_volume: torch.Tensor,
+                     depth_values: torch.Tensor) -> dict:
+    """The eval-mode head on a ``(B, D, H, W)`` cost volume
+    (``make_evidential_apply``, ``evidential.py:246``): softmax over D in
+    fp32, then :class:`EvidentialHead`.  Drops its own reference to
+    ``cost_volume`` once the probability volume exists, so a caller that
+    passes its last reference frees the volume."""
+    prob = torch.softmax(cost_volume.float(), dim=1)
+    del cost_volume
+    return head(prob, depth_values)
+
+
+def uncertainty_decompositions(nu, alpha, beta) -> dict:
+    """Both decompositions the reference derives (``evidential.py:294``)."""
+    return {
+        "aleatoric_1": torch.sqrt(beta * (nu + 1.0) / nu / alpha),
+        "epistemic_1": 1.0 / torch.sqrt(nu),
+        "aleatoric_2": beta / (alpha - 1.0),
+        "epistemic_2": beta / (alpha - 1.0) / nu,
+    }

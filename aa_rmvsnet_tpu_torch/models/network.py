@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .aggregation import InterViewAA, omega_folded
 from .feature import FeatNet
+from .init import init_like_jax
 from .regularizer import UNetConvLSTM, init_states
 from ..ops.homography import homography_terms, max_depth_step_displacement, plane_sweep_xy
 from ..ops.patch_sample import (
@@ -69,13 +70,17 @@ from ..ops.patch_sample import (
 
 class AARMVSNetCore(nn.Module):
     """The 187,203-parameter core: ``feature``, ``omega`` and
-    ``cost_regularization``, with the reference torch ``state_dict`` keys."""
+    ``cost_regularization``, with the reference torch ``state_dict`` keys.
+    A fresh core draws the JAX package's ``init_params`` distributions
+    (:func:`.init.init_like_jax`) from ``generator``, else from torch's
+    global generator."""
 
-    def __init__(self):
+    def __init__(self, generator: torch.Generator | None = None):
         super().__init__()
         self.feature = FeatNet()
         self.omega = InterViewAA()
         self.cost_regularization = UNetConvLSTM()
+        init_like_jax(self, generator)
 
 
 @dataclasses.dataclass(frozen=True)

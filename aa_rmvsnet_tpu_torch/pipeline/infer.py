@@ -5,13 +5,20 @@ one map at a time)::
 
     <out_root>/<scan>/depth_est_0/<ref_view:08d>.pfm
     <out_root>/<scan>/confidence_0/<ref_view:08d>.pfm
+    [<out_root>/<scan>/{aleatoric_0,epistemic_0}/<ref_view:08d>.pfm]
 
-The depth map is the winner-take-all depth of the core network and the
-sweep runs with ``collect_volume=False``, so device memory stays
+By default the depth map is the winner-take-all depth of the core network
+and the sweep runs with ``collect_volume=False``, so device memory stays
 O(depth_block) in the number of hypotheses.  By default, as in the JAX
 package, the sweep runs in bf16 with the packed-row warp wherever its
 exactness gate passes (:func:`resolve_packed_mode`, per sample, outside
 the timed window) and the fused squared residual.
+
+With an evidential head attached (``InferConfig.evidential``) the sweep
+collects the ``(B, D, H, W)`` cost volume, the head reads its softmax in
+fp32, and the aleatoric and epistemic maps are written beside depth and
+confidence; ``depth_source="evidential"`` writes the head's gamma as the
+depth map.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from ..core.pfm import save_pfm
 from ..data.loader import prefetch_samples
+from ..models.evidential import evidential_apply
 from ..models.network import (
     AARMVSNetCore,
     SweepConfig,
@@ -45,7 +53,11 @@ class InferConfig:
     exactness gate passes at ``pack_margin``, ``True`` forces it (the
     super-pack and 6x6 levers stay gated), ``False`` never takes it.
     ``gather_pack`` and ``table_taps`` are the most the gate may pick, and
-    ``fused_residual`` applies to packed samples only."""
+    ``fused_residual`` applies to packed samples only.
+    ``evidential``: an :class:`..models.evidential.EvidentialHead` or
+    ``None``; it runs in fp32 whatever ``feature_dtype`` is.
+    ``depth_source``: ``"wta"`` writes the core's winner-take-all depth,
+    ``"evidential"`` the head's gamma (it needs a head)."""
 
     out_root: str
     depth_block: int = 8
@@ -58,16 +70,19 @@ class InferConfig:
     fused_residual: bool = True
     pack_margin: float = 0.95
     device: str = "cuda"
+    evidential: Any = None  # EvidentialHead | None
+    depth_source: str = "wta"  # "wta" | "evidential"
 
 
 def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
-                 confidence: np.ndarray) -> None:
+                 confidence: np.ndarray, uncertainty: dict | None = None) -> None:
+    """Write the depth and confidence PFMs of one map, and one PFM per
+    entry of ``uncertainty`` (family name -> map, e.g. ``aleatoric_0``)."""
     name = f"{ref_view:08d}"
-    os.makedirs(os.path.join(out_dir, "depth_est_0"), exist_ok=True)
-    os.makedirs(os.path.join(out_dir, "confidence_0"), exist_ok=True)
-    save_pfm(os.path.join(out_dir, "depth_est_0", name + ".pfm"), depth.astype(np.float32))
-    save_pfm(os.path.join(out_dir, "confidence_0", name + ".pfm"),
-             confidence.astype(np.float32))
+    maps = {"depth_est_0": depth, "confidence_0": confidence, **(uncertainty or {})}
+    for family, arr in maps.items():
+        os.makedirs(os.path.join(out_dir, family), exist_ok=True)
+        save_pfm(os.path.join(out_dir, family, name + ".pfm"), arr.astype(np.float32))
 
 
 def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfig:
@@ -76,7 +91,7 @@ def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfi
     packed, gather_pack, table_taps = mode
     return SweepConfig(
         depth_block=config.depth_block,
-        collect_volume=False,
+        collect_volume=config.evidential is not None,
         feature_dtype=config.feature_dtype,
         fold_omega=config.fold_omega,
         packed_rows=packed,
@@ -130,23 +145,35 @@ def run_inference(
     """Generate depth maps for every sample of ``dataset`` (anything with
     ``len`` and ``__getitem__`` returning the ``EvalDataset`` sample dict).
 
-    Moves ``model`` to ``config.device`` and sets it to eval mode; a bf16
-    run uses a bf16 copy of it.  Turns TF32 off (see
-    :func:`..utils.device.disable_tf32`).  A map's time runs from the
-    forward call to its depth and confidence on the host, after
-    ``torch.cuda.synchronize()``; the packed gate runs before it.
+    Moves ``model`` (and the evidential head) to ``config.device`` and sets
+    it to eval mode; a bf16 run uses a bf16 copy of the core, and the head
+    stays fp32.  Turns TF32 off (see :func:`..utils.device.disable_tf32`).
+    A map's time runs from the forward call to its depth and confidence on
+    the host, after ``torch.cuda.synchronize()``; the packed gate runs
+    before it and the head after it, as in the JAX package.
 
     Returns ``{count, total_s, maps_per_s, map_seconds, modes,
-    gate_seconds, failures}``: per map its seconds, its packed mode
-    ``(packed, gather_pack, taps)`` and the host seconds of its gate.
+    gate_seconds, head_seconds, failures}``: per map its seconds, its
+    packed mode ``(packed, gather_pack, taps)``, the host seconds of its
+    gate and, with a head, the head's seconds (from the cost volume to its
+    maps on the host, synchronised).
     """
+    head = config.evidential
+    if config.depth_source not in ("wta", "evidential"):
+        raise ValueError(f"depth_source must be 'wta' or 'evidential', "
+                         f"not {config.depth_source!r}")
+    if config.depth_source == "evidential" and head is None:
+        raise ValueError("depth_source='evidential' requires an evidential head")
     device = resolve_device(config.device)
     disable_tf32()
     model = cast_model(model.to(device).eval(), config.feature_dtype)
+    if head is not None:
+        head = head.to(device=device, dtype=torch.float32).eval()
 
     map_seconds: list[float] = []
     modes: list[tuple[bool, int, int]] = []
     gate_seconds: list[float] = []
+    head_seconds: list[float] = []
     failures: list[str] = []
     with torch.inference_mode():
         for sample in prefetch_samples(dataset, num_workers=config.num_workers):
@@ -174,13 +201,35 @@ def run_inference(
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
 
+            uncertainty = None
+            if head is not None:
+                t0 = time.perf_counter()
+                # The volume's last reference goes to the head, which drops
+                # it once the probability volume exists.
+                ev = evidential_apply(head, out.pop("cost_volume"), depths)
+                del out
+                gamma, nu, alpha, beta = (ev[k][0].cpu().numpy()
+                                          for k in ("gamma", "nu", "alpha", "beta"))
+                del ev
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                head_seconds.append(time.perf_counter() - t0)
+                uncertainty = {
+                    "aleatoric_0": np.sqrt(beta * (nu + 1) / nu / alpha),
+                    "epistemic_0": 1.0 / np.sqrt(nu),
+                }
+                if config.depth_source == "evidential":
+                    depth = gamma
+
             save_outputs(os.path.join(config.out_root, sample["scan"]),
-                         sample["ref_view"], depth, conf)
+                         sample["ref_view"], depth, conf, uncertainty)
             map_seconds.append(dt)
             modes.append(mode)
             if progress:
                 print(f"[{len(map_seconds)}/{len(dataset)}] {sample['scan']}/"
-                      f"{sample['ref_view']:08d}  {dt:.3f}s  packed mode {mode}", flush=True)
+                      f"{sample['ref_view']:08d}  {dt:.3f}s  packed mode {mode}"
+                      + (f"  head {head_seconds[-1]:.3f}s" if head is not None else ""),
+                      flush=True)
 
     if failures:
         print(f"run_inference: {len(failures)} sample(s) skipped due to load failures")
@@ -192,5 +241,6 @@ def run_inference(
         "map_seconds": map_seconds,
         "modes": modes,
         "gate_seconds": gate_seconds,
+        "head_seconds": head_seconds,
         "failures": failures,
     }

@@ -66,9 +66,52 @@ KERNEL_GROUPS = (  # first match wins; matched on the lower-cased kernel name
 )
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=KERNEL_GROUPS) -> str:
     low = name.lower()
-    return next(label for label, keys in KERNEL_GROUPS if any(k in low for k in keys))
+    return next(label for label, keys in groups if any(k in low for k in keys))
+
+
+def device_breakdown(prof, layers, groups=KERNEL_GROUPS) -> tuple[dict, dict, dict, dict]:
+    """``(layers_ms, kernels_ms, groups_ms, cross_ms)`` of a profile: the
+    device-timeline span of each profiler range in ``layers``, and device
+    time by kernel, by kernel group and by (range, group).
+
+    On the device timeline a profiler range appears as a span over its
+    kernels (and any idle gaps between them); everything else there is a
+    kernel or a copy, and belongs to the range whose span holds its start.
+    A range appears once on every stream that ran its kernels: the union of
+    its intervals counts.
+    """
+    device_events = [ev for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+    spans = []
+    for name in layers:
+        for start, end in sorted((ev.time_range.start, ev.time_range.end)
+                                 for ev in device_events if ev.name == name):
+            if spans and spans[-1][2] == name and start <= spans[-1][1]:
+                spans[-1] = (spans[-1][0], max(end, spans[-1][1]), name)
+            else:
+                spans.append((start, end, name))
+    spans.sort()
+    starts = [start for start, _, _ in spans]
+    layers_ms = {name: 0.0 for name in layers}
+    for start, end, name in spans:
+        layers_ms[name] += (end - start) / 1e3
+    kernels_ms: dict[str, float] = defaultdict(float)
+    groups_ms: dict[str, float] = defaultdict(float)
+    cross_ms: dict[str, float] = defaultdict(float)
+    for ev in device_events:
+        if ev.name in layers:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        inside = i >= 0 and ev.time_range.start < spans[i][1]
+        layer = spans[i][2] if inside else "(outside the ranges)"
+        group = _group(ev.name, groups)
+        kernels_ms[ev.name] += ms
+        groups_ms[group] += ms
+        cross_ms[f"{layer} / {group}"] += ms
+    return layers_ms, kernels_ms, groups_ms, cross_ms
 
 
 def _omega_forms_ms(model, H: int, W: int, dtype, block: int = 8) -> tuple[float, float]:
@@ -144,39 +187,7 @@ def main(argv=None) -> int:
             prof_wall_s = time.perf_counter() - t0
         omega_ms = _omega_forms_ms(model, H, W, config.feature_dtype)
 
-    # On the device timeline a profiler range appears as a span over its
-    # kernels (and any idle gaps between them); everything else there is a
-    # kernel or a copy, and belongs to the range whose span holds its start.
-    device_events = [ev for ev in prof.events()
-                     if ev.device_type == torch.autograd.DeviceType.CUDA]
-    # A range appears once on every stream that ran its kernels: take the
-    # union of its intervals.
-    spans = []
-    for name in LAYERS:
-        for start, end in sorted((ev.time_range.start, ev.time_range.end)
-                                 for ev in device_events if ev.name == name):
-            if spans and spans[-1][2] == name and start <= spans[-1][1]:
-                spans[-1] = (spans[-1][0], max(end, spans[-1][1]), name)
-            else:
-                spans.append((start, end, name))
-    spans.sort()
-    starts = [start for start, _, _ in spans]
-    layers_ms = {name: 0.0 for name in LAYERS}
-    for start, end, name in spans:
-        layers_ms[name] += (end - start) / 1e3
-    kernels_ms: dict[str, float] = defaultdict(float)
-    groups_ms: dict[str, float] = defaultdict(float)
-    cross_ms: dict[str, float] = defaultdict(float)
-    for ev in device_events:
-        if ev.name in LAYERS:
-            continue
-        ms = ev.time_range.elapsed_us() / 1e3
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        inside = i >= 0 and ev.time_range.start < spans[i][1]
-        layer = spans[i][2] if inside else "(outside the ranges)"
-        kernels_ms[ev.name] += ms
-        groups_ms[_group(ev.name)] += ms
-        cross_ms[f"{layer} / {_group(ev.name)}"] += ms
+    layers_ms, kernels_ms, groups_ms, cross_ms = device_breakdown(prof, LAYERS)
     busy_ms = sum(kernels_ms.values())
     step_ms = sum(layers_ms[k] for k in LAYERS[2:]) / D
     map_s_at_512 = (layers_ms["featnet"] + layers_ms["sweep.setup"] + 512 * step_ms) / 1e3

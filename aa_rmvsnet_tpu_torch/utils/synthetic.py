@@ -9,6 +9,7 @@ its ground truth the plane's depth.
 :func:`seeded_model` gives the full-width core random weights from a seed,
 and :func:`matching_model` the same with a regularizer that passes the
 photometric cost through, a stand-in for a trained network.
+:func:`seeded_head` gives the evidential head random weights from a seed.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from ..core.samplers import linear_depth_train
 from ..core.transforms import standardize_image
+from ..models.evidential import EvidentialHead
 from ..models.network import AARMVSNetCore
 
 
@@ -47,6 +49,24 @@ def seeded_model(seed: int) -> AARMVSNetCore:
             w.copy_(std * torch.randn(w.shape, generator=gen))
             mod.bias.zero_()
     return model.eval()
+
+
+def seeded_head(seed: int) -> EvidentialHead:
+    """The evidential head with random weights from ``seed``: the JAX
+    package's init (lecun-normal kernels), then BatchNorm scales ~ N(1,
+    0.1), biases ~ N(0, 0.1), running means ~ N(0, 0.1) and variances ~
+    U(0.5, 1.5), so that every BN does work.  Eval mode."""
+    gen = torch.Generator().manual_seed(seed)
+    head = EvidentialHead(generator=gen)
+    with torch.no_grad():
+        for mod in head.modules():
+            if isinstance(mod, nn.BatchNorm3d):
+                c = mod.num_features
+                mod.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+    return head.eval()
 
 
 def matching_model(seed: int, gain: float = 0.02, sharpness: float = 20.0) -> AARMVSNetCore:

@@ -62,6 +62,16 @@ Phases, each printing a line; any failure exits non-zero:
 5b. the exact path kept: one map of the same scene with ``--fp32
    --packed_rows 0``'s settings, its launch count asserted, and the share
    of its depths within one bin of the bf16 packed map's;
+5c. the evidential head: alone, CUDA against CPU at 32x40, D=32, fp32 with
+   seeded weights (``utils/synthetic.py:seeded_head``), at the CPU tests'
+   bars (gamma 2e-3; nu, alpha, beta 1e-3; prob_combine 1e-4); then the
+   main path with a head, ``cli eval --evidential_ckpt``'s: ``run_inference``
+   with ``InferConfig()``'s defaults, a seeded head and ``depth_source
+   evidential``, for one map of the phase-5 scene, with its packed mode,
+   5 x D forward and no backward gate-kernel launches asserted, the four
+   PFM families finite, gamma inside the sweep, nu > 0 and alpha > 1; it
+   prints the core's and the head's seconds and the peak memory of the
+   core with the collected volume and of the head;
 6. main path, training: ``run_training`` at the ``dtu_train`` geometry
    (128x160, V=5, D=128, depth_block 16, batch 1, Adam 1e-3 on the
    cosine schedule of a 10-epoch DTU run) for 8 steps on one synthetic
@@ -71,7 +81,7 @@ Phases, each printing a line; any failure exits non-zero:
 
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
-``launches_by_path`` gives it for every main path (phases 5, 5b and 6);
+``launches_by_path`` gives it for every main path (phases 5, 5b, 5c and 6);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
@@ -109,6 +119,10 @@ SMALL_H, SMALL_W, SMALL_V, SMALL_D = 64, 80, 3, 48
 GUARD_H, GUARD_W, GUARD_V, GUARD_D = 256, 320, 3, 128
 # Small training check, CUDA against CPU.
 GRAD_D, GRAD_BLOCK = 16, 8
+# The evidential head alone, CUDA against CPU, and its bars (those of
+# tests/test_torch_evidential.py).
+EV_H, EV_W, EV_D = 32, 40, 32
+EV_BARS = {"gamma": 2e-3, "nu": 1e-3, "alpha": 1e-3, "beta": 1e-3, "prob_combine": 1e-4}
 # Training main path: the dtu_train preset geometry, 8 steps.
 TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, TRAIN_BLOCK, TRAIN_STEPS = 128, 160, 5, 128, 16, 8
 # Cosine schedule length of a 10-epoch DTU run: 79 training scans x 49
@@ -901,6 +915,95 @@ def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
     return launches
 
 
+def phase_evidential(samples) -> tuple[int, int]:
+    from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
+    from aa_rmvsnet_tpu_torch.models import evidential_apply
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_head, seeded_model
+
+    # The head alone, CUDA against CPU, at the bars of the CPU tests.
+    rng = np.random.RandomState(SEED + 8)
+    cost = torch.from_numpy((3.0 * rng.randn(1, EV_D, EV_H, EV_W)).astype(np.float32))
+    dvals = torch.from_numpy(
+        (MAIN_DEPTH_MIN + 2.75 * np.arange(EV_D, dtype=np.float32))[None])
+    head = seeded_head(SEED)
+    outs = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            head.to(dev)
+            out = evidential_apply(head, cost.to(dev), dvals.to(dev))
+            outs[dev] = {k: v.cpu() for k, v in out.items()}
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item() for k in EV_BARS}
+    ok = all(errs[k] <= bar for k, bar in EV_BARS.items())
+    print(f"evidential: head CUDA vs CPU at {EV_H}x{EV_W}, D={EV_D}, seeded weights, fp32: "
+          + ", ".join(f"{k} max_abs_err {errs[k]:.3e} (bar {bar:g})" for k, bar in EV_BARS.items())
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail("the evidential head on CUDA disagrees with the CPU")
+
+    # The main path with a head: one dtu_eval map, InferConfig() defaults.
+    # Hooks on the head read the memory when it starts and its outputs'
+    # ranges; they launch no gate kernel.
+    model, head = seeded_model(SEED), seeded_head(SEED)
+    marks = {}
+
+    def before_head(module, args):
+        torch.cuda.synchronize()
+        marks["core_peak"] = torch.cuda.max_memory_allocated()
+        marks["held"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def after_head(module, args, out):
+        marks["gamma"] = (out["gamma"].min().item(), out["gamma"].max().item())
+        marks["nu_min"] = out["nu"].min().item()
+        marks["alpha_min"] = out["alpha"].min().item()
+
+    hooks = [head.register_forward_pre_hook(before_head), head.register_forward_hook(after_head)]
+    depth_max = MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1)
+    with tempfile.TemporaryDirectory() as out_root:
+        torch.cuda.reset_peak_memory_stats()
+        gates.launches = gates.backward_launches = 0
+        stats = run_inference(model, samples[:1], InferConfig(
+            out_root=out_root, num_workers=2, device="cuda", evidential=head,
+            depth_source="evidential"))
+        launches, backward = gates.launches, gates.backward_launches
+        head_peak = torch.cuda.max_memory_allocated()
+        for hook in hooks:
+            hook.remove()
+        if stats["count"] != 1 or launches != 5 * MAIN_D or backward != 0 \
+                or stats["modes"] != [(True, 1, 4)]:
+            _fail(f"evidential path wrote {stats['count']} maps in modes {stats['modes']} "
+                  f"with {launches} gate kernel and {backward} backward launches; expected 1, "
+                  f"(True, 1, 4), {5 * MAIN_D} and 0")
+        maps = {}
+        for family in ("depth_est_0", "confidence_0", "aleatoric_0", "epistemic_0"):
+            maps[family], _ = read_pfm(os.path.join(out_root, "scan1", family, "00000000.pfm"))
+            if maps[family].shape != (MAIN_H, MAIN_W) or not np.isfinite(maps[family]).all():
+                _fail(f"evidential {family}: shape {maps[family].shape} or non-finite values")
+    gamma = maps["depth_est_0"]
+    if gamma.min() < MAIN_DEPTH_MIN - 1e-3 or gamma.max() > depth_max + 1e-3:
+        _fail(f"evidential gamma [{gamma.min()}, {gamma.max()}] outside the sweep "
+              f"[{MAIN_DEPTH_MIN}, {depth_max}]")
+    if not (marks["nu_min"] > 0.0 and marks["alpha_min"] > 1.0):
+        _fail(f"evidential nu min {marks['nu_min']}, alpha min {marks['alpha_min']}")
+    print(f"evidential: run_inference, InferConfig() defaults (bf16, packed rows, fused "
+          f"residual) + seeded head (fp32), depth_source evidential, at {MAIN_H}x{MAIN_W}, "
+          f"V={MAIN_V}, D={MAIN_D}: 1 map, packed mode {stats['modes'][0]}, core "
+          f"{stats['map_seconds'][0]:.3f} s (timed window, as phase 5), head "
+          f"{stats['head_seconds'][0]:.3f} s; peak memory of the core with the collected volume "
+          f"{marks['core_peak'] / 2**30:.2f} GiB, held when the head starts "
+          f"{marks['held'] / 2**30:.2f} GiB, peak during the head {head_peak / 2**30:.2f} GiB "
+          f"(phase 5 gives the map without head or volume); gamma in "
+          f"[{marks['gamma'][0]:.3f}, {marks['gamma'][1]:.3f}] (sweep [{MAIN_DEPTH_MIN}, "
+          f"{depth_max}]), nu min {marks['nu_min']:.3e}, alpha min {marks['alpha_min']:.4f}, "
+          f"aleatoric in [{maps['aleatoric_0'].min():.4g}, {maps['aleatoric_0'].max():.4g}], "
+          f"epistemic in [{maps['epistemic_0'].min():.4g}, {maps['epistemic_0'].max():.4g}]; "
+          f"gate kernel launches {launches} (= 5 x {MAIN_D}), backward {backward}; four PFM "
+          "families finite", flush=True)
+    return launches, backward
+
+
 def phase_train() -> tuple[int, int]:
     from aa_rmvsnet_tpu_torch.models import AARMVSNetCore
     from aa_rmvsnet_tpu_torch.ops import gates
@@ -987,11 +1090,14 @@ def main() -> int:
     samples = _main_scene()
     bf16_launches, packed_depth0 = phase_main(samples)
     fp32_launches = phase_main_exact(samples, packed_depth0)
+    evidential_launches, evidential_backward = phase_evidential(samples)
     forward["launches"], backward["launches"] = phase_train()
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
+                                   "inference_evidential": evidential_launches,
                                    "training": forward["launches"]}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
+                                    "inference_evidential": evidential_backward,
                                     "training": backward["launches"]}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [forward, backward]}), flush=True)

@@ -222,7 +222,7 @@ def test_resume_continues_the_uninterrupted_run_exactly(tmp_path):
     assert first["losses"] == full["losses"][:3]
     assert latest_step(logdir) == 3
 
-    resumed_model = AARMVSNetCore()  # PyTorch's own init: every weight restored
+    resumed_model = AARMVSNetCore()  # a fresh init: every weight restored
     resumed = run_training(resumed_model, dataset,
                            TrainConfig(**{**config.__dict__, "logdir": logdir, "resume": True}))
     assert resumed["start_step"] == 3 and resumed["step"] == 4
