@@ -29,9 +29,8 @@ from .blocks import DeformConv
 #: The standard deviation of a unit normal truncated at +-2.
 TRUNCATED_STD = 0.87962566103423978
 
-_CONV = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
-_DECONV = (nn.ConvTranspose1d, nn.ConvTranspose2d, nn.ConvTranspose3d)
-_NORM = (nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
+_CONV = (nn.Conv2d, nn.Conv3d)
+_DECONV = (nn.ConvTranspose2d, nn.ConvTranspose3d)
 
 
 def kernel_fan_in(module: nn.Module) -> int:
@@ -67,10 +66,9 @@ def init_like_jax(module: nn.Module, generator: torch.Generator | None = None) -
                 lecun_normal_(mod.weight, kernel_fan_in(mod), generator)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, _NORM):
-            if mod.weight is not None:
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        elif isinstance(mod, (nn.GroupNorm, nn.BatchNorm3d)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, nn.BatchNorm3d):
                 mod.reset_running_stats()
     return module

@@ -9,8 +9,8 @@ one map at a time)::
 
 By default the depth map is the winner-take-all depth of the core network
 and the sweep runs with ``collect_volume=False``, so device memory stays
-O(depth_block) in the number of hypotheses.  By default, as in the JAX
-package, the sweep runs in bf16 with the packed-row warp wherever its
+O(depth_block) in the number of hypotheses.  As in the JAX package, the
+sweep runs by default in bf16 with the packed-row warp wherever its
 exactness gate passes (:func:`resolve_packed_mode`, per sample, outside
 the timed window) and the fused squared residual.
 
