@@ -5,7 +5,9 @@
   torch ``.ckpt`` (or one that ``train`` wrote); with ``--evidential_ckpt``
   also the evidential head's aleatoric and epistemic maps.
 - ``train``: the core network on DTU (``data/dtu.py``), from scratch or
-  from ``--loadckpt``, with checkpoints in ``--logdir`` and ``--resume``.
+  from ``--loadckpt``, with checkpoints in ``--logdir`` and ``--resume``;
+  with ``--evidential`` the evidential head with it (``loss_emvsnet``),
+  fresh or from ``--head_ckpt``.
 
 Both run on the card by default (``--device cpu`` to run on the CPU).
 ``eval`` runs, as the JAX CLI does by default, in bf16 with the packed-row
@@ -30,11 +32,10 @@ NOT_PORTED = (
 )
 
 
-#: JAX ``train`` flags the port does not implement yet (the evidential
-#: head, multi-process and multi-device layouts).
+#: JAX ``train`` flags the port does not implement yet (multi-process and
+#: multi-device layouts).
 NOT_PORTED_TRAIN = (
-    "evidential", "head_ckpt", "maxdisp", "coordinator", "num_processes",
-    "process_id", "spatial", "single_device",
+    "coordinator", "num_processes", "process_id", "spatial", "single_device",
 )
 
 
@@ -140,6 +141,12 @@ def _add_train(sub):
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--no_tensorboard", action="store_true",
                    help="log to stdout only (no tensorboardX)")
+    p.add_argument("--evidential", action="store_true",
+                   help="attach the evidential head and train with loss_emvsnet")
+    p.add_argument("--head_ckpt",
+                   help="warm-start head weights (torch .ckpt; needs --evidential)")
+    p.add_argument("--maxdisp", type=int,
+                   help="the head's depth hypotheses (default 32; needs --evidential)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails where there is no card")
     _add_not_ported(p, NOT_PORTED_TRAIN)
@@ -163,7 +170,7 @@ def cmd_eval(args):
         try:
             head = load_evidential_checkpoint(EvidentialHead(), args.evidential_ckpt)
         except NotImplementedError as exc:
-            raise SystemExit(str(exc)) from exc
+            raise SystemExit(f"--evidential_ckpt {exc}") from exc
     depth_source = args.depth_source or ("evidential" if head is not None else "wta")
     if depth_source == "evidential" and head is None:
         raise SystemExit("--depth_source evidential requires --evidential_ckpt")
@@ -204,12 +211,30 @@ def cmd_eval(args):
 
 def cmd_train(args):
     _refuse_not_ported(args, NOT_PORTED_TRAIN)
+    if not args.evidential:
+        given = [f"--{n}" for n in ("head_ckpt", "maxdisp") if getattr(args, n) is not None]
+        if given:
+            raise SystemExit(f"{', '.join(given)} needs --evidential")
+
+    import torch
 
     from .data.dtu import DTUTrainDataset
-    from .models.convert import load_reference_checkpoint
+    from .models.convert import load_evidential_checkpoint, load_reference_checkpoint
+    from .models.evidential import EvidentialHead
     from .models.network import AARMVSNetCore
     from .pipeline.train import TrainConfig, run_training
     from .utils.config import train_preset
+
+    head = None
+    maxdisp = 32 if args.maxdisp is None else args.maxdisp
+    if args.evidential:
+        # A fresh head from seed 1, as the JAX CLI's PRNGKey(1).
+        head = EvidentialHead(maxdisp, generator=torch.Generator().manual_seed(1))
+        if args.head_ckpt:
+            try:
+                load_evidential_checkpoint(head, args.head_ckpt)
+            except NotImplementedError as exc:
+                raise SystemExit(f"--head_ckpt {exc}") from exc
 
     overrides = {
         k: v
@@ -247,9 +272,10 @@ def cmd_train(args):
         epochs=cfg.epochs, batch_size=cfg.batch_size, num_workers=args.num_workers,
         summary_freq=cfg.summary_freq, max_steps=args.max_steps, logdir=cfg.logdir,
         resume=cfg.resume, seed=cfg.seed, device=args.device,
+        evidential=args.evidential, maxdisp=maxdisp,
     )
     try:
-        stats = run_training(model, ds, config, val_dataset=val_ds, logger=logger)
+        stats = run_training(model, ds, config, val_dataset=val_ds, logger=logger, head=head)
     finally:
         if logger is not None:
             logger.close()

@@ -220,8 +220,8 @@ def load_evidential_checkpoint(head: torch.nn.Module, path) -> torch.nn.Module:
     path = str(path)
     if not path.endswith(".ckpt"):
         raise NotImplementedError(
-            f"--evidential_ckpt {path}: only a torch .ckpt is read; an orbax "
-            "checkpoint is not ported yet to aa_rmvsnet_tpu_torch")
+            f"{path}: only a torch .ckpt is read; an orbax checkpoint is not "
+            "ported yet to aa_rmvsnet_tpu_torch")
     state = _checkpoint_state(path)
     head_only = {k.removeprefix("evidential."): v for k, v in state.items()
                  if k.startswith("evidential.")}

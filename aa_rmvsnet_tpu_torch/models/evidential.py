@@ -1,4 +1,4 @@
-"""Evidential (NIG) uncertainty head at inference (port of
+"""Evidential (NIG) uncertainty head and its losses (port of
 ``aa_rmvsnet_tpu/models/evidential.py``), NCDHW.
 
 A 3D-CNN hourglass stack over the depth probability volume predicts
@@ -16,8 +16,10 @@ Submodule names are those of the reference torch module, so
 ``state_dict`` keys are the ones ``aa_rmvsnet_tpu/models/convert.py``
 ``_evidential_rules`` lists: a ``convbn_3d`` is ``Sequential(conv, bn)``, a
 Mish-wrapped stack is ``Sequential(convbn, Mish, ...)``, a transposed conv
-with its BN is ``Sequential(deconv, bn)``.  BatchNorm runs in eval mode
-(running statistics, eps 1e-5).  The JAX package computes all of it in XLA;
+with its BN is ``Sequential(deconv, bn)``.  In eval mode BatchNorm
+normalises with its running statistics (eps 1e-5); in train mode with the
+batch's, and the running statistics update as flax's do
+(:class:`FlaxBatchNorm3d`).  The JAX package computes all of it in XLA;
 here the 3D convolutions are cuDNN's and the rest plain torch ops.
 Profiler ranges (``evidential.volumes``, ``.dres``, ``.hourglass_up``,
 ``.hourglass``, ``.classify``) name its stages for
@@ -25,6 +27,8 @@ Profiler ranges (``evidential.volumes``, ``.dres``, ``.hourglass_up``,
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +44,29 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return F.mish(x)
 
 
+class FlaxBatchNorm3d(nn.BatchNorm3d):
+    """``BatchNorm3d`` whose train-mode update of the running statistics is
+    flax's ``nn.BatchNorm(momentum=0.9)`` (``evidential.py:59-60, 94-95``):
+    ``stat = 0.9 * stat + 0.1 * batch_stat`` with the *biased* batch
+    variance, where ``nn.BatchNorm3d`` takes the unbiased one (n / (n - 1)
+    times larger).  The normalisation, its gradient through the batch
+    statistics, the eval mode and the ``state_dict`` keys are
+    ``nn.BatchNorm3d``'s."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvBN3d(nn.Sequential):
     """Conv3d without bias + BatchNorm3d (``evidential.py:41``)."""
 
@@ -47,7 +74,7 @@ class ConvBN3d(nn.Sequential):
                  pad: int = 1):
         super().__init__(
             nn.Conv3d(in_c, out_c, kernel, stride=stride, padding=pad, bias=False),
-            nn.BatchNorm3d(out_c, eps=1e-5),
+            FlaxBatchNorm3d(out_c),
         )
 
 
@@ -65,7 +92,7 @@ class Deconv3dBN(nn.Sequential):
         super().__init__(
             nn.ConvTranspose3d(in_c, out_c, 3, stride=2, padding=1, output_padding=1,
                                bias=False),
-            nn.BatchNorm3d(out_c, eps=1e-5),
+            FlaxBatchNorm3d(out_c),
         )
 
 
@@ -246,6 +273,40 @@ def evidential_apply(head: EvidentialHead, cost_volume: torch.Tensor,
     prob = torch.softmax(cost_volume.float(), dim=1)
     del cost_volume
     return head(prob, depth_values)
+
+
+def loss_emvsnet(gamma, nu, alpha, beta, depth_gt, mask,
+                 weight_reg: float = 0.1) -> torch.Tensor:
+    """The fork's production loss (``evidential.py:263``): the masked mean
+    of ``log(var) + (1 + weight_reg * nu) * err^2 / var`` with ``var = beta /
+    nu``.  Masked pixels are selected away, not multiplied by 0, as JAX's
+    ``where`` does: where ``beta / nu`` underflows their term is infinite,
+    and a product would make the loss NaN."""
+    valid = mask > 0.5
+    err = gamma - depth_gt
+    var = beta / nu
+    per_px = torch.log(var) + (1.0 + weight_reg * nu) * err**2 / var
+    return torch.where(valid, per_px, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def nig_nll_loss(gamma, nu, alpha, beta, depth_gt, mask,
+                 weight_reg: float = 0.1) -> torch.Tensor:
+    """The full NIG negative log-likelihood plus the |err|-scaled evidence
+    regulariser, masked means (``evidential.py:273``)."""
+    valid = mask > 0.5
+    om = 2.0 * beta * (1.0 + nu)
+    err = gamma - depth_gt
+    nll = (
+        0.5 * torch.log(math.pi / nu)
+        - alpha * torch.log(om)
+        + (alpha + 0.5) * torch.log(nu * err**2 + om)
+        + torch.lgamma(alpha)
+        - torch.lgamma(alpha + 0.5)
+    )
+    reg = torch.abs(err) * (2.0 * nu + alpha)
+    count = valid.sum().clamp(min=1)
+    return (torch.where(valid, nll, 0.0).sum() / count
+            + weight_reg * torch.where(valid, reg, 0.0).sum() / count)
 
 
 def uncertainty_decompositions(nu, alpha, beta) -> dict:

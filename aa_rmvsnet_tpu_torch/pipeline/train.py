@@ -10,6 +10,15 @@ annealing to 2e-6 over the run, the masked cross-entropy of
 ``remat=True``: on CUDA each of the 5 ConvLSTM cells launches the gate
 kernel twice per hypothesis (forward and recompute) and the gate-backward
 kernel once, 2 x 5 x D and 5 x D launches per step.
+
+With ``TrainConfig(evidential=True)`` and an :class:`EvidentialHead`, a step
+is the fork's production loop (reference train.py:120-121, 234-237; JAX
+``pipeline/train.py:152-262``): the core's probability volume feeds the head
+in train mode (BatchNorm on batch statistics, running statistics updated as
+flax's), ``loss_emvsnet`` on its NIG output, and one Adam over the core and
+the head together; the gradient reaches the core through the probability
+volume and BPTT through the sweep, so the gate launches per step are the
+same.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from ..data.loader import batched, resilient_samples
+from ..models.evidential import EvidentialHead, loss_emvsnet, uncertainty_decompositions
 from ..models.losses import depth_classification_loss
 from ..models.network import AARMVSNetCore, SweepConfig, forward, probability_volume
 from ..utils.device import disable_tf32, resolve_device
@@ -40,9 +50,10 @@ class TrainConfig:
 
     ``total_steps`` is the cosine schedule's length; None means epochs x
     steps per epoch.  ``logdir`` None writes no checkpoint.  ``max_steps``
-    stops a run early (after a checkpoint).  The JAX package's
-    ``feature_dtype`` (bf16), ``fold_omega``, ``mesh`` and ``evidential``
-    are refused: not ported yet.
+    stops a run early (after a checkpoint).  ``evidential`` trains an
+    evidential head with the core (``maxdisp`` hypotheses, ``loss_emvsnet``
+    with ``evidential_weight_reg``).  The JAX package's ``feature_dtype``
+    (bf16), ``fold_omega`` and ``mesh`` are refused: not ported yet.
     """
 
     learning_rate: float = 1e-3
@@ -63,6 +74,8 @@ class TrainConfig:
     fold_omega: Any = False
     mesh: Any = None
     evidential: bool = False
+    maxdisp: int = 32
+    evidential_weight_reg: float = 0.1
 
     def __post_init__(self):
         refused = [
@@ -70,7 +83,6 @@ class TrainConfig:
                 ("feature_dtype", self.feature_dtype, torch.float32),
                 ("fold_omega", self.fold_omega, False),
                 ("mesh", self.mesh, None),
-                ("evidential", self.evidential, False),
             ) if value != default
         ]
         if refused:
@@ -134,22 +146,75 @@ def loss_fn(model: AARMVSNetCore, batch: dict, sweep_config: SweepConfig):
     )
 
 
-def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig):
+def evidential_loss_fn(model: AARMVSNetCore, head: EvidentialHead, batch: dict,
+                       config: TrainConfig, sweep_config: SweepConfig):
+    """The core's probability volume through ``head`` (in the mode the
+    caller set), then ``loss_emvsnet``.  Returns ``(loss, head outputs)``."""
+    out = forward(model, batch["imgs"], batch["proj_matrices"],
+                  batch["depth_values"], sweep_config)
+    ev = head(probability_volume(out.pop("cost_volume")), batch["depth_values"])
+    loss = loss_emvsnet(ev["gamma"], ev["nu"], ev["alpha"], ev["beta"],
+                        batch["depth"], batch["mask"], config.evidential_weight_reg)
+    return loss, ev
+
+
+def _evidential_summaries(ev: dict, batch: dict) -> tuple[dict, dict]:
+    """Metrics and images of an evidential step (JAX
+    ``_evidential_summaries``): the head's mean nu, alpha and beta, gamma's
+    error, and both uncertainty decompositions."""
+    gamma, depth, mask = ev["gamma"].detach(), batch["depth"], batch["mask"]
+    nu, alpha, beta = ev["nu"].detach(), ev["alpha"].detach(), ev["beta"].detach()
+    metrics = {
+        "loss_components/nu": nu.mean(),
+        "loss_components/alpha": alpha.mean(),
+        "loss_components/beta": beta.mean(),
+        "abs_depth_error": abs_depth_error(gamma, depth, mask),
+    }
+    decomp = uncertainty_decompositions(nu, alpha, beta)
+    images = {
+        "depth_est": gamma * mask,
+        "error_map": torch.abs(gamma - depth) * mask,
+        "alea_1": decomp["aleatoric_1"],
+        "epis_1": decomp["epistemic_1"],
+        "alea_2": decomp["aleatoric_2"],
+        "epis_2": decomp["epistemic_2"],
+    }
+    return metrics, images
+
+
+def trainable_parameters(model, head=None) -> list:
+    """The core's parameters, then the head's: the one Adam's list."""
+    return list(model.parameters()) + ([] if head is None else list(head.parameters()))
+
+
+def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
+               head: EvidentialHead | None = None):
     """One update: zero grads, forward with remat, loss, backward (which
     recomputes each depth block), Adam and scheduler steps, under the
     profiler ranges ``train.forward``, ``train.backward`` and
-    ``train.optimizer``.  Returns ``(metrics, images)`` of detached tensors."""
+    ``train.optimizer``.  With ``head`` (``config.evidential``) both modules
+    run in train mode and the loss is ``loss_emvsnet`` on the head's output.
+    Returns ``(metrics, images)`` of detached tensors."""
     model.train()
+    if head is not None:
+        head.train()
     optimizer.zero_grad(set_to_none=True)
     with record_function("train.forward"):
-        loss, wta_depth = loss_fn(model, batch, config.sweep(remat=True))
+        if head is None:
+            loss, wta_depth = loss_fn(model, batch, config.sweep(remat=True))
+        else:
+            loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=True))
     with record_function("train.backward"):
         loss.backward()
     with record_function("train.optimizer"):
         if config.grad_clip is not None:
-            clip_by_global_norm(model.parameters(), config.grad_clip)
+            clip_by_global_norm(trainable_parameters(model, head), config.grad_clip)
         optimizer.step()
         scheduler.step()
+    if head is not None:
+        metrics, images = _evidential_summaries(ev, batch)
+        metrics["loss"] = loss.detach()
+        return metrics, images
     depth, mask = batch["depth"], batch["mask"]
     metrics = {"loss": loss.detach(),
                "abs_depth_error": abs_depth_error(wta_depth, depth, mask)}
@@ -159,14 +224,23 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig):
 
 
 @torch.no_grad()
-def eval_step(model, batch: dict, config: TrainConfig) -> dict:
-    """Loss and depth metrics without remat or gradients."""
+def eval_step(model, batch: dict, config: TrainConfig,
+              head: EvidentialHead | None = None) -> dict:
+    """Loss and depth metrics without remat or gradients.  With ``head``
+    (JAX ``make_evidential_eval_step``) the head runs in eval mode, the loss
+    is ``loss_emvsnet`` and the metrics are of gamma; ``train_step`` puts
+    both modules back in train mode."""
     model.eval()
-    loss, wta_depth = loss_fn(model, batch, config.sweep(remat=False))
+    if head is None:
+        loss, depth_est = loss_fn(model, batch, config.sweep(remat=False))
+    else:
+        head.eval()
+        loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=False))
+        depth_est = ev["gamma"]
     depth, mask = batch["depth"], batch["mask"]
-    metrics = {"loss": loss, "abs_depth_error": abs_depth_error(wta_depth, depth, mask)}
+    metrics = {"loss": loss, "abs_depth_error": abs_depth_error(depth_est, depth, mask)}
     for tau in THRESHOLDS_MM:
-        metrics[f"thres{int(tau)}mm_error"] = threshold_error_rate(wta_depth, depth, mask, tau)
+        metrics[f"thres{int(tau)}mm_error"] = threshold_error_rate(depth_est, depth, mask, tau)
     return metrics
 
 
@@ -187,12 +261,15 @@ def run_training(
     config: TrainConfig,
     val_dataset=None,
     logger=None,
+    head: EvidentialHead | None = None,
 ) -> dict:
     """Train ``model`` on ``dataset`` (``len`` and ``__getitem__`` giving
-    the ``DTUTrainDataset`` sample dict) for ``config.epochs`` epochs.
+    the ``DTUTrainDataset`` sample dict) for ``config.epochs`` epochs; with
+    ``config.evidential``, ``model`` and the evidential ``head`` together
+    (one without the other raises).
 
-    Moves the model to ``config.device`` (raising without a card for
-    ``cuda``) and turns TF32 off.  Each epoch visits the dataset in a
+    Moves the model and the head to ``config.device`` (raising without a
+    card for ``cuda``) and turns TF32 off.  Each epoch visits the dataset in a
     permutation drawn from ``(seed, epoch)``, in batches of
     ``batch_size`` (the last partial batch dropped); a failed load is
     replaced by the last good sample.  With ``logdir``, a checkpoint is
@@ -204,19 +281,27 @@ def run_training(
     losses and seconds (host clock around the step, ending in a device
     synchronise), and the last validation means.
     """
+    if config.evidential != (head is not None):
+        raise ValueError("run_training: config.evidential needs an evidential head, and a "
+                         "head needs config.evidential")
+    if head is not None and head.maxdisp != config.maxdisp:
+        raise ValueError(f"run_training: the head has maxdisp {head.maxdisp}, the config "
+                         f"{config.maxdisp}")
     if len(dataset) < config.batch_size:
         raise ValueError(f"run_training: {len(dataset)} sample(s) make no batch of "
                          f"{config.batch_size}")
     device = resolve_device(config.device)
     disable_tf32()
     model.to(device)
+    if head is not None:
+        head.to(device)
     steps_per_epoch = max(len(dataset) // config.batch_size, 1)
     total_steps = config.total_steps or config.epochs * steps_per_epoch
-    optimizer, scheduler = make_optimizer(model.parameters(), config, total_steps)
+    optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config, total_steps)
 
     start_step = 0
     if config.resume and config.logdir:
-        restored = restore_latest(config.logdir, model, optimizer, scheduler)
+        restored = restore_latest(config.logdir, model, optimizer, scheduler, head=head)
         if restored is not None:
             start_step = restored
             print(f"resumed from step {start_step}", flush=True)
@@ -226,7 +311,7 @@ def run_training(
 
     def save(step):
         if config.logdir:
-            save_state(config.logdir, step, model, optimizer, scheduler)
+            save_state(config.logdir, step, model, optimizer, scheduler, head=head)
 
     step = start_step
     losses: list[float] = []
@@ -244,7 +329,7 @@ def run_training(
         ):
             t0 = time.perf_counter()
             batch = batch_to_device(host_batch, device)
-            metrics, images = train_step(model, optimizer, scheduler, batch, config)
+            metrics, images = train_step(model, optimizer, scheduler, batch, config, head)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_seconds.append(time.perf_counter() - t0)
@@ -272,7 +357,7 @@ def run_training(
                                   on_skip=on_skip),
                 config.batch_size, drop_last=True,
             ):
-                vmeter.update(eval_step(model, batch_to_device(vbatch, device), config))
+                vmeter.update(eval_step(model, batch_to_device(vbatch, device), config, head))
             val_means = vmeter.mean()
             print(f"epoch {epoch} fulltest: "
                   + " ".join(f"{k}={v:.4f}" for k, v in val_means.items()), flush=True)

@@ -37,6 +37,15 @@ Phases, each printing a line; any failure exits non-zero:
    kernels.  The deformable convs' offset kernels start at zero, the
    reference's init, so that no deform sample sits within an ulp of an
    integer coordinate, where the sampler's gradient jumps;
+4e. CUDA vs CPU evidential training: one step of ``cli train
+   --evidential``'s loss (``pipeline/train.py:evidential_loss_fn``: the
+   remat sweep, the probability volume, the head in train mode,
+   ``loss_emvsnet``) and its backward at 64x80, V=3, D=16, depth_block 8,
+   maxdisp 16 on both devices, with seeded core and head.  Loss rtol 1e-5;
+   the worst gradient over core and head, and the worst updated BatchNorm
+   statistic, each within max(1e-3, 10 x the CPU's own move under 1e-7
+   weight noise), as 4b; 2 x 5 x D forward and 5 x D backward gate-kernel
+   launches;
 4c. packed vs exact on the card, fp32, at 64x80, V=3, D=48: the packed-row
    warp, gather_pack=2, and 6x6 tables with gather_pack=2 on a scene whose
    16-hypothesis span lies between 2 and 4 px, each against the unpacked
@@ -77,11 +86,20 @@ Phases, each printing a line; any failure exits non-zero:
    cosine schedule of a 10-epoch DTU run) for 8 steps on one synthetic
    plane sample, with a falling loss, 2 x 5 x D forward and 5 x D
    backward gate-kernel launches per step (forward, recompute, backward),
-   and a checkpoint that restores bit for bit and trains one more step.
+   and a checkpoint that restores bit for bit and trains one more step;
+6b. main path, evidential training (``cli train --evidential``):
+   ``run_training`` with ``evidential=True`` at the same geometry and
+   maxdisp 32, the seeded core and a fresh head from seed 1 (the JAX
+   init, as ``cli train`` draws it), 8 steps on the phase-6 sample, with
+   the same launch counts per step, a falling finite loss, BatchNorm
+   running statistics that changed, and a checkpoint that restores core,
+   head, statistics and Adam moments bit for bit and trains one more
+   step; it prints the seconds of each step and the peak memory.
 
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
-``launches_by_path`` gives it for every main path (phases 5, 5b, 5c and 6);
+``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 6 and
+6b);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
@@ -117,14 +135,16 @@ MAIN_DEPTH_MIN, MAIN_DEPTH_INTERVAL = 425.0, 1.0
 SMALL_H, SMALL_W, SMALL_V, SMALL_D = 64, 80, 3, 48
 # The bf16 guardrail of the JAX package.
 GUARD_H, GUARD_W, GUARD_V, GUARD_D = 256, 320, 3, 128
-# Small training check, CUDA against CPU.
-GRAD_D, GRAD_BLOCK = 16, 8
+# Small training check, CUDA against CPU; the evidential one's maxdisp.
+GRAD_D, GRAD_BLOCK, GRAD_MAXDISP = 16, 8, 16
 # The evidential head alone, CUDA against CPU, and its bars (those of
 # tests/test_torch_evidential.py).
 EV_H, EV_W, EV_D = 32, 40, 32
 EV_BARS = {"gamma": 2e-3, "nu": 1e-3, "alpha": 1e-3, "beta": 1e-3, "prob_combine": 1e-4}
-# Training main path: the dtu_train preset geometry, 8 steps.
+# Training main path: the dtu_train preset geometry, 8 steps; the
+# evidential head's maxdisp there (cli train --evidential's default).
 TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, TRAIN_BLOCK, TRAIN_STEPS = 128, 160, 5, 128, 16, 8
+TRAIN_MAXDISP = 32
 # Cosine schedule length of a 10-epoch DTU run: 79 training scans x 49
 # reference views x 7 lights x 2 sweep directions per epoch.
 DTU_TRAIN_TOTAL_STEPS = 10 * 79 * 49 * 7 * 2
@@ -637,6 +657,19 @@ def phase_small() -> None:
         _fail("CUDA forward disagrees with the CPU forward")
 
 
+def _worst(ref: dict, other: dict) -> tuple[str, float]:
+    """(tensor, max_abs_err / max(max|ref|, 1e-3)) of the worst tensor of
+    ``other`` against ``ref``.  The floor also covers the output conv's
+    bias, whose gradient is exactly zero (softmax is shift-invariant) and so
+    rounding noise."""
+    rels = {}
+    for name, g in ref.items():
+        err = (other[name] - g).abs().max().item()
+        rels[name] = err / max(g.abs().max().item(), 1e-3) if np.isfinite(err) else np.inf
+    name = max(rels, key=rels.get)
+    return name, rels[name]
+
+
 def phase_train_small() -> None:
     from aa_rmvsnet_tpu_torch.data.loader import batch_samples
     from aa_rmvsnet_tpu_torch.models import SweepConfig
@@ -676,20 +709,9 @@ def phase_train_small() -> None:
     if launched != (2 * 5 * GRAD_D, 5 * GRAD_D):
         _fail(f"small CUDA training step launched the gate kernels {launched} times")
 
-    def worst(other):
-        """(tensor, max_abs_err / max(max|g_cpu|, 1e-3)) of the worst tensor.
-        The floor also covers the output conv's bias, whose gradient is
-        exactly zero (softmax is shift-invariant) and so rounding noise."""
-        rels = {}
-        for name, g in g_cpu.items():
-            err = (other[name] - g).abs().max().item()
-            rels[name] = err / max(g.abs().max().item(), 1e-3) if np.isfinite(err) else np.inf
-        name = max(rels, key=rels.get)
-        return name, rels[name]
-
     loss_rel = abs(loss_cuda - loss_cpu) / abs(loss_cpu)
-    dev_name, dev_err = worst(g_cuda)
-    ref_name, ref_err = worst(g_nudged)
+    dev_name, dev_err = _worst(g_cpu, g_cuda)
+    ref_name, ref_err = _worst(g_cpu, g_nudged)
     bar = max(1e-3, 10 * ref_err)
     ok = loss_rel <= 1e-5 and dev_err <= bar
     print(f"train-small: CUDA vs CPU at {SMALL_H}x{SMALL_W}, V={SMALL_V}, D={GRAD_D}, "
@@ -700,6 +722,76 @@ def phase_train_small() -> None:
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         _fail("CUDA training gradients disagree with the CPU ones")
+
+
+def phase_train_evidential_small() -> None:
+    from aa_rmvsnet_tpu_torch.data.loader import batch_samples
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.train import (
+        TrainConfig,
+        batch_to_device,
+        evidential_loss_fn,
+    )
+    from aa_rmvsnet_tpu_torch.utils.synthetic import (
+        plane_train_sample,
+        seeded_head,
+        seeded_model,
+    )
+
+    host = batch_samples([plane_train_sample(
+        SMALL_H, SMALL_W, SMALL_V, GRAD_D, seed=SEED + 4, focal=400.0, baseline=2.0,
+        plane_depth=500.0, depth_min=425.0, depth_interval=7.5)])
+    config = TrainConfig(depth_block=GRAD_BLOCK, evidential=True, maxdisp=GRAD_MAXDISP)
+    noise = torch.Generator().manual_seed(SEED + 9)
+
+    def loss_and_grads(dev: str, nudge: float = 0.0):
+        model, head = seeded_model(SEED), seeded_head(SEED)
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                if ".p_conv." in name:  # zero offsets, as in phase 4b
+                    param.zero_()
+            if nudge:
+                for param in list(model.parameters()) + list(head.parameters()):
+                    param.mul_(1 + nudge * torch.randn(param.shape, generator=noise))
+        model.to(dev).train()
+        head.to(dev).train()
+        before = (gates.launches, gates.backward_launches)
+        t0 = time.perf_counter()
+        loss, _ = evidential_loss_fn(model, head, batch_to_device(host, dev), config,
+                                     config.sweep(remat=True))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        grads.update({f"evidential.{n}": p.grad.cpu() for n, p in head.named_parameters()})
+        stats = {n: b.cpu() for n, b in head.named_buffers() if n.endswith(("_mean", "_var"))}
+        launched = (gates.launches - before[0], gates.backward_launches - before[1])
+        print(f"train-evidential-small: loss and gradients on {dev}"
+              f"{' (nudged weights)' if nudge else ''} in {time.perf_counter() - t0:.2f} s, "
+              f"gate kernel launches forward {launched[0]}, backward {launched[1]}", flush=True)
+        return loss.item(), grads, stats, launched
+
+    loss_cpu, g_cpu, s_cpu, _ = loss_and_grads("cpu")
+    _, g_nudged, s_nudged, _ = loss_and_grads("cpu", nudge=1e-7)
+    loss_cuda, g_cuda, s_cuda, launched = loss_and_grads("cuda")
+    if launched != (2 * 5 * GRAD_D, 5 * GRAD_D):
+        _fail(f"small CUDA evidential training step launched the gate kernels {launched} times")
+    loss_rel = abs(loss_cuda - loss_cpu) / abs(loss_cpu)
+    results = {}
+    for what, ref, cuda, nudged in (("gradients", g_cpu, g_cuda, g_nudged),
+                                    ("BN statistics", s_cpu, s_cuda, s_nudged)):
+        dev_name, dev_err = _worst(ref, cuda)
+        ref_name, ref_err = _worst(ref, nudged)
+        bar = max(1e-3, 10 * ref_err)
+        results[what] = (dev_err <= bar, f"{what} of {len(ref)} tensors, worst max_abs_err / "
+                         f"max(max|x|, 1e-3) {dev_err:.2e} ({dev_name}); the CPU's own move "
+                         f"under 1e-7 weight noise {ref_err:.2e} ({ref_name}); bar {bar:.2e}")
+    ok = loss_rel <= 1e-5 and all(good for good, _ in results.values())
+    print(f"train-evidential-small: CUDA vs CPU at {SMALL_H}x{SMALL_W}, V={SMALL_V}, "
+          f"D={GRAD_D}, depth_block {GRAD_BLOCK}, maxdisp {GRAD_MAXDISP}, remat, head in train "
+          f"mode: loss {loss_cuda:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.2e}, bar 1e-5); "
+          + "; ".join(text for _, text in results.values()) + f" {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        _fail("CUDA evidential training disagrees with the CPU")
 
 
 def _packed_bars(name: str, out: dict, exact: dict) -> None:
@@ -1064,6 +1156,89 @@ def phase_train() -> tuple[int, int]:
     return launches, backward
 
 
+def phase_train_evidential() -> tuple[int, int]:
+    from aa_rmvsnet_tpu_torch.models import AARMVSNetCore, EvidentialHead
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.checkpoint import checkpoint_path, restore_latest
+    from aa_rmvsnet_tpu_torch.pipeline.train import (
+        TrainConfig,
+        make_optimizer,
+        run_training,
+        trainable_parameters,
+    )
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample, seeded_model
+
+    sample = plane_train_sample(TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, seed=SEED + 5,
+                                focal=361.54, baseline=20.0, plane_depth=600.0,
+                                depth_min=425.0, depth_interval=2.65)
+    dataset = [sample] * TRAIN_STEPS
+    model = seeded_model(SEED)
+    # cli train --evidential's fresh head: the JAX init, from seed 1.
+    head = EvidentialHead(TRAIN_MAXDISP, generator=torch.Generator().manual_seed(1))
+    stats0 = {n: b.clone() for n, b in head.named_buffers() if n.endswith(("_mean", "_var"))}
+    with tempfile.TemporaryDirectory() as logdir:
+        config = TrainConfig(
+            learning_rate=1e-3, lr_min=2e-6, total_steps=DTU_TRAIN_TOTAL_STEPS,
+            depth_block=TRAIN_BLOCK, epochs=1, batch_size=1, num_workers=2,
+            summary_freq=TRAIN_STEPS, logdir=logdir, device="cuda", evidential=True,
+            maxdisp=TRAIN_MAXDISP,
+        )
+        torch.cuda.reset_peak_memory_stats()
+        gates.launches = gates.backward_launches = 0
+        stats = run_training(model, dataset, config, head=head)
+        launches, backward = gates.launches, gates.backward_launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = stats["losses"]
+        expect = (2 * 5 * TRAIN_D * TRAIN_STEPS, 5 * TRAIN_D * TRAIN_STEPS)
+        if stats["step"] != TRAIN_STEPS or (launches, backward) != expect:
+            _fail(f"evidential training ran {stats['step']} steps with {launches} forward "
+                  f"and {backward} backward gate-kernel launches; expected "
+                  f"{TRAIN_STEPS}, {expect[0]} and {expect[1]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            _fail(f"evidential training losses not finite and falling: {losses}")
+        moved = sum(not torch.equal(b.cpu(), stats0[n]) for n, b in head.named_buffers()
+                    if n in stats0)
+        if moved != len(stats0):
+            _fail(f"only {moved} of {len(stats0)} BatchNorm statistics changed")
+
+        # The checkpoint of step 8 restores core, head (with its statistics)
+        # and the Adam moments bit for bit into fresh modules and a fresh
+        # optimizer, and the resumed run trains one more finite step.
+        fresh, fresh_head = AARMVSNetCore().cuda(), EvidentialHead(TRAIN_MAXDISP).cuda()
+        optimizer, scheduler = make_optimizer(trainable_parameters(fresh, fresh_head), config,
+                                              DTU_TRAIN_TOTAL_STEPS)
+        restored = restore_latest(logdir, fresh, optimizer, scheduler, head=fresh_head)
+        same = all(torch.equal(a, b) for m, f in ((model, fresh), (head, fresh_head))
+                   for a, b in zip(m.state_dict().values(), f.state_dict().values()))
+        saved = torch.load(checkpoint_path(logdir, TRAIN_STEPS), map_location="cpu",
+                           weights_only=True)["optimizer"]["state"]
+        moments = [(optimizer.state[p], saved[i])
+                   for i, p in enumerate(optimizer.param_groups[0]["params"])]
+        same_adam = len(saved) == len(moments) and all(
+            torch.equal(state[k].cpu(), want[k]) for state, want in moments
+            for k in ("exp_avg", "exp_avg_sq", "step"))
+        if restored != TRAIN_STEPS or not same or not same_adam:
+            _fail(f"evidential checkpoint restored step {restored}, weights and statistics "
+                  f"equal: {same}, Adam moments equal: {same_adam}")
+        resumed = run_training(AARMVSNetCore(), dataset,
+                               replace(config, epochs=2, max_steps=1, resume=True),
+                               head=EvidentialHead(TRAIN_MAXDISP))
+        if (resumed["start_step"], resumed["step"]) != (TRAIN_STEPS, TRAIN_STEPS + 1) \
+                or not np.isfinite(resumed["losses"]).all():
+            _fail(f"resumed evidential run: {resumed}")
+    secs = ", ".join(f"{s:.3f}" for s in stats["step_seconds"])
+    print(f"train-evidential: run_training, evidential=True, at {TRAIN_H}x{TRAIN_W}, "
+          f"V={TRAIN_V}, D={TRAIN_D}, depth_block {TRAIN_BLOCK}, maxdisp {TRAIN_MAXDISP}, "
+          f"batch 1, fp32, Adam 1e-3 over core and head: {TRAIN_STEPS} steps, seconds per "
+          f"step [{secs}], peak memory {peak / 2**30:.2f} GiB, losses "
+          f"[{', '.join(f'{x:.4f}' for x in losses)}], {moved} BatchNorm statistics changed, "
+          f"gate kernel launches forward {launches} (= 2 x 5 x {TRAIN_D} x {TRAIN_STEPS}), "
+          f"backward {backward} (= 5 x {TRAIN_D} x {TRAIN_STEPS}); checkpoint of step "
+          f"{restored} restored bit for bit (core, head, statistics, Adam moments), resumed "
+          f"step {resumed['step']} loss {resumed['losses'][0]:.4f}", flush=True)
+    return launches, backward
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -1085,6 +1260,7 @@ def main() -> int:
     backward = phase_backward_kernel()
     phase_small()
     phase_train_small()
+    phase_train_evidential_small()
     phase_packed_small()
     phase_bf16_guardrail()
     samples = _main_scene()
@@ -1092,13 +1268,16 @@ def main() -> int:
     fp32_launches = phase_main_exact(samples, packed_depth0)
     evidential_launches, evidential_backward = phase_evidential(samples)
     forward["launches"], backward["launches"] = phase_train()
+    train_ev_launches, train_ev_backward = phase_train_evidential()
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
                                    "inference_evidential": evidential_launches,
-                                   "training": forward["launches"]}
+                                   "training": forward["launches"],
+                                   "training_evidential": train_ev_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
-                                    "training": backward["launches"]}
+                                    "training": backward["launches"],
+                                    "training_evidential": train_ev_backward}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [forward, backward]}), flush=True)
     print(json.dumps({"ok": True, "device": {

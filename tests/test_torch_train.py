@@ -19,6 +19,7 @@ import torch
 from aa_rmvsnet_tpu.models import init_params
 from aa_rmvsnet_tpu.models.losses import depth_classification_loss as loss_j
 from aa_rmvsnet_tpu.models.network import SweepConfig as SweepConfigJ
+from aa_rmvsnet_tpu.pipeline.train import TrainConfig as TrainConfigJ
 from aa_rmvsnet_tpu.pipeline.train import loss_fn as loss_fn_j
 from aa_rmvsnet_tpu_torch.models import AARMVSNetCore, SweepConfig, load_reference_checkpoint
 from aa_rmvsnet_tpu_torch.models import params_from_jax
@@ -236,10 +237,16 @@ def test_resume_continues_the_uninterrupted_run_exactly(tmp_path):
 
 
 def test_unported_train_options_are_refused():
-    for option in ({"evidential": True}, {"fold_omega": "hybrid"},
-                   {"feature_dtype": torch.bfloat16}, {"mesh": object()}):
+    for option in ({"fold_omega": "hybrid"}, {"feature_dtype": torch.bfloat16},
+                   {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TrainConfig(**option)
+
+
+def test_evidential_config_has_the_jax_defaults():
+    config, want = TrainConfig(evidential=True), TrainConfigJ(evidential=True)
+    assert (config.maxdisp, config.evidential_weight_reg) \
+        == (want.maxdisp, want.evidential_weight_reg) == (32, 0.1)
 
 
 def test_cuda_device_without_a_card_raises():

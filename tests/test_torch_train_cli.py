@@ -4,7 +4,9 @@ The tree is the one ``tests/test_pipeline.py:TestDTUTrainDataset`` builds
 (3 views x 7 lights of random PNGs, 64x80 after image_scale 0.25).  The
 port's ``DTUTrainDataset`` must give the JAX package's samples array for
 array; ``cli train --device cpu`` must write checkpoints, resume from the
-highest one, and leave a checkpoint that ``cli eval --loadckpt`` reads.
+highest one, and leave a checkpoint that ``cli eval --loadckpt`` reads; with
+``--evidential`` also the head, which ``cli eval --evidential_ckpt`` reads from
+the same file.
 """
 
 import os
@@ -22,7 +24,8 @@ from aa_rmvsnet_tpu_torch import cli
 from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
 from aa_rmvsnet_tpu_torch.data.dtu import DTUTrainDataset
 from aa_rmvsnet_tpu_torch.data.loader import batched, resilient_samples
-from aa_rmvsnet_tpu_torch.pipeline.checkpoint import checkpoint_path, latest_step
+from aa_rmvsnet_tpu_torch.models import EvidentialHead, load_evidential_checkpoint
+from aa_rmvsnet_tpu_torch.pipeline.checkpoint import HEAD_PREFIX, checkpoint_path, latest_step
 
 from scenefix import make_plane_scene
 import test_pipeline
@@ -30,6 +33,8 @@ import test_pipeline
 torch.set_num_threads(2)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAINED_HEAD = os.path.join(REPO_ROOT, "checkpoints", "evidential_head")  # orbax
+FAMILIES = ["depth_est_0", "confidence_0", "aleatoric_0", "epistemic_0"]
 
 
 @pytest.fixture(scope="module")
@@ -121,7 +126,70 @@ def test_cli_train_saves_resumes_and_feeds_eval(dtu_tree, tmp_path):
     assert depth.shape == (32, 40) and np.isfinite(depth).all()
 
 
-@pytest.mark.parametrize("flag", ["--evidential", "--spatial", "--single_device"])
+def test_cli_train_evidential_dumps_and_feeds_eval(dtu_tree, tmp_path):
+    """``cli train --evidential --maxdisp 8``: two steps whose ``.npz`` dumps
+    carry the head's images, and a checkpoint with the core's and the
+    head's tensors that ``cli eval --loadckpt F --evidential_ckpt F`` reads
+    into the four PFM families."""
+    root, listfile = dtu_tree
+    logdir = str(tmp_path / "logs")
+    out = _train(["--trainpath", root, "--trainlist", listfile, "--logdir", logdir,
+                  "--evidential", "--maxdisp", "8", "--max_steps", "2"])
+    assert "step 2: loss_components/nu=" in out and " loss=" in out
+    with np.load(os.path.join(logdir, "results", "train", "2.npz")) as dump:
+        for key in ("depth_est", "error_map", "alea_1", "epis_1", "alea_2", "epis_2",
+                    "depth_gt", "mask", "ref_img"):
+            assert np.isfinite(dump[key]).all(), key
+        assert dump["alea_1"].shape == dump["epis_1"].shape == (64, 80)
+    ckpt = checkpoint_path(logdir, 2)
+    assert any(k.startswith(HEAD_PREFIX) for k in torch.load(ckpt, weights_only=True)["model"])
+
+    scene = tmp_path / "scene"
+    make_plane_scene(str(scene), H=32, W=40, num_views=3)
+    (scene / "list.txt").write_text("scan1\n")
+    outdir = tmp_path / "out"
+    cli.main(["eval", "--device", "cpu", "--testpath", str(scene),
+              "--testlist", str(scene / "list.txt"), "--outdir", str(outdir),
+              "--loadckpt", ckpt, "--evidential_ckpt", ckpt, "--preset", "dtu_eval_smoke",
+              "--view_num", "3", "--numdepth", "8", "--max_h", "32", "--max_w", "40",
+              "--depth_block", "4"])
+    for family in FAMILIES:
+        pfm, _ = read_pfm(str(outdir / "scan1" / family / "00000000.pfm"))
+        assert pfm.shape == (32, 40) and np.isfinite(pfm).all(), family
+
+
+def test_cli_train_warm_starts_the_head(dtu_tree, tmp_path):
+    """``--head_ckpt`` loads a head ``.ckpt`` before training: after one Adam
+    step at 1e-3 every head parameter is within 1e-3 of the warm start,
+    which is far from the fresh head of seed 1."""
+    root, listfile = dtu_tree
+    warm = EvidentialHead(8, generator=torch.Generator().manual_seed(5))
+    warm_path = str(tmp_path / "head.ckpt")
+    torch.save({"model": {HEAD_PREFIX + k: v for k, v in warm.state_dict().items()}}, warm_path)
+    logdir = str(tmp_path / "logs")
+    _train(["--trainpath", root, "--trainlist", listfile, "--logdir", logdir,
+            "--evidential", "--maxdisp", "8", "--head_ckpt", warm_path, "--max_steps", "1",
+            "--no_tensorboard"])
+    trained = load_evidential_checkpoint(EvidentialHead(8), checkpoint_path(logdir, 1))
+    fresh = EvidentialHead(8, generator=torch.Generator().manual_seed(1))
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(trained.parameters(), warm.parameters()))
+    apart = max((a - b).abs().max().item() for a, b in zip(fresh.parameters(), warm.parameters()))
+    assert 0 < moved <= 1.001e-3 < 0.1 < apart, (moved, apart)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--evidential", "--head_ckpt", TRAINED_HEAD], "--head_ckpt .*not ported yet"),
+    (["--head_ckpt", "head.ckpt"], "--head_ckpt needs --evidential"),
+    (["--maxdisp", "8"], "--maxdisp needs --evidential"),
+])
+def test_cli_train_refuses_head_flags(flags, message, tmp_path):
+    with pytest.raises(SystemExit, match=message):
+        cli.main(["train", "--trainpath", str(tmp_path), "--trainlist", "x", "--device", "cpu",
+                  *flags])
+
+
+@pytest.mark.parametrize("flag", ["--coordinator", "--spatial", "--single_device"])
 def test_cli_train_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["train", "--trainpath", str(tmp_path), "--trainlist", "x", flag])
