@@ -12,8 +12,12 @@
 Both run on the card by default (``--device cpu`` to run on the CPU).
 ``eval`` runs, as the JAX CLI does by default, in bf16 with the packed-row
 warp wherever its exactness gate passes and the fused squared residual;
-``--fp32 --packed_rows 0`` is the exact fp32 path.  ``train`` runs in
-fp32.  Flags of the JAX CLI that the port does not implement yet are
+``--fp32 --packed_rows 0`` is the exact fp32 path.  The JAX CLI's
+quantized levers (``--fp8_tables``, ``--int8_tables``, ``--fp8_residual``,
+``--int8_residual``, ``--dual_residual``) are approximate and opt-in; the
+JAX package's production stack is ``--int8_tables --dual_residual
+--gather_pack 2 --table_taps 6``.  ``train`` runs in fp32.  Flags of the
+JAX CLI that the port does not implement yet are
 accepted by the parser only to fail with "not ported yet"; the JAX CLI's
 other subcommands are not ported.
 """
@@ -23,12 +27,10 @@ from __future__ import annotations
 import argparse
 
 #: JAX ``eval`` flags the port does not implement yet (FeatNet view
-#: chunks, quantized tables and residuals, multi-device layouts, previews,
-#: dataset checks).
+#: chunks, multi-device layouts, previews, dataset checks).
 NOT_PORTED = (
-    "feat_chunk", "fp8_residual", "dual_residual", "int8_residual",
-    "fp8_tables", "int8_tables", "fanout", "spatial", "depth_stages",
-    "pipeline_maps", "save_png", "dry_check",
+    "feat_chunk", "fanout", "spatial", "depth_stages", "pipeline_maps", "save_png",
+    "dry_check",
 )
 
 
@@ -104,6 +106,25 @@ def _add_eval(sub):
     p.add_argument("--no_fused_residual", action="store_true",
                    help="materialise the warped volume on packed samples "
                         "(same result as the fused squared residual)")
+    p.add_argument("--fp8_residual", action="store_true",
+                   help="store the squared residual in fp8 (APPROXIMATE; "
+                        "see the guardrails in tests/test_torch_quant_pipeline.py)")
+    p.add_argument("--dual_residual", action="store_true",
+                   help="store the squared residual TWICE: an fp8 copy "
+                        "for the variance (its precision profile) + an "
+                        "int8 copy consumed by omega's int8 conv, the "
+                        "quality-safe int8-residual variant")
+    p.add_argument("--int8_residual", action="store_true",
+                   help="store the squared residual in int8 and feed "
+                        "omega's rw0 conv the quantized tensor directly "
+                        "(LOSSIER than fp8 on the small-residual end)")
+    p.add_argument("--fp8_tables", action="store_true",
+                   help="fp8-quantized warp patch tables (a quarter of fp32's "
+                        "and half of bf16's bytes on the gather)")
+    p.add_argument("--int8_tables", action="store_true",
+                   help="int8-quantized warp patch tables + the int8 blend "
+                        "on packed samples (same bytes as fp8, more accurate "
+                        "than fp8 in the JAX package's tests)")
     p.add_argument("--evidential_ckpt",
                    help="evidential head weights (torch .ckpt, evidential.* keys or the "
                         "head's own); writes aleatoric_0/epistemic_0 maps")
@@ -204,6 +225,13 @@ def cmd_eval(args):
             gather_pack=args.gather_pack, table_taps=args.table_taps,
             fused_residual=not args.no_fused_residual, device=args.device,
             evidential=head, depth_source=depth_source,
+            # The JAX CLI's precedence: int8 tables over fp8; a dual
+            # residual over int8, int8 over fp8.
+            table_dtype=(torch.int8 if args.int8_tables
+                         else torch.float8_e4m3fn if args.fp8_tables else None),
+            residual_dtype=("dual" if args.dual_residual
+                            else torch.int8 if args.int8_residual
+                            else torch.float8_e4m3fn if args.fp8_residual else None),
         ),
     )
     print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s")

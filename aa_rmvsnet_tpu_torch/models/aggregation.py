@@ -21,7 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
+from ..ops.patch_sample import true_div
 from .blocks import ConvGNReLU, ResnetBlockGN
 
 
@@ -69,15 +71,35 @@ def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int) -> torch.
     return norm * weight + bias
 
 
-def _conv_folded(x: torch.Tensor, conv: nn.Conv2d, groups: int) -> torch.Tensor:
+def _conv_folded(x: torch.Tensor, conv: nn.Conv2d, groups: int,
+                 weight: torch.Tensor | None = None) -> torch.Tensor:
     """``conv`` applied to each of the G folded volumes: a G-grouped
-    convolution with the weights and bias tiled G times."""
-    return F.conv2d(x, conv.weight.to(x.dtype).repeat(groups, 1, 1, 1),
+    convolution with the weights (``conv``'s, or ``weight`` in their
+    place) and bias tiled G times."""
+    weight = conv.weight if weight is None else weight
+    return F.conv2d(x, weight.to(x.dtype).repeat(groups, 1, 1, 1),
                     conv.bias.to(x.dtype).repeat(groups), padding=conv.padding,
                     groups=groups)
 
 
-def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int) -> torch.Tensor:
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, padding: int, groups: int) -> torch.Tensor:
+    """Grouped convolution of an int8 input with an integer-valued kernel
+    (in [-127, 127]) as the JAX int8 convolution's int32 result cast to
+    bf16: the exact integer sum, rounded once.
+
+    Every operand is an integer of at most 8 bits, exact in bf16, and a 3x3
+    sum over 32 input channels is at most 9 * 32 * 127 * 127 = 4,645,152 <
+    2^24, exact in the fp32 accumulator of a bf16 convolution, which then
+    rounds once.  bf16 operands, because an fp32 3x3 convolution may take
+    cuDNN's Winograd or FFT algorithms, whose transforms do not keep
+    integers exact.  Torch has no int8 convolution on CUDA.
+    """
+    return F.conv2d(x.to(torch.bfloat16), weight.to(torch.bfloat16), padding=padding,
+                    groups=groups)
+
+
+def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
+                 input_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The omega network with ``groups`` volumes folded into channels.
 
     Computes what :class:`InterViewAA` computes on each of the G volumes
@@ -89,14 +111,39 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int) -> torch.Tens
       x: ``(N, H, W, groups*32)`` folded residual volumes, any strides; a
         channels-last residual is read in place.
       groups: number of folded volumes G.
+      input_scale: optional ``(32,)`` dequantization factors of a quantized
+        ``x`` (the residual levers): folded into rw0's kernel input
+        channels, in the kernel's dtype, so that ``omega_folded(o, q, G, s)
+        == omega_folded(o, q * tile(s), G)`` without the dequantized
+        residual ever existing.  On an int8 ``x`` rw0 is the JAX package's
+        int8 convolution: the folded kernel quantized per output channel
+        onto +-127 (``kmax`` over its (cin, kh, kw)), the exact integer
+        convolution (:func:`int8_conv`), then ``kmax / 127`` and the bias
+        in bf16; the rest of the chain then runs in bf16 whatever the
+        model's dtype, as in the JAX package.
 
     Returns:
-      ``(N, H, W, groups)`` sigmoid weights, one channel per volume.
+      ``(N, H, W, groups)`` sigmoid weights, one channel per volume, in
+      x's dtype (bf16 for an int8 ``x``).
     """
     rw0, rw1, rw2 = omega.reweight_network[:3]
     stem0, stem1, stem_gn = rw1.stem
+    conv0 = rw0[0]
+    kernel = conv0.weight
+    if input_scale is not None:
+        kernel = kernel * input_scale.to(kernel.dtype)[None, :, None, None]
     y = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC volumes
-    y = torch.relu(_group_norm_folded(_conv_folded(y, rw0[0], groups), rw0[1], groups))
+    if x.dtype == torch.int8:
+        with record_function("quant.omega_int8_rw0"):
+            k = kernel.float()
+            kmax = torch.clamp_min(k.abs().amax(dim=(1, 2, 3)), 1e-12)  # per output channel
+            kq = torch.clamp(torch.round(k / kmax[:, None, None, None] * 127.0), -127, 127)
+            y = int8_conv(y, kq.repeat(groups, 1, 1, 1), conv0.padding, groups)
+            y = y * true_div(kmax, 127.0).to(torch.bfloat16).repeat(groups)[:, None, None]
+            y = y + conv0.bias.to(torch.bfloat16).repeat(groups)[:, None, None]
+    else:
+        y = _conv_folded(y, conv0, groups, kernel)
+    y = torch.relu(_group_norm_folded(y, rw0[1], groups))
     z = torch.relu(_group_norm_folded(_conv_folded(y, stem0[0], groups), stem0[1], groups))
     z = _group_norm_folded(_conv_folded(z, stem1, groups), stem_gn, groups)
     y = torch.relu(z + y)

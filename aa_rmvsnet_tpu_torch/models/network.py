@@ -1,8 +1,8 @@
 """The core MVS network and its depth sweep (port of
 ``aa_rmvsnet_tpu/models/network.py``): the exact fp32 path, bf16 features,
 the packed-row warp with gather super-packing and 6x6 tables, the fused
-squared residual, folded omega, online WTA + logsumexp, and ``remat`` for
-training.
+squared residual, folded omega, the quantized tables and residuals, online
+WTA + logsumexp, and ``remat`` for training.
 
 ``forward`` runs FeatNet on every view, then sweeps the depth hypotheses
 block by block: per block it warps each source view through its patch
@@ -35,6 +35,13 @@ features, convolutions, GroupNorm, omega and the ConvLSTM in bf16 (the
 gate kernel computes in fp32 and stores bf16); coordinates, depths, the
 view sum's accumulator, WTA and logsumexp stay fp32.
 
+The quantized levers (``SweepConfig.table_dtype``, ``residual_dtype``) are
+approximate and opt-in: fp8 or int8 warp tables with per-channel scales,
+and a squared residual stored in fp8, int8 or both (``"dual"``) with one
+per-channel scale shared by every view, which omega folds into its first
+kernel and the view mean multiplies back.  They are plain torch ops, as
+they are XLA code in the JAX package, inside ``quant.*`` profiler ranges.
+
 Public functions keep the JAX package's NHWC shapes; the modules run NCHW.
 Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block``,
 ``sweep.regularize``, ``sweep.wta``) name the layers for
@@ -62,9 +69,14 @@ from .init import init_like_jax
 from .regularizer import UNetConvLSTM, init_states
 from ..ops.homography import homography_terms, max_depth_step_displacement, plane_sweep_xy
 from ..ops.patch_sample import (
+    F8_MAX,
+    QUANT_DTYPES,
     build_patch_table_packed,
+    build_patch_table_packed_quant,
     patch_bilinear_sample,
     patch_bilinear_sample_packed,
+    quantize_residual,
+    true_div,
 )
 
 
@@ -103,7 +115,23 @@ class SweepConfig:
       gate with ``depth_block = gather_pack * depth_block``).
     table_taps: packed window per axis, 4 or 6 (exactness span 2 or 4 px).
     fused_residual: the packed blend emits the squared residual, so the
-      warped volume never exists; bit for bit the unfused result.
+      warped volume never exists; bit for bit the unfused result, with
+      every ``residual_dtype``.
+    table_dtype: storage of the warp patch tables: ``None`` (the feature
+      dtype, exact), ``torch.float8_e4m3fn`` or ``torch.int8``, quantized
+      per channel (``ops.patch_sample.build_patch_table_packed_quant``)
+      for a quarter of fp32's gather bytes and half of bf16's.  An int8
+      table on the packed path takes the int8 blend.  Approximate.
+    residual_dtype: storage of the squared residual on the folded cost
+      layouts (``packed_rows``, or ``fold_omega=True``; otherwise
+      ``ValueError``): ``None``, ``torch.float8_e4m3fn``, ``torch.int8``
+      or ``"dual"`` (an fp8 copy for the variance and an int8 copy for
+      omega).  One per-channel scale serves every view: ``max((2 a)^2 /
+      qmax, 1e-12)``, ``a`` the channel's amax over the source and
+      reference features, qmax 127 for int8 and 448 otherwise.  Omega
+      folds it into its first kernel; on an int8 copy it runs rw0 as an
+      int8 convolution and the rest of its chain in bf16.  The variance
+      multiplies it back.  Approximate.
     """
 
     depth_block: int = 16
@@ -115,6 +143,8 @@ class SweepConfig:
     gather_pack: int = 1
     table_taps: int = 4
     fused_residual: bool = False
+    table_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8
+    residual_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8 | "dual"
 
 
 def pick_depth_block(num_depth: int, target: int) -> int:
@@ -177,6 +207,7 @@ def _build_cost_block(
     rot_grids: list[torch.Tensor],
     transes: list[torch.Tensor],
     depth_block: torch.Tensor,
+    table_scales: list,
     hybrid_omega: bool = False,
 ) -> torch.Tensor:
     """Warp + squared residual + omega reweight + view mean for one block.
@@ -186,6 +217,8 @@ def _build_cost_block(
       src_tables: per source view, a ``(B, H*W, 4C)`` 2x2 patch table.
       rot_grids: per source view ``(B, 3, H*W)``; transes: ``(B, 3, 1)``.
       depth_block: ``(B, Db)``.
+      table_scales: per source view the ``(B, 1, 4C)`` dequantization
+        factors of a quantized table, or ``None``.
       hybrid_omega: omega in its folded form on a transposed copy of the
         residual (:func:`..models.aggregation.omega_folded`).
 
@@ -197,9 +230,10 @@ def _build_cost_block(
     ref = ref_feat.permute(0, 3, 1, 2)[:, None]  # (B, 1, C, H, W), channels last
 
     def terms():
-        for table, rot_grid, trans in zip(src_tables, rot_grids, transes):
+        for table, scale, rot_grid, trans in zip(src_tables, table_scales, rot_grids, transes):
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
-            warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1), H, W)
+            warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1), H, W,
+                                           scale=scale, compute_dtype=ref_feat.dtype)
             warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
             residual_sq = (warped - ref) ** 2  # (B, Db, C, H, W)
             if hybrid_omega:
@@ -219,36 +253,54 @@ def _build_cost_block_folded(
     rot_grids: list[torch.Tensor],
     transes: list[torch.Tensor],
     depth_block: torch.Tensor,
+    table_scales: list,
+    residual_scale: torch.Tensor | None = None,
+    residual_dtype: Any = None,
 ) -> torch.Tensor:
     """Depth-folded variant of :func:`_build_cost_block`: the 2x2 gather
     runs in pixel-major order, so each view's warped volume is already
     ``(B, H, W, Db*C)`` and omega and the variance run folded
-    (:func:`_cost_from_warped`, shared with the packed path)."""
+    (:func:`_cost_from_warped`, shared with the packed path, so the
+    residual levers apply here too)."""
     B, H, W, C = ref_feat.shape
 
     def warped():
-        for table, rot_grid, trans in zip(src_tables, rot_grids, transes):
+        for table, scale, rot_grid, trans in zip(src_tables, table_scales, rot_grids, transes):
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
             xt = x.transpose(1, 2).reshape(B, -1)  # pixel-major (B, H*W*Db)
             yt = y.transpose(1, 2).reshape(B, -1)
-            yield patch_bilinear_sample(table, xt, yt, H, W).view(B, H, W, -1)
+            yield patch_bilinear_sample(table, xt, yt, H, W, scale=scale,
+                                        compute_dtype=ref_feat.dtype).view(B, H, W, -1)
 
-    return _cost_from_warped(model, ref_feat, warped())
+    return _cost_from_warped(model, ref_feat, warped(), residual_scale, residual_dtype)
 
 
 def _warp_packed(table: torch.Tensor, rot_grid: torch.Tensor, trans: torch.Tensor,
                  depth_block: torch.Tensor, H: int, W: int, taps: int = 4,
-                 ref_flat: torch.Tensor | None = None) -> torch.Tensor:
+                 ref_flat: torch.Tensor | None = None,
+                 scale: torch.Tensor | None = None, compute_dtype: torch.dtype | None = None,
+                 residual_scale: torch.Tensor | None = None, residual_dtype: Any = None):
     """Packed warp of one source view, ``K = depth_block.shape[1]``
     hypotheses per gathered row: the folded ``(B, H, W, K*C)`` warped
     volume, or, given ``ref_flat`` (``(B, H*W, C)`` reference features), the
-    squared residual straight from the blend (``fused_residual``)."""
+    squared residual straight from the blend (``fused_residual``),
+    quantized there with ``residual_scale`` to ``residual_dtype`` (an
+    ``(fp8, int8)`` pair for ``"dual"``).  ``scale``: the dequantization
+    factors of a quantized table."""
     x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, K, H*W)
+    quantize = ref_flat is not None and residual_dtype is not None
     out = patch_bilinear_sample_packed(
         table, x.transpose(1, 2), y.transpose(1, 2), H, W, taps=taps,
-        folded_out=True, ref=ref_flat,
+        folded_out=True, ref=ref_flat, scale=scale, compute_dtype=compute_dtype,
+        residual_inv_scale=1.0 / residual_scale if quantize else None,
+        residual_dtype=residual_dtype if quantize else None,
     )  # (B, H*W, K*C): groups = pixels
-    return out.view(out.shape[0], H, W, -1)
+    return _map_pair(lambda o: o.view(o.shape[0], H, W, -1), out)
+
+
+def _map_pair(fn, r):
+    """``fn`` on a residual, or on each member of a ``"dual"`` pair."""
+    return tuple(fn(o) for o in r) if isinstance(r, tuple) else fn(r)
 
 
 def _build_cost_block_packed(
@@ -258,28 +310,41 @@ def _build_cost_block_packed(
     rot_grids: list[torch.Tensor],
     transes: list[torch.Tensor],
     depth_block: torch.Tensor,
+    table_scales: list,
     table_taps: int = 4,
     fused_residual: bool = False,
+    residual_scale: torch.Tensor | None = None,
+    residual_dtype: Any = None,
 ) -> torch.Tensor:
     """Packed-row variant: ONE ``table_taps``-wide row per (view, pixel)
     serves the whole block, and the blend emits pixel-major ``(B, H, W,
     Db*C)``, so omega and the variance run folded with no transpose.  Exact
-    only where :func:`pick_packed_rows` passes."""
+    only where :func:`pick_packed_rows` passes.  ``residual_scale`` and
+    ``residual_dtype``: the residual levers, quantized in the blend's
+    epilogue when ``fused_residual``, else by :func:`_cost_from_warped`."""
     B, H, W, C = ref_feat.shape
     ref_flat = ref_feat.reshape(B, H * W, C) if fused_residual else None
-    warped = (_warp_packed(t, r, tr, depth_block, H, W, table_taps, ref_flat)
-              for t, r, tr in zip(src_tables, rot_grids, transes))
+    warped = (_warp_packed(t, r, tr, depth_block, H, W, table_taps, ref_flat, s,
+                           ref_feat.dtype, residual_scale, residual_dtype)
+              for t, s, r, tr in zip(src_tables, table_scales, rot_grids, transes))
     if fused_residual:
-        return _cost_from_residual(model, warped, C)
-    return _cost_from_warped(model, ref_feat, warped)
+        return _cost_from_residual(model, warped, C, ref_feat.dtype, residual_scale,
+                                   residual_dtype)
+    return _cost_from_warped(model, ref_feat, warped, residual_scale, residual_dtype)
 
 
-def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped) -> torch.Tensor:
+def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped,
+                      residual_scale: torch.Tensor | None = None,
+                      residual_dtype: Any = None) -> torch.Tensor:
     """Squared residual + omega + view mean on folded warped volumes.
 
     Args:
       ref_feat: ``(B, H, W, C)``.
       warped: per source view a ``(B, H, W, Db*C)`` warped volume.
+      residual_scale, residual_dtype: the residual levers: each view's
+        squared residual is quantized once
+        (``ops.patch_sample.quantize_residual``, the fused epilogue's ops
+        in its order) and both consumers read the quantized tensor.
 
     Returns:
       ``(Db, B, C, H, W)`` negated variance cost slices.
@@ -288,29 +353,60 @@ def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped) -> t
 
     def residuals():
         for w in warped:
-            ref_tiled = ref_feat.repeat(1, 1, 1, w.shape[-1] // C)  # (B, H, W, Db*C)
-            yield (w - ref_tiled) ** 2
+            Db = w.shape[-1] // C
+            ref_tiled = ref_feat.repeat(1, 1, 1, Db)  # (B, H, W, Db*C)
+            r = (w - ref_tiled) ** 2
+            if residual_dtype is not None:
+                with record_function("quant.residual"):
+                    r = quantize_residual(r, 1.0 / residual_scale, residual_dtype, Db)
+            yield r
 
-    return _cost_from_residual(model, residuals(), C)
+    return _cost_from_residual(model, residuals(), C, ref_feat.dtype, residual_scale,
+                               residual_dtype)
 
 
-def _cost_from_residual(model: AARMVSNetCore, residuals, C: int) -> torch.Tensor:
-    """Omega reweight + view mean on folded squared residuals.
+def _cost_from_residual(model: AARMVSNetCore, residuals, C: int,
+                        compute_dtype: torch.dtype | None = None,
+                        residual_scale: torch.Tensor | None = None,
+                        residual_dtype: Any = None) -> torch.Tensor:
+    """Omega reweight + view mean on folded (possibly quantized) squared
+    residuals.
 
     Args:
-      residuals: per source view a ``(B, H, W, Db*C)`` squared residual.
+      residuals: per source view a ``(B, H, W, Db*C)`` squared residual, or
+        for ``residual_dtype="dual"`` an ``(fp8, int8)`` pair of them.
+      compute_dtype: the sweep's dtype (needed with a residual lever).
+      residual_scale: the ``(C,)`` shared residual scale of a quantized
+        residual.  Omega gets it folded into its first kernel: on the fp8
+        residual cast to ``compute_dtype``, on the int8 one as it lies
+        (omega's int8 rw0, then bf16), and on the int8 copy of a dual pair
+        as ``scale * 448/127``.  The variance reads the fp8 (or int8)
+        residual as ``r.to(compute_dtype) * scale``.
 
     Returns:
       ``(Db, B, C, H, W)`` negated variance cost slices, a strided view of
       the pixel-major result (each slice is read once, by the regularizer's
       first concatenation).
     """
+    if residual_dtype == "dual":
+        omega_scale = residual_scale * (F8_MAX / 127.0)
+    else:
+        omega_scale = residual_scale
+
     def terms():
         for r in residuals:
-            B, H, W, DbC = r.shape
+            r_var, r_omega = r if residual_dtype == "dual" else (r, r)
+            B, H, W, DbC = r_var.shape
             Db = DbC // C
-            weights = omega_folded(model.omega, r, Db)  # (B, H, W, Db)
-            yield (weights[..., None] + 1.0) * r.view(B, H, W, Db, C)
+            if residual_dtype is not None and r_omega.dtype != torch.int8:
+                with record_function("quant.omega_input"):
+                    r_omega = r_omega.to(compute_dtype)
+            weights = omega_folded(model.omega, r_omega, Db, omega_scale)  # (B, H, W, Db)
+            r6 = r_var.view(B, H, W, Db, C)
+            if residual_dtype is not None:
+                with record_function("quant.variance_dequant"):
+                    r6 = r6.to(compute_dtype) * residual_scale.to(compute_dtype)
+            yield (weights[..., None] + 1.0) * r6
 
     return -_view_mean(terms()).permute(3, 0, 4, 1, 2)  # from (B, H, W, Db, C)
 
@@ -371,6 +467,15 @@ def sweep(
     if D % (block * pack):
         raise ValueError(
             f"num_depth {D} not divisible by depth_block*gather_pack {block}*{pack}")
+    table_dtype, residual_dtype = config.table_dtype, config.residual_dtype
+    if table_dtype is not None and table_dtype not in QUANT_DTYPES:
+        raise ValueError(f"table_dtype is None, float8_e4m3fn or int8, not {table_dtype}")
+    if residual_dtype not in (None, "dual", *QUANT_DTYPES):
+        raise ValueError(f"residual_dtype is None, float8_e4m3fn, int8 or 'dual', "
+                         f"not {residual_dtype!r}")
+    if residual_dtype is not None and not (config.packed_rows or config.fold_omega is True):
+        raise ValueError("residual_dtype requires packed_rows or fold_omega=True "
+                         "(the folded cost layouts)")
     if dtype != torch.float32 and torch.is_grad_enabled():
         raise NotImplementedError(
             f"a {dtype} sweep runs on a copy of the model, which no gradient "
@@ -382,7 +487,24 @@ def sweep(
         features = features.to(dtype)
         ref_feat = features[0]  # (B, H, W, C)
         taps = config.table_taps if config.packed_rows else 2
-        src_tables = [build_patch_table_packed(features[v], taps) for v in range(1, V)]
+        if table_dtype is None:
+            src_tables = [build_patch_table_packed(features[v], taps) for v in range(1, V)]
+            table_scales = [None] * (V - 1)
+        else:
+            with record_function("quant.tables"):
+                quantized = [build_patch_table_packed_quant(features[v], table_dtype, taps)
+                             for v in range(1, V)]
+            src_tables = [t for t, _ in quantized]
+            table_scales = [s for _, s in quantized]
+        residual_scale = None
+        if residual_dtype is not None:
+            # One per-channel scale for every view's residual (so that
+            # omega can fold it into its kernel): the squared residual of
+            # features within +-a lies in [0, (2a)^2], mapped onto qmax.
+            a = torch.stack([features[v].float().abs().amax(dim=(0, 1, 2))
+                             for v in range(V)]).amax(dim=0)
+            qmax = 127.0 if residual_dtype == torch.int8 else F8_MAX
+            residual_scale = torch.clamp_min(true_div((2.0 * a) ** 2, qmax), 1e-12)
         ref_proj = proj_matrices[:, 0]
         terms = [homography_terms(proj_matrices[:, v], ref_proj, H, W)
                  for v in range(1, V)]
@@ -394,13 +516,14 @@ def sweep(
         max_cost = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
         lse = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
 
+    levers = dict(residual_scale=residual_scale, residual_dtype=residual_dtype)
     if config.packed_rows:
         build = functools.partial(_build_cost_block_packed, table_taps=config.table_taps,
-                                  fused_residual=config.fused_residual)
+                                  fused_residual=config.fused_residual, **levers)
     elif config.fold_omega == "hybrid":
         build = functools.partial(_build_cost_block, hybrid_omega=True)
     elif config.fold_omega:
-        build = _build_cost_block_folded
+        build = functools.partial(_build_cost_block_folded, **levers)
     else:
         build = _build_cost_block
 
@@ -409,16 +532,20 @@ def sweep(
         one packed gather serves them all, and each sub-block takes its
         k-major columns of the folded result."""
         if pack == 1:
-            return [build(model, ref_feat, src_tables, rot_grids, transes, dsuper)]
+            return [build(model, ref_feat, src_tables, rot_grids, transes, dsuper,
+                          table_scales)]
         ref_flat = ref_feat.reshape(B, H * W, C) if config.fused_residual else None
-        warped = [_warp_packed(t, r, tr, dsuper, H, W, config.table_taps, ref_flat)
-                  for t, r, tr in zip(src_tables, rot_grids, transes)]
+        warped = [_warp_packed(t, r, tr, dsuper, H, W, config.table_taps, ref_flat, s,
+                               dtype, **levers)
+                  for t, s, r, tr in zip(src_tables, table_scales, rot_grids, transes)]
         width = block * C
         blocks = []
         for i in range(pack):
-            cols = [w[..., i * width:(i + 1) * width] for w in warped]
-            blocks.append(_cost_from_residual(model, cols, C) if config.fused_residual
-                          else _cost_from_warped(model, ref_feat, cols))
+            # Both members of a dual pair keep the same columns.
+            cols = [_map_pair(lambda o: o[..., i * width:(i + 1) * width], w) for w in warped]
+            blocks.append(_cost_from_residual(model, cols, C, dtype, **levers)
+                          if config.fused_residual
+                          else _cost_from_warped(model, ref_feat, cols, **levers))
         return blocks
 
     def block_step(states, dsuper):

@@ -12,7 +12,11 @@ and the sweep runs with ``collect_volume=False``, so device memory stays
 O(depth_block) in the number of hypotheses.  As in the JAX package, the
 sweep runs by default in bf16 with the packed-row warp wherever its
 exactness gate passes (:func:`resolve_packed_mode`, per sample, outside
-the timed window) and the fused squared residual.
+the timed window) and the fused squared residual.  The quantized tables
+and residuals (``InferConfig.table_dtype``, ``residual_dtype``) are
+opt-in; a residual lever applies to packed samples (or with
+``fold_omega=True``) and is dropped, with a printed warning, on the
+others, as in the JAX package.
 
 With an evidential head attached (``InferConfig.evidential``) the sweep
 collects the ``(B, D, H, W)`` cost volume, the head reads its softmax in
@@ -47,13 +51,16 @@ from ..utils.device import disable_tf32, resolve_device
 
 @dataclass
 class InferConfig:
-    """``feature_dtype``, ``fold_omega``, ``gather_pack``, ``table_taps``
-    and ``fused_residual`` as in :class:`..models.network.SweepConfig`.
+    """``feature_dtype``, ``fold_omega``, ``gather_pack``, ``table_taps``,
+    ``fused_residual``, ``table_dtype`` and ``residual_dtype`` as in
+    :class:`..models.network.SweepConfig`.
     ``packed_rows``: ``"auto"`` takes the packed warp per sample where its
     exactness gate passes at ``pack_margin``, ``True`` forces it (the
     super-pack and 6x6 levers stay gated), ``False`` never takes it.
     ``gather_pack`` and ``table_taps`` are the most the gate may pick, and
-    ``fused_residual`` applies to packed samples only.
+    ``fused_residual`` applies to packed samples only; ``residual_dtype``
+    to packed samples, or to every sample with ``fold_omega=True``, and it
+    is dropped with a warning on the others.
     ``evidential``: an :class:`..models.evidential.EvidentialHead` or
     ``None``; it runs in fp32 whatever ``feature_dtype`` is.
     ``depth_source``: ``"wta"`` writes the core's winner-take-all depth,
@@ -68,6 +75,8 @@ class InferConfig:
     gather_pack: int = 1
     table_taps: int = 4
     fused_residual: bool = True
+    table_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8
+    residual_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8 | "dual"
     pack_margin: float = 0.95
     device: str = "cuda"
     evidential: Any = None  # EvidentialHead | None
@@ -87,8 +96,15 @@ def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
 
 def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfig:
     """The sweep settings of one map in packed ``mode`` (from
-    :func:`resolve_packed_mode`)."""
+    :func:`resolve_packed_mode`).  The residual lever needs a folded cost
+    layout: kept on packed samples or with ``fold_omega=True``, else
+    dropped with the JAX package's warning (a sample whose gate fails
+    under ``packed_rows="auto"`` still runs)."""
     packed, gather_pack, table_taps = mode
+    residual_dtype = config.residual_dtype if (packed or config.fold_omega is True) else None
+    if config.residual_dtype is not None and residual_dtype is None:
+        print("WARNING: fp8 residual storage dropped for an unpacked sample "
+              "(requires packed rows or --fold_omega=1)", flush=True)
     return SweepConfig(
         depth_block=config.depth_block,
         collect_volume=config.evidential is not None,
@@ -98,6 +114,8 @@ def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfi
         gather_pack=gather_pack if packed else 1,
         table_taps=table_taps if packed else 4,
         fused_residual=config.fused_residual and packed,
+        table_dtype=config.table_dtype,
+        residual_dtype=residual_dtype,
     )
 
 
@@ -175,6 +193,7 @@ def run_inference(
     gate_seconds: list[float] = []
     head_seconds: list[float] = []
     failures: list[str] = []
+    sweep_configs: dict[tuple[bool, int, int], SweepConfig] = {}  # one per packed mode
     with torch.inference_mode():
         for sample in prefetch_samples(dataset, num_workers=config.num_workers):
             if isinstance(sample, Exception):
@@ -192,9 +211,11 @@ def run_inference(
             t0 = time.perf_counter()
             mode = resolve_packed_mode(sample, config)
             gate_seconds.append(time.perf_counter() - t0)
+            if mode not in sweep_configs:
+                sweep_configs[mode] = sweep_config(config, mode)
 
             t0 = time.perf_counter()
-            out = forward(model, imgs, proj, depths, sweep_config(config, mode))
+            out = forward(model, imgs, proj, depths, sweep_configs[mode])
             depth = out["depth"][0].cpu().numpy()
             conf = out["photometric_confidence"][0].cpu().numpy()
             if device.type == "cuda":

@@ -1,14 +1,17 @@
 """Where the time of one depth map goes on the card.
 
-    python -m aa_rmvsnet_tpu_torch.tools.profile_main_path [--config bf16-packed|fp32]
-        [--num-depth 64] [--out DIR]
+    python -m aa_rmvsnet_tpu_torch.tools.profile_main_path
+        [--config bf16-packed|fp32|levers] [--num-depth 64] [--out DIR]
 
 Runs the port's ``forward`` at the ``dtu_eval`` geometry (864x1152, V=5,
 depth_block 8), TF32 off, on the synthetic plane scene with seeded weights
 (``utils/synthetic.py``; cameras 2 apart, so the packed gate passes), on
 one CUDA device, in the configuration of ``cli eval``'s defaults
 (``bf16-packed``: bf16, packed rows as ``resolve_packed_mode`` picks them,
-fused residual) or of ``--fp32 --packed_rows 0`` (``fp32``):
+fused residual), of ``--fp32 --packed_rows 0`` (``fp32``) or of the JAX
+package's production stack ``--int8_tables --dual_residual --gather_pack
+2 --table_taps 6`` (``levers``: bf16, int8 tables and the int8 blend, an
+fp8 + int8 residual, omega's int8 rw0; packed mode (True, 2, 4) here):
 
 1. a warm-up forward over one depth block;
 2. a timed forward: host clock around ``forward`` and
@@ -18,7 +21,10 @@ fused residual) or of ``--fp32 --packed_rows 0`` (``fp32``):
    cuDNN spreads over its own streams, as it does the bf16 grouped
    convolutions of folded omega, counts once), the device's busy share of
    the profiled window (kernel time over wall time), and the kernels by
-   device time;
+   device time; with ``levers`` also the span and kernel groups of each
+   ``quant.*`` range inside the cost block (tables, the int8 blend, the
+   residual's quantization, omega's int8 rw0, the variance's dequantization),
+   which split the levers' passes from the rest;
 4. omega's two forms on one view's residual of a depth block, by CUDA
    events: ``omega_folded`` (grouped convolutions on the folded residual
    as it lies) and the canonical module on the ``(8, 32, H, W)`` batch,
@@ -26,7 +32,7 @@ fused residual) or of ``--fp32 --packed_rows 0`` (``fp32``):
 
 The per-step cost does not depend on D, so a cut D (default 64) scales to
 the full sweep: ``map_s_at_512`` = featnet + setup + 512 x the per-step
-time.  Prints a table and, last, one JSON line; ``--out DIR`` also writes
+time (``--num-depth`` a multiple of 8, of 16 with ``levers``).  Prints a table and, last, one JSON line; ``--out DIR`` also writes
 the Chrome trace there.
 """
 
@@ -53,9 +59,17 @@ CONFIGS = {
     "bf16-packed": InferConfig(out_root=""),
     "fp32": InferConfig(out_root="", feature_dtype=torch.float32, packed_rows=False,
                         fused_residual=False),
+    "levers": InferConfig(out_root="", table_dtype=torch.int8, residual_dtype="dual",
+                          gather_pack=2, table_taps=6),
 }
+#: The packed mode each configuration must take on the profiled scene.
+MODES = {"bf16-packed": (True, 1, 4), "levers": (True, 2, 4)}
 
 LAYERS = ("featnet", "sweep.setup", "sweep.cost_block", "sweep.regularize", "sweep.wta")
+#: The quantized levers' ranges, nested inside ``sweep.setup`` (tables) and
+#: ``sweep.cost_block`` (the rest).
+QUANT_RANGES = ("quant.tables", "quant.int8_blend", "quant.dequant_rows", "quant.residual",
+                "quant.omega_input", "quant.omega_int8_rw0", "quant.variance_dequant")
 KERNEL_GROUPS = (  # first match wins; matched on the lower-cased kernel name
     ("lstm_gates (CUDA kernel of the port)", ("lstm_gates",)),
     ("convolution", ("conv", "gemm", "xmma", "winograd", "cudnn", "implicit", "fft")),
@@ -71,10 +85,13 @@ def _group(name: str, groups=KERNEL_GROUPS) -> str:
     return next(label for label, keys in groups if any(k in low for k in keys))
 
 
-def device_breakdown(prof, layers, groups=KERNEL_GROUPS) -> tuple[dict, dict, dict, dict]:
+def device_breakdown(prof, layers, groups=KERNEL_GROUPS,
+                     skip=()) -> tuple[dict, dict, dict, dict]:
     """``(layers_ms, kernels_ms, groups_ms, cross_ms)`` of a profile: the
     device-timeline span of each profiler range in ``layers``, and device
-    time by kernel, by kernel group and by (range, group).
+    time by kernel, by kernel group and by (range, group).  The ranges
+    named in ``skip`` (nested in or around ``layers``) are neither spans
+    nor kernels.
 
     On the device timeline a profiler range appears as a span over its
     kernels (and any idle gaps between them); everything else there is a
@@ -101,7 +118,7 @@ def device_breakdown(prof, layers, groups=KERNEL_GROUPS) -> tuple[dict, dict, di
     groups_ms: dict[str, float] = defaultdict(float)
     cross_ms: dict[str, float] = defaultdict(float)
     for ev in device_events:
-        if ev.name in layers:
+        if ev.name in layers or ev.name in skip:
             continue
         ms = ev.time_range.elapsed_us() / 1e3
         i = bisect.bisect_right(starts, ev.time_range.start) - 1
@@ -144,13 +161,16 @@ def _omega_forms_ms(model, H: int, W: int, dtype, block: int = 8) -> tuple[float
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", choices=sorted(CONFIGS), default="bf16-packed",
-                        help="cli eval's defaults (bf16-packed) or its exact fp32 path")
+                        help="cli eval's defaults (bf16-packed), its exact fp32 path, or "
+                             "the production stack of quantized levers")
     parser.add_argument("--num-depth", type=int, default=64,
                         help="depth hypotheses to sweep (a multiple of 8)")
     parser.add_argument("--out", help="directory for the Chrome trace")
     args = parser.parse_args(argv)
-    if args.num_depth % 8:
-        parser.error("--num-depth must be a multiple of the depth block, 8")
+    infer_config = CONFIGS[args.config]
+    span = 8 * infer_config.gather_pack
+    if args.num_depth % span:
+        parser.error(f"--num-depth must be a multiple of {span} (depth block x gather_pack)")
 
     device = resolve_device("cuda")
     disable_tf32()
@@ -161,17 +181,16 @@ def main(argv=None) -> int:
     H, W, V, D = 864, 1152, 5, args.num_depth
     (sample,) = plane_scene(H, W, V, D, maps=1, seed=3, focal=2000.0, baseline=2.0,
                             plane_depth=600.0, depth_min=425.0, depth_interval=1.0)
-    infer_config = CONFIGS[args.config]
     mode = resolve_packed_mode(sample, infer_config)
-    if args.config == "bf16-packed" and mode != (True, 1, 4):
-        raise SystemExit(f"the packed gate picked {mode}, not (True, 1, 4)")
+    if mode != MODES.get(args.config, mode):
+        raise SystemExit(f"the packed gate picked {mode}, not {MODES[args.config]}")
     config = sweep_config(infer_config, mode)
     model = cast_model(seeded_model(0).to(device), config.feature_dtype)
     inputs = [torch.from_numpy(sample[k])[None].to(device)
               for k in ("imgs", "proj_matrices", "depth_values")]
 
     with torch.inference_mode():
-        forward(model, inputs[0], inputs[1], inputs[2][:, :8], config)
+        forward(model, inputs[0], inputs[1], inputs[2][:, :span], config)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         forward(model, *inputs, config)
@@ -187,7 +206,11 @@ def main(argv=None) -> int:
             prof_wall_s = time.perf_counter() - t0
         omega_ms = _omega_forms_ms(model, H, W, config.feature_dtype)
 
-    layers_ms, kernels_ms, groups_ms, cross_ms = device_breakdown(prof, LAYERS)
+    layers_ms, kernels_ms, groups_ms, cross_ms = device_breakdown(prof, LAYERS,
+                                                                  skip=QUANT_RANGES)
+    quant_ms, _, _, quant_cross_ms = device_breakdown(prof, QUANT_RANGES, skip=LAYERS)
+    quant_cross_ms = {k: v for k, v in quant_cross_ms.items()
+                      if not k.startswith("(outside the ranges)")}
     busy_ms = sum(kernels_ms.values())
     step_ms = sum(layers_ms[k] for k in LAYERS[2:]) / D
     map_s_at_512 = (layers_ms["featnet"] + layers_ms["sweep.setup"] + 512 * step_ms) / 1e3
@@ -204,6 +227,13 @@ def main(argv=None) -> int:
     print("device time by kernel group (share of kernel time):")
     for name, ms in sorted(groups_ms.items(), key=lambda kv: -kv[1]):
         print(f"  {name:38s} {ms:10.2f} ms  {ms / busy_ms:6.1%}")
+    if any(quant_ms.values()):
+        print("quantized levers, device-timeline span by range (inside the layers above):")
+        for name in QUANT_RANGES:
+            print(f"  {name:24s} {quant_ms[name]:10.2f} ms  {quant_ms[name] / busy_ms:6.1%} "
+                  "of kernel time")
+        for name, ms in sorted(quant_cross_ms.items(), key=lambda kv: -kv[1]):
+            print(f"  {name:56s} {ms:10.2f} ms  {ms / busy_ms:6.1%}")
     print("kernel time by layer and group:")
     for name, ms in sorted(cross_ms.items(), key=lambda kv: -kv[1]):
         print(f"  {name:56s} {ms:10.2f} ms  {ms / busy_ms:6.1%}")
@@ -224,6 +254,7 @@ def main(argv=None) -> int:
         "step_ms": step_ms, "map_s_at_512": map_s_at_512,
         "groups_ms": dict(groups_ms), "layer_groups_ms": dict(cross_ms),
         "gate_launches": gates.launches,
+        "quant_ms": quant_ms, "quant_groups_ms": quant_cross_ms,
         "omega_ms": {"folded": omega_ms[0], "canonical": omega_ms[1]},
         "top_kernels_ms": dict(top),
     }}))

@@ -60,6 +60,32 @@ Phases, each printing a line; any failure exits non-zero:
    ``utils/synthetic.py:matching_model``'s (He-normal FeatNet and omega, a
    regularizer that passes the photometric cost through): the guardrail
    was set for trained weights, and random ones leave the costs flat;
+4f. the quantized levers, CUDA against CPU, fp32, at 64x80, V=3, D=48
+   (``SweepConfig.table_dtype`` / ``residual_dtype``: fp8 tables unpacked,
+   int8 tables packed, fp8, int8 and dual residuals with fp8 tables, the
+   fp8 residual with ``fold_omega=True``, and the production stack: int8
+   tables, dual residual, gather_pack 2, 6x6 tables, fused), each with
+   depth equal on >= 99 % of pixels and confidence atol 1e-3 (an fp8 cast
+   turns the devices' ~1e-6 feature differences into whole fp8 steps at
+   rounding boundaries); fp8 and int8 tables built on the card equal to
+   the CPU's bit for bit; the int8 blend (``ops/patch_sample.py:int8_blend``)
+   and omega's int8 rw0 convolution (``models/aggregation.py:int8_conv``)
+   equal to integer-exact references (an int64 product sum; a float64
+   convolution, exact for these integers) rounded once, bit for bit,
+   including sums at their bounds (580,644 and 4,645,152), the
+   convolution at the ``dtu_eval`` shape;
+4g. the JAX package's lever guardrails (``tests/test_models.py:306-345``
+   and ``:637-690``) on the card, on phase 4d's scene with
+   ``matching_model(sharpness=1000)`` weights (so that most pixels are
+   confident): each lever in bf16 (the residuals with int8 tables, as in
+   the production stack) against the bf16 packed path without levers,
+   >= 90 % of pixels within one bin and, for the residuals and the
+   production stack, >= 99 % of the confident pixels (the base's
+   confidence > 0.3, asserted to be more than half the map); the int8
+   residual misses that bar on these
+   weights in the JAX package too (``tests/test_torch_quant_pipeline.py``),
+   so its shares are printed beside the dual residual's, which must beat
+   them;
 5. main path, inference: ``run_inference`` with ``InferConfig()``'s
    defaults (bf16, packed rows where the gate passes, fused residual) at
    the ``dtu_eval`` geometry (V=5, D=512, 864x1152, depth_block 8) on an
@@ -81,6 +107,12 @@ Phases, each printing a line; any failure exits non-zero:
    PFM families finite, gamma inside the sweep, nu > 0 and alpha > 1; it
    prints the core's and the head's seconds and the peak memory of the
    core with the collected volume and of the head;
+5d. the JAX package's production stack (``cli eval --int8_tables
+   --dual_residual --gather_pack 2 --table_taps 6``): ``run_inference``
+   with those levers for one map of the phase-5 scene, its packed mode
+   (True, 2, 4) and 5 x D forward and no backward gate-kernel launches
+   asserted, its seconds and peak memory printed beside phase 5's, and the
+   share of its depths within one bin of phase 5's map;
 6. main path, training: ``run_training`` at the ``dtu_train`` geometry
    (128x160, V=5, D=128, depth_block 16, batch 1, Adam 1e-3 on the
    cosine schedule of a 10-epoch DTU run) for 8 steps on one synthetic
@@ -98,8 +130,8 @@ Phases, each printing a line; any failure exits non-zero:
 
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
-``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 6 and
-6b);
+``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d, 6
+and 6b);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
@@ -905,6 +937,171 @@ def phase_bf16_guardrail() -> None:
         _fail("the bf16 packed path fails the bf16 guardrail")
 
 
+def _lever_configs():
+    """The levers of phase 4f by name: ``SweepConfig`` settings on top of
+    depth_block 8, fp32."""
+    f8, i8 = torch.float8_e4m3fn, torch.int8
+    return {
+        "fp8 tables, unpacked": dict(table_dtype=f8),
+        "int8 tables, packed": dict(packed_rows=True, table_dtype=i8),
+        "fp8 residual, fp8 tables": dict(packed_rows=True, table_dtype=f8, residual_dtype=f8),
+        "int8 residual, fp8 tables": dict(packed_rows=True, table_dtype=f8, residual_dtype=i8),
+        "dual residual, fp8 tables": dict(packed_rows=True, table_dtype=f8,
+                                          residual_dtype="dual"),
+        "fp8 residual, fold_omega": dict(fold_omega=True, residual_dtype=f8),
+        "production stack (int8 tables, dual, gather_pack 2, 6x6, fused)": dict(
+            packed_rows=True, gather_pack=2, table_taps=6, fused_residual=True,
+            table_dtype=i8, residual_dtype="dual"),
+    }
+
+
+def phase_levers_small() -> None:
+    from aa_rmvsnet_tpu_torch.models import SweepConfig, forward
+    from aa_rmvsnet_tpu_torch.models.aggregation import int8_conv
+    from aa_rmvsnet_tpu_torch.ops.patch_sample import build_patch_table_packed_quant, int8_blend
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, resolve_packed_mode
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene, seeded_model
+
+    # Tables built on the card against the CPU's, from the same features.
+    feat = torch.randn(2, SMALL_H, SMALL_W, 32, generator=torch.Generator().manual_seed(SEED))
+    for dtype in (torch.float8_e4m3fn, torch.int8):
+        for taps in (2, 4, 6):
+            t_cpu, s_cpu = build_patch_table_packed_quant(feat, dtype, taps)
+            t_gpu, s_gpu = build_patch_table_packed_quant(feat.cuda(), dtype, taps)
+            same = (torch.equal(t_gpu.view(torch.uint8).cpu(), t_cpu.view(torch.uint8))
+                    and torch.equal(s_gpu.cpu(), s_cpu))
+            if not same:
+                _fail(f"{dtype} {taps}x{taps} tables built on the card differ from the CPU's")
+    print("levers: fp8 and int8 tables (2x2, 4x4, 6x6) built on the card equal the CPU's "
+          "bit for bit", flush=True)
+
+    # The int8 blend: an int64 product sum at 4,096 groups of 36 taps (two
+    # at the bound), and a float64 product (exact for these integers) at the
+    # dtu_eval blend shape, 995,328 pixels x (16 x 16) @ (16 x 32).
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    w = torch.randint(0, 128, (4096, 16, 36), device="cuda", generator=gen)
+    rows = torch.randint(-127, 128, (4096, 36, 32), device="cuda", generator=gen,
+                         dtype=torch.int8)
+    w[:2], rows[0], rows[1] = 127, 127, -127
+    exact = (w[:, :, :, None].long() * rows[:, None].long()).sum(dim=2)
+    if exact.abs().max().item() != 580_644:
+        _fail("the int8 blend's bound case does not reach 580,644")
+    w_main = torch.randint(0, 128, (MAIN_H * MAIN_W, 16, 16), device="cuda", generator=gen)
+    rows_main = torch.randint(-127, 128, (MAIN_H * MAIN_W, 16, 32), device="cuda",
+                              generator=gen, dtype=torch.int8)
+    exact_main = torch.bmm(w_main.double(), rows_main.double())
+    for out_dtype in (torch.float32, torch.bfloat16):
+        ok = (torch.equal(int8_blend(w.float(), rows, out_dtype), exact.to(out_dtype))
+              and torch.equal(int8_blend(w_main.float(), rows_main, out_dtype),
+                              exact_main.float().to(out_dtype)))
+        if not ok:
+            _fail(f"the int8 blend in {out_dtype} is not the exact integer sum")
+    del w_main, rows_main, exact_main
+
+    # Omega's int8 rw0: the grouped 3x3 convolution at the dtu_eval shape
+    # (one view's 8 folded hypotheses, channels last as the residual lies),
+    # one output at the bound, against cuDNN's float64 convolution.
+    x = torch.randint(0, 128, (1, MAIN_H, MAIN_W, 8 * 32), device="cuda", generator=gen,
+                      dtype=torch.int8)
+    k = torch.randint(-127, 128, (8 * 4, 32, 3, 3), device="cuda", generator=gen).float()
+    x[0, 1:4, 1:4, :32], k[0] = 127, 127
+    got = int8_conv(x.permute(0, 3, 1, 2), k, 1, 8)
+    exact = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).double(), k.double(), padding=1,
+                                       groups=8)
+    if exact.max().item() != 4_645_152 or not torch.equal(got, exact.float().to(torch.bfloat16)):
+        _fail("omega's int8 rw0 convolution is not the exact integer sum rounded once")
+    del x, exact, got
+    print("levers: the int8 blend (fp32 and bf16, |sums| up to 580,644; and at the dtu_eval "
+          "shape) and omega's int8 rw0 convolution (bf16, at the dtu_eval shape, sums up to "
+          "4,645,152) equal integer-exact references bit for bit", flush=True)
+
+    (sample,) = plane_scene(SMALL_H, SMALL_W, SMALL_V, SMALL_D, maps=1, seed=SEED + 2,
+                            focal=400.0, baseline=2.0, plane_depth=500.0,
+                            depth_min=425.0, depth_interval=2.5)
+    mode = resolve_packed_mode(sample, InferConfig(out_root="", feature_dtype=torch.float32,
+                                                   gather_pack=2, table_taps=6))
+    if mode != (True, 2, 4):
+        _fail(f"the packed gate picked {mode} for the lever scene, not (True, 2, 4)")
+    model = seeded_model(SEED)
+    outs = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            model.to(dev)
+            args = [torch.from_numpy(sample[key])[None].to(dev)
+                    for key in ("imgs", "proj_matrices", "depth_values")]
+            for name, levers in _lever_configs().items():
+                out = forward(model, *args, SweepConfig(depth_block=8, collect_volume=False,
+                                                        **levers))
+                outs[dev, name] = {key: v.cpu() for key, v in out.items()}
+    for name in _lever_configs():
+        cpu, gpu = outs["cpu", name], outs["cuda", name]
+        same = (cpu["depth"] == gpu["depth"]).float().mean().item()
+        conf_err = (cpu["photometric_confidence"]
+                    - gpu["photometric_confidence"]).abs().max().item()
+        ok = same >= 0.99 and conf_err <= 1e-3
+        print(f"levers: CUDA vs CPU at {SMALL_H}x{SMALL_W}, V={SMALL_V}, D={SMALL_D}, fp32, "
+              f"{name}: depth equal on {same:.4%} of pixels (bar 99%), confidence "
+              f"max_abs_err {conf_err:.3e} (bar 1e-3) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            _fail(f"the lever {name!r} on CUDA disagrees with the CPU")
+
+
+def phase_levers_guardrail() -> None:
+    from aa_rmvsnet_tpu_torch.models import SweepConfig, forward
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, resolve_packed_mode, sweep_config
+    from aa_rmvsnet_tpu_torch.utils.synthetic import matching_model, plane_scene
+
+    f8, i8 = torch.float8_e4m3fn, torch.int8
+    depth_interval = 2.5
+    sample = plane_scene(GUARD_H, GUARD_W, GUARD_V, GUARD_D, maps=2, seed=SEED + 7,
+                         focal=600.0, baseline=16.0, plane_depth=480.0, depth_min=425.0,
+                         depth_interval=depth_interval)[1]
+    base_config = InferConfig(out_root="")
+    if resolve_packed_mode(sample, base_config) != (True, 1, 4):
+        _fail("the packed gate did not pick (True, 1, 4) for the lever guardrail scene")
+    stack = InferConfig(out_root="", table_dtype=i8, residual_dtype="dual", gather_pack=2,
+                        table_taps=6)
+    stack_mode = resolve_packed_mode(sample, stack)
+    model = matching_model(SEED, sharpness=1000.0).cuda()
+    args = [torch.from_numpy(sample[k])[None].cuda()
+            for k in ("imgs", "proj_matrices", "depth_values")]
+    base_sweep = sweep_config(base_config, (True, 1, 4))
+    levers = {  # name: (sweep config, confident-pixel bar or None)
+        "fp8 tables": (replace(base_sweep, table_dtype=f8), None),
+        "int8 tables": (replace(base_sweep, table_dtype=i8), None),
+        # The residuals with the production stack's int8 tables.
+        "fp8 residual": (replace(base_sweep, table_dtype=i8, residual_dtype=f8), 0.99),
+        "int8 residual": (replace(base_sweep, table_dtype=i8, residual_dtype=i8), None),
+        "dual residual": (replace(base_sweep, table_dtype=i8, residual_dtype="dual"), 0.99),
+        f"production stack {stack_mode}": (sweep_config(stack, stack_mode), 0.99),
+    }
+    with torch.inference_mode():
+        base = forward(model, *args, base_sweep)
+        confident = (base["photometric_confidence"] > 0.3).cpu().numpy()
+        if confident.mean() <= 0.5:
+            _fail(f"only {confident.mean():.2%} of the guardrail's pixels are confident")
+        shares = {}
+        for name, (config, conf_bar) in levers.items():
+            out = forward(model, *args, config)
+            within = ((out["depth"] - base["depth"]).abs()
+                      <= depth_interval + 1e-6).cpu().numpy()
+            shares[name] = (within.mean(), within[confident].mean())
+            if name == "int8 residual":
+                ok, bars = True, "no bar: the JAX package's int8 residual misses it too"
+            else:
+                ok = within.mean() >= 0.90 and (conf_bar is None
+                                                or within[confident].mean() >= conf_bar)
+                bars = "bars 90%" + ("" if conf_bar is None else f", {conf_bar:.0%} confident")
+            print(f"levers guardrail at {GUARD_H}x{GUARD_W}, V={GUARD_V}, D={GUARD_D}, bf16, "
+                  f"{name} vs the bf16 packed path: {shares[name][0]:.4%} of pixels within one "
+                  f"bin, {shares[name][1]:.4%} of the {confident.mean():.2%} confident ones "
+                  f"({bars}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                _fail(f"the {name} lever fails the JAX package's guardrail")
+    if shares["dual residual"][1] <= shares["int8 residual"][1]:
+        _fail("the dual residual does not beat the int8 residual on confident pixels")
+
+
 def _check_maps(out_root: str, maps: int, depth_min: float, depth_max: float) -> np.ndarray:
     """The PFMs of ``maps`` maps: shapes, finite values, depth in the sweep,
     confidence in (0, 1].  Returns map 0's depth."""
@@ -937,7 +1134,7 @@ def _main_scene():
                        depth_min=MAIN_DEPTH_MIN, depth_interval=MAIN_DEPTH_INTERVAL)
 
 
-def phase_main(samples) -> tuple[int, np.ndarray]:
+def phase_main(samples) -> tuple[int, np.ndarray, dict]:
     from aa_rmvsnet_tpu_torch.ops import gates
     from aa_rmvsnet_tpu_torch.ops.homography import max_depth_step_displacement
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
@@ -973,7 +1170,7 @@ def phase_main(samples) -> tuple[int, np.ndarray]:
           f"[{secs}], peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
           f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16); PFMs finite, depth in the sweep, "
           "confidence in (0, 1]", flush=True)
-    return launches, depth0
+    return launches, depth0, {"map_seconds": stats["map_seconds"], "peak": peak}
 
 
 def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
@@ -1094,6 +1291,40 @@ def phase_evidential(samples) -> tuple[int, int]:
           f"gate kernel launches {launches} (= 5 x {MAIN_D}), backward {backward}; four PFM "
           "families finite", flush=True)
     return launches, backward
+
+
+def phase_main_levers(samples, packed_depth0: np.ndarray, phase5: dict) -> int:
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    model = seeded_model(SEED)
+    with tempfile.TemporaryDirectory() as out_root:
+        torch.cuda.reset_peak_memory_stats()
+        gates.launches = gates.backward_launches = 0
+        stats = run_inference(model, samples[:1], InferConfig(
+            out_root=out_root, table_dtype=torch.int8, residual_dtype="dual", gather_pack=2,
+            table_taps=6, num_workers=2, device="cuda"))
+        launches = gates.launches
+        backward = gates.backward_launches
+        peak = torch.cuda.max_memory_allocated()
+        if stats["count"] != 1 or launches != 5 * MAIN_D or backward != 0 \
+                or stats["modes"] != [(True, 2, 4)]:
+            _fail(f"the production stack wrote {stats['count']} maps in modes "
+                  f"{stats['modes']} with {launches} gate kernel and {backward} backward "
+                  f"launches; expected 1, (True, 2, 4), {5 * MAIN_D} and 0")
+        depth0 = _check_maps(out_root, 1, MAIN_DEPTH_MIN,
+                             MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+    within = np.mean(np.abs(depth0 - packed_depth0) <= MAIN_DEPTH_INTERVAL + 1e-6)
+    print(f"main-levers: run_inference, the production stack (bf16, int8 tables, dual "
+          f"residual, gather_pack 2, table_taps 6, fused residual) at {MAIN_H}x{MAIN_W}, "
+          f"V={MAIN_V}, D={MAIN_D}: packed mode {stats['modes'][0]}, 1 map in "
+          f"{stats['map_seconds'][0]:.3f} s (phase 5: "
+          f"[{', '.join(f'{x:.3f}' for x in phase5['map_seconds'])}] s), peak memory "
+          f"{peak / 2**30:.2f} GiB (phase 5: {phase5['peak'] / 2**30:.2f} GiB), gate kernel "
+          f"launches {launches} (= 5 x {MAIN_D}), backward 0; its depths within one bin of "
+          f"phase 5's map 0 on {within:.4%} of pixels", flush=True)
+    return launches
 
 
 def phase_train() -> tuple[int, int]:
@@ -1263,19 +1494,24 @@ def main() -> int:
     phase_train_evidential_small()
     phase_packed_small()
     phase_bf16_guardrail()
+    phase_levers_small()
+    phase_levers_guardrail()
     samples = _main_scene()
-    bf16_launches, packed_depth0 = phase_main(samples)
+    bf16_launches, packed_depth0, phase5 = phase_main(samples)
     fp32_launches = phase_main_exact(samples, packed_depth0)
     evidential_launches, evidential_backward = phase_evidential(samples)
+    levers_launches = phase_main_levers(samples, packed_depth0, phase5)
     forward["launches"], backward["launches"] = phase_train()
     train_ev_launches, train_ev_backward = phase_train_evidential()
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
                                    "inference_evidential": evidential_launches,
+                                   "inference_levers": levers_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
+                                    "inference_levers": 0,
                                     "training": backward["launches"],
                                     "training_evidential": train_ev_backward}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -160,12 +160,24 @@ def test_patch_bilinear_sample_packed_matches_jax(taps, fused):
 
 
 def test_packed_sampler_refuses_quantized_levers():
+    """The sampler refuses what it cannot do: the fused residual without
+    the folded layout, a quantized residual without the fused one, an
+    unknown residual dtype, and a quantized table without its scale and
+    compute dtype (no lever runs the exact path in its place)."""
     table = build_patch_table_packed(torch.zeros(1, 4, 4, 2))
     x = torch.zeros(1, 16, 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        patch_bilinear_sample_packed(table, x, x, 4, 4, scale=torch.ones(1, 1, 32))
+    ref = torch.zeros(1, 16, 2)
     with pytest.raises(ValueError, match="folded_out"):
-        patch_bilinear_sample_packed(table, x, x, 4, 4, ref=torch.zeros(1, 16, 2))
+        patch_bilinear_sample_packed(table, x, x, 4, 4, ref=ref)
+    with pytest.raises(ValueError, match="need ref"):
+        patch_bilinear_sample_packed(table, x, x, 4, 4, folded_out=True,
+                                     residual_dtype=torch.int8)
+    with pytest.raises(ValueError, match="residual_dtype"):
+        patch_bilinear_sample_packed(table, x, x, 4, 4, folded_out=True, ref=ref,
+                                     residual_dtype=torch.float16)
+    quantized = table.to(torch.int8)
+    with pytest.raises(ValueError, match="scale and a compute_dtype"):
+        patch_bilinear_sample_packed(quantized, x, x, 4, 4)
 
 
 # (c) ------------------------------------------------------------------------

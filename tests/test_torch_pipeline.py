@@ -163,7 +163,7 @@ def test_unported_flag_is_refused(tmp_path):
 
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["eval", "--testpath", str(tmp_path), "--testlist", "x",
-                  "--loadckpt", "x", "--fp8_tables"])
+                  "--loadckpt", "x", "--feat_chunk", "2"])
 
 
 @pytest.mark.parametrize("flag,value", [("--fold_omega", "hybird"), ("--packed_rows", "2"),
