@@ -1,15 +1,22 @@
 """Command-line entry point: ``python -m aa_rmvsnet_tpu_torch.cli
-{eval,train}``.
+{eval,fuse,quality,train}``.
 
 - ``eval``: depth and confidence maps for a scene list, from a reference
   torch ``.ckpt`` (or one that ``train`` wrote); with ``--evidential_ckpt``
   also the evidential head's aleatoric and epistemic maps.
+- ``fuse``: the consistency filter and point-cloud fusion of ``eval``'s
+  maps into one PLY per scan (``dtu``, ``tnt`` or ``tnt_padded``), by
+  scan shard (``--host_id/--num_hosts``) or by reference-view block
+  (``--view_block``, then ``--merge_blocks``).
+- ``quality``: accuracy and completeness of a fused PLY against a
+  ground-truth cloud (numpy and scipy, on the host).
 - ``train``: the core network on DTU (``data/dtu.py``), from scratch or
   from ``--loadckpt``, with checkpoints in ``--logdir`` and ``--resume``;
   with ``--evidential`` the evidential head with it (``loss_emvsnet``),
   fresh or from ``--head_ckpt``.
 
-Both run on the card by default (``--device cpu`` to run on the CPU).
+``eval``, ``fuse`` and ``train`` run on the card by default (``--device
+cpu`` to run on the CPU).
 ``eval`` runs, as the JAX CLI does by default, in bf16 with the packed-row
 warp wherever its exactness gate passes and the fused squared residual;
 ``--fp32 --packed_rows 0`` is the exact fp32 path.  The JAX CLI's
@@ -17,21 +24,24 @@ quantized levers (``--fp8_tables``, ``--int8_tables``, ``--fp8_residual``,
 ``--int8_residual``, ``--dual_residual``) are approximate and opt-in; the
 JAX package's production stack is ``--int8_tables --dual_residual
 --gather_pack 2 --table_taps 6``.  ``train`` runs in fp32.  Flags of the
-JAX CLI that the port does not implement yet are
-accepted by the parser only to fail with "not ported yet"; the JAX CLI's
-other subcommands are not ported.
+JAX CLI that the port does not implement yet are accepted by the parser
+only to fail with "not ported yet"; so are the JAX CLI's ``convert``,
+``analyze`` and ``viz`` subcommands.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
-#: JAX ``eval`` flags the port does not implement yet (FeatNet view
-#: chunks, multi-device layouts, previews, dataset checks).
+#: JAX ``eval`` flags the port does not implement yet (multi-device
+#: layouts, previews, dataset checks).
 NOT_PORTED = (
-    "feat_chunk", "fanout", "spatial", "depth_stages", "pipeline_maps", "save_png",
-    "dry_check",
+    "fanout", "spatial", "depth_stages", "pipeline_maps", "save_png", "dry_check",
 )
+
+#: JAX subcommands the port does not implement yet.
+NOT_PORTED_COMMANDS = ("convert", "analyze", "viz")
 
 
 #: JAX ``train`` flags the port does not implement yet (multi-process and
@@ -49,6 +59,16 @@ def _fold_omega_arg(s: str):
         raise argparse.ArgumentTypeError(
             f"--fold_omega must be 0, 1 or 'hybrid' (got {s!r})")
     return table[s]
+
+
+def _depth_block_arg(s: str):
+    if s == "auto":
+        return s
+    try:
+        return int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--depth_block must be an integer or 'auto' (got {s!r})") from None
 
 
 def _packed_rows_arg(s: str):
@@ -82,7 +102,10 @@ def _add_eval(sub):
     p.add_argument("--numdepth", type=int)
     p.add_argument("--max_h", type=int)
     p.add_argument("--max_w", type=int)
-    p.add_argument("--depth_block", type=int, help="hypotheses per sweep block")
+    p.add_argument("--depth_block", type=_depth_block_arg,
+                   help="hypotheses per sweep block, or 'auto': the largest of "
+                        "8, 4, 2, 1 whose memory estimate fits the card "
+                        "(utils.config.derive_depth_block)")
     p.add_argument("--interval_scale", type=float,
                    help="depth interval scale (reference eval.py default 1.0)")
     p.add_argument("--inverse_depth", action="store_true",
@@ -103,6 +126,9 @@ def _add_eval(sub):
     p.add_argument("--table_taps", type=int, default=4, choices=[4, 6],
                    help="packed window per axis: 6 stores 2.25x the table for "
                         "a 4 px exactness span")
+    p.add_argument("--feat_chunk", type=int, default=0,
+                   help="FeatNet view-chunk size (0 = all views at once); "
+                        "bounds feature-extraction peak memory at big sizes")
     p.add_argument("--no_fused_residual", action="store_true",
                    help="materialise the warped volume on packed samples "
                         "(same result as the fused squared residual)")
@@ -174,6 +200,50 @@ def _add_train(sub):
     return p
 
 
+def _add_fuse(sub):
+    p = sub.add_parser("fuse", help="consistency filter + point-cloud fusion")
+    p.add_argument("--testpath", required=True)
+    p.add_argument("--testlist", required=True)
+    p.add_argument("--outdir", default="outputs")
+    p.add_argument("--test_dataset", choices=["dtu", "tnt", "tnt_padded"], default="dtu")
+    p.add_argument("--photo_threshold", type=float,
+                   help="confidence threshold (default 0.35 dtu, 0.2 tnt; tnt_padded "
+                        "always uses 0.3, as the JAX CLI does)")
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="threads reading a scan's maps, images and cameras")
+    p.add_argument("--host_id", type=int, default=0, help="scan-shard index")
+    p.add_argument("--num_hosts", type=int, default=1)
+    p.add_argument("--view_block", type=int, default=None,
+                   help="fuse only this contiguous ref-view block of each scan "
+                        "(0-based); writes <ply>.block<I>of<N>; run 'fuse' once more "
+                        "with --merge_blocks after all blocks finish")
+    p.add_argument("--num_view_blocks", type=int, default=1,
+                   help="total ref-view blocks per scan")
+    p.add_argument("--merge_blocks", action="store_true",
+                   help="merge previously written per-view-block PLYs into the final "
+                        "per-scan cloud (vertex order identical to a single fuse)")
+    p.add_argument("--display", action="store_true",
+                   help="show ref image + photo/geo/final masks per view in a cv2 "
+                        "window (needs a GUI); not with tnt_padded")
+    p.add_argument("--save_masks", action="store_true",
+                   help="write photo/geo/final masks as PNGs under <outdir>/<scan>/mask/")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' (default) fails where there is no card")
+    return p
+
+
+def _add_quality(sub):
+    p = sub.add_parser("quality", help="accuracy/completeness of a fused PLY "
+                                       "vs a ground-truth point cloud")
+    p.add_argument("--ply", required=True, help="predicted point cloud (.ply)")
+    p.add_argument("--gt", required=True, help="ground-truth point cloud (.ply)")
+    p.add_argument("--max_dist", type=float, default=20.0,
+                   help="outlier clamp distance (DTU convention: 20 mm)")
+    p.add_argument("--downsample", type=float, default=0.2,
+                   help="voxel size for pre-filter downsampling (0 = off)")
+    return p
+
+
 def cmd_eval(args):
     _refuse_not_ported(args, NOT_PORTED)
 
@@ -184,7 +254,8 @@ def cmd_eval(args):
     from .models.evidential import EvidentialHead
     from .models.network import AARMVSNetCore
     from .pipeline.infer import InferConfig, run_inference
-    from .utils.config import eval_preset
+    from .utils.config import derive_depth_block, eval_preset, memory_budget
+    from .utils.device import resolve_device
 
     head = None
     if args.evidential_ckpt:
@@ -196,18 +267,37 @@ def cmd_eval(args):
     if depth_source == "evidential" and head is None:
         raise SystemExit("--depth_source evidential requires --evidential_ckpt")
 
+    # The JAX CLI's precedence: int8 tables over fp8; a dual residual over
+    # int8, int8 over fp8.
+    table_dtype = (torch.int8 if args.int8_tables
+                   else torch.float8_e4m3fn if args.fp8_tables else None)
+    residual_dtype = ("dual" if args.dual_residual
+                      else torch.int8 if args.int8_residual
+                      else torch.float8_e4m3fn if args.fp8_residual else None)
+    auto_block = args.depth_block == "auto"
     overrides = {
         k: v
         for k, v in (
             ("nviews", args.view_num), ("ndepths", args.numdepth),
             ("max_h", args.max_h), ("max_w", args.max_w),
-            ("depth_block", args.depth_block),
+            ("depth_block", None if auto_block else args.depth_block),
             ("interval_scale", args.interval_scale),
             ("inverse_depth", True if args.inverse_depth else None),
         )
         if v is not None
     }
     cfg = eval_preset(args.preset, **overrides)
+    if auto_block:
+        # The estimate of the path these flags ask for, on this device.
+        packed = args.packed_rows is not False
+        cfg.depth_block = derive_depth_block(
+            cfg.max_h, cfg.max_w, cfg.nviews, cfg.ndepths,
+            budget=memory_budget(resolve_device(args.device)), packed=packed,
+            bf16=not args.fp32, table_dtype=table_dtype, residual_dtype=residual_dtype,
+            table_taps=args.table_taps, gather_pack=args.gather_pack,
+            fused_residual=packed and not args.no_fused_residual,
+            collect_volume=head is not None, feature_view_chunk=args.feat_chunk)
+        print(f"--depth_block auto: {cfg.depth_block}", flush=True)
     ds = EvalDataset(
         args.testpath, args.testlist, nviews=cfg.nviews, ndepths=cfg.ndepths,
         interval_scale=cfg.interval_scale, inverse_depth=cfg.inverse_depth,
@@ -225,16 +315,74 @@ def cmd_eval(args):
             gather_pack=args.gather_pack, table_taps=args.table_taps,
             fused_residual=not args.no_fused_residual, device=args.device,
             evidential=head, depth_source=depth_source,
-            # The JAX CLI's precedence: int8 tables over fp8; a dual
-            # residual over int8, int8 over fp8.
-            table_dtype=(torch.int8 if args.int8_tables
-                         else torch.float8_e4m3fn if args.fp8_tables else None),
-            residual_dtype=("dual" if args.dual_residual
-                            else torch.int8 if args.int8_residual
-                            else torch.float8_e4m3fn if args.fp8_residual else None),
+            table_dtype=table_dtype, residual_dtype=residual_dtype,
+            feature_view_chunk=args.feat_chunk,
         ),
     )
     print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s")
+
+
+def cmd_fuse(args):
+    import os
+
+    from .pipeline.fuse import FuseConfig, fuse_scan, fuse_scan_padded, merge_ply_blocks
+
+    block = None
+    if args.view_block is not None:
+        block = (args.view_block, args.num_view_blocks)
+
+    def block_path(ply, i):
+        return f"{ply}.block{i}of{args.num_view_blocks}"
+
+    with open(args.testlist) as f:
+        scans = [line.strip() for line in f if line.strip()]
+    scans = scans[args.host_id :: args.num_hosts]
+    for scan in scans:
+        scan_folder = os.path.join(args.testpath, scan)
+        depth_folder = os.path.join(args.outdir, scan)
+        if args.test_dataset == "dtu":
+            thr = args.photo_threshold if args.photo_threshold is not None else 0.35
+            scan_id = int("".join(c for c in scan if c.isdigit()) or 0)
+            ply = os.path.join(args.outdir, f"mvsnet_{scan_id:03d}_l3.ply")
+        else:
+            thr = args.photo_threshold if args.photo_threshold is not None else 0.2
+            ply = os.path.join(args.outdir, scan + ".ply")
+
+        if args.merge_blocks:
+            n = merge_ply_blocks([block_path(ply, i) for i in range(args.num_view_blocks)], ply)
+            print(f"{scan}: merged {args.num_view_blocks} blocks, {n} points -> {ply}")
+            continue
+
+        out = ply if block is None else block_path(ply, args.view_block)
+        if args.test_dataset == "tnt_padded":
+            if args.display:
+                print("WARNING: --display is not supported by the padded fusion (matching "
+                      "the reference, whose fusion_padding.py has no display path); "
+                      "ignoring", flush=True)
+            n = fuse_scan_padded(scan_folder, depth_folder, out,
+                                 FuseConfig(photo_threshold=0.3, num_workers=args.num_workers,
+                                            device=args.device),
+                                 view_block=block)
+        else:
+            n = fuse_scan(scan_folder, depth_folder, out,
+                          FuseConfig(photo_threshold=thr, num_workers=args.num_workers,
+                                     device=args.device),
+                          view_block=block, save_masks=args.save_masks, display=args.display)
+        print(f"{scan}: {n} points -> {out}")
+
+
+def cmd_quality(args):
+    import json
+
+    from .core.ply import read_ply
+    from .utils.quality import accuracy_completeness
+
+    pred_xyz, _ = read_ply(args.ply)
+    gt_xyz, _ = read_ply(args.gt)
+    metrics = accuracy_completeness(
+        pred_xyz, gt_xyz, max_dist=args.max_dist, downsample=args.downsample
+    )
+    print(json.dumps(metrics, indent=2))
 
 
 def cmd_train(args):
@@ -315,9 +463,17 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="aa_rmvsnet_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_eval(sub)
+    _add_fuse(sub)
     _add_train(sub)
+    _add_quality(sub)
+    for name in NOT_PORTED_COMMANDS:
+        sub.add_parser(name, help="not ported yet")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED_COMMANDS:
+        raise SystemExit(f"{argv[0]}: not ported yet to aa_rmvsnet_tpu_torch")
     args = parser.parse_args(argv)
-    {"eval": cmd_eval, "train": cmd_train}[args.cmd](args)
+    {"eval": cmd_eval, "fuse": cmd_fuse, "quality": cmd_quality,
+     "train": cmd_train}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -53,6 +53,14 @@ class FeatNet(nn.Module):
         self.intraAA = IntraViewAA()
 
     def forward(self, x):
+        if x.is_cpu and x.shape[0] > 1:
+            # The CPU's kernels (oneDNN's convolutions, MKL's small GEMMs, the
+            # channels-last GroupNorm) pick their algorithm by batch size, so
+            # a view's features would depend on the views batched with it.
+            return torch.cat([self._features(s) for s in x.split(1)])
+        return self._features(x)
+
+    def _features(self, x):
         x0 = self.conv0(self.init_conv(x))
         x1 = self.conv1(x0)
         x2 = self.conv2(x1)

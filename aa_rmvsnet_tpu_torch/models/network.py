@@ -132,6 +132,9 @@ class SweepConfig:
       folds it into its first kernel; on an int8 copy it runs rw0 as an
       int8 convolution and the rest of its chain in bf16.  The variance
       multiplies it back.  Approximate.
+    feature_view_chunk: FeatNet views per batch, 0 for all ``B*V`` at
+      once (:func:`extract_features`); a chunk bounds FeatNet's peak
+      memory and gives the same features.
     """
 
     depth_block: int = 16
@@ -145,6 +148,7 @@ class SweepConfig:
     fused_residual: bool = False
     table_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8
     residual_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8 | "dual"
+    feature_view_chunk: int = 0
 
 
 def pick_depth_block(num_depth: int, target: int) -> int:
@@ -167,8 +171,16 @@ def cast_model(model: AARMVSNetCore, dtype: torch.dtype) -> AARMVSNetCore:
 
 
 def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """FeatNet on every view, one view at a time, in ``dtype``.
+                     dtype: torch.dtype = torch.float32, view_chunk: int = 0) -> torch.Tensor:
+    """FeatNet on every view in ``dtype``: all ``B*V`` views as one batch
+    (``view_chunk=0``, the JAX default) or sequential chunks of
+    ``view_chunk`` views, which bounds FeatNet's peak memory.
+
+    GroupNorm is per sample, so the chunk does not change the math, and on
+    the CPU not the values either (FeatNet runs one sample at a time there,
+    ``models/feature.py:FeatNet.forward``).  cuDNN may pick another
+    algorithm for another batch, so on the card the forms agree to the
+    rounding of the working type.
 
     Args:
       imgs: ``(B, V, H, W, 3)`` standardized images.
@@ -176,13 +188,16 @@ def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
     Returns:
       ``(V, B, H, W, 32)`` features in ``dtype`` (view-major for the sweep).
     """
+    B, V, H, W, _ = imgs.shape
     model = cast_model(model, dtype)
+    k = view_chunk if 0 < view_chunk < V else V
+
+    def run(chunk):  # (B, k, H, W, 3) -> (B, k, H, W, 32)
+        x = chunk.reshape(-1, H, W, 3).to(dtype).permute(0, 3, 1, 2)
+        return model.feature(x).permute(0, 2, 3, 1).reshape(B, chunk.shape[1], H, W, -1)
+
     with record_function("featnet"):
-        feats = [
-            model.feature(imgs[:, v].to(dtype).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            for v in range(imgs.shape[1])
-        ]
-        return torch.stack(feats)
+        return torch.cat([run(imgs[:, i:i + k]).transpose(0, 1) for i in range(0, V, k)])
 
 
 def _view_mean(terms) -> torch.Tensor:
@@ -611,7 +626,8 @@ def forward(
     backward recomputes each block, plus 5 x D backward-kernel launches.
     """
     model = cast_model(model, config.feature_dtype)
-    return sweep(model, extract_features(model, imgs, config.feature_dtype),
+    return sweep(model, extract_features(model, imgs, config.feature_dtype,
+                                         config.feature_view_chunk),
                  proj_matrices, depth_values, config)
 
 

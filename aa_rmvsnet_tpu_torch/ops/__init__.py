@@ -1,3 +1,5 @@
 """Tensor ops of the port: plane-sweep geometry, patch-table sampling,
-deformable convolution, align-corners resize, and the ConvLSTM gate kernels,
-forward and backward (``gates``; CUDA source in ``csrc/``)."""
+deformable convolution, align-corners resize, the ConvLSTM gate kernels,
+forward and backward (``gates``), fusion's reproject-and-vote kernel
+(``fusion``; CUDA sources in ``csrc/``) and cv2's resize and pyrDown for
+fusion (``image``)."""

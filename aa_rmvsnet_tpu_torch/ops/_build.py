@@ -7,8 +7,9 @@ plain C interface (no PyTorch headers, so a build takes seconds), for
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds on its next use and a stale library is never loaded.  The
+plus the source's own flags in :data:`SOURCE_FLAGS`.  The library name
+carries a hash of the source and its flags, so an edited source rebuilds
+on its next use and a stale library is never loaded.  The
 build directory lives inside the package and is listed in ``.gitignore``.
 A failed build raises with the compiler's stderr; there is no fallback.
 """
@@ -33,6 +34,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: Flags of one source on top of NVCC_FLAGS.  The fusion kernel must round
+#: every float64 product on its own, as the C++ core on the CPU does: nvcc
+#: contracts ``a * b + c`` into an FMA by default, which moves masks near a
+#: threshold.
+SOURCE_FLAGS = {"fusion_core.cu": ("-fmad=false",)}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -56,11 +63,15 @@ def find_nvcc() -> str:
     )
 
 
+def _flags(source: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(_flags(source)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
@@ -71,7 +82,7 @@ def _start(source: str) -> tuple[subprocess.Popen, Path, Path] | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    cmd = [find_nvcc(), *_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
     )

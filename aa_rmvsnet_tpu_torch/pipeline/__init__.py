@@ -1,1 +1,1 @@
-"""Inference and training drivers, and checkpoints."""
+"""Inference, fusion, training and checkpoints."""

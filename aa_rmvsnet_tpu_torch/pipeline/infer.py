@@ -64,7 +64,9 @@ class InferConfig:
     ``evidential``: an :class:`..models.evidential.EvidentialHead` or
     ``None``; it runs in fp32 whatever ``feature_dtype`` is.
     ``depth_source``: ``"wta"`` writes the core's winner-take-all depth,
-    ``"evidential"`` the head's gamma (it needs a head)."""
+    ``"evidential"`` the head's gamma (it needs a head).
+    ``feature_view_chunk``: FeatNet views per batch, 0 for all at once
+    (:class:`..models.network.SweepConfig`)."""
 
     out_root: str
     depth_block: int = 8
@@ -81,6 +83,7 @@ class InferConfig:
     device: str = "cuda"
     evidential: Any = None  # EvidentialHead | None
     depth_source: str = "wta"  # "wta" | "evidential"
+    feature_view_chunk: int = 0
 
 
 def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
@@ -116,6 +119,7 @@ def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfi
         fused_residual=config.fused_residual and packed,
         table_dtype=config.table_dtype,
         residual_dtype=residual_dtype,
+        feature_view_chunk=config.feature_view_chunk,
     )
 
 

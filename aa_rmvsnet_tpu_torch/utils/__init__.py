@@ -1,2 +1,2 @@
-"""Run configuration presets, device handling, metrics, training logs and
-seeded synthetic inputs."""
+"""Run configuration presets and the memory estimate, device handling,
+metrics, point-cloud quality, training logs and seeded synthetic inputs."""

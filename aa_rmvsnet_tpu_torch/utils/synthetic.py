@@ -3,7 +3,8 @@
 :func:`plane_scene` builds, in memory with numpy and scipy, the sample
 dicts that ``EvalDataset.__getitem__`` returns for a textured
 fronto-parallel plane seen by cameras translating along x (the geometry of
-``tests/scenefix.py:make_plane_scene``, without cv2 or files), and
+``tests/scenefix.py:make_plane_scene``, without cv2 or files; the
+cameras are :func:`plane_cameras`), and
 :func:`plane_train_sample` the ``DTUTrainDataset`` sample of that plane,
 its ground truth the plane's depth.
 :func:`seeded_model` gives the full-width core random weights from a seed,
@@ -101,6 +102,21 @@ def matching_model(seed: int, gain: float = 0.02, sharpness: float = 20.0) -> AA
     return model
 
 
+def plane_cameras(height: int, width: int, n_cams: int, focal: float,
+                  baseline: float) -> list[tuple[np.ndarray, np.ndarray]]:
+    """``(K, E)`` float32 of ``n_cams`` cameras translating along x by
+    ``baseline``, principal point at the image centre: camera ``v`` sits at
+    ``x = v * baseline`` (``E`` is world to camera)."""
+    K = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0], [0, 0, 1]],
+                 np.float32)
+    cams = []
+    for v in range(n_cams):
+        E = np.eye(4, dtype=np.float32)
+        E[0, 3] = -v * baseline
+        cams.append((K, E))
+    return cams
+
+
 def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,
                 seed: int, focal: float, baseline: float, plane_depth: float,
                 depth_min: float, depth_interval: float) -> list[dict]:
@@ -118,19 +134,16 @@ def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,
     tex_w = width + int(np.ceil(max_shift)) + 8
     texture = gaussian_filter(
         rng.rand(height, tex_w, 3).astype(np.float32) * 255.0, sigma=(2.0, 2.0, 0.0))
-    K = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0], [0, 0, 1]],
-                 np.float32)
     ys, xs = np.mgrid[0:height, 0:width].astype(np.float32)
     imgs, projs = [], []
-    for v in range(n_cams):
+    for v, (K, E) in enumerate(plane_cameras(height, width, n_cams, focal, baseline)):
         shift = focal * baseline * v / plane_depth
         img = np.stack([
             map_coordinates(texture[..., ch], [ys, xs + shift], order=1)
             for ch in range(3)
         ], axis=-1)
         imgs.append(standardize_image(img, eps=0.0))
-        P = np.eye(4, dtype=np.float32)
-        P[0, 3] = -v * baseline  # world -> camera: the camera sits at +v*b
+        P = E.copy()
         P[:3, :4] = K @ P[:3, :4]
         projs.append(P)
     depths = (depth_min + depth_interval * np.arange(num_depth)).astype(np.float32)

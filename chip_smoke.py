@@ -180,6 +180,25 @@ TRAIN_MAXDISP = 32
 # Cosine schedule length of a 10-epoch DTU run: 79 training scans x 49
 # reference views x 7 lights x 2 sweep directions per epoch.
 DTU_TRAIN_TOTAL_STEPS = 10 * 79 * 49 * 7 * 2
+# The automatic depth block's second geometry: tnt_intermediate_1920 (7
+# views), one map, D cut from 512 to 64 (the sweep's peak depends on the
+# block, not on D).
+TNT_H, TNT_W, TNT_V, TNT_D = 1056, 1920, 7, 64
+# The estimate of the automatic depth block, against the measured peak.
+ESTIMATE_BAR = 0.20
+# Fusion: a DTU-sized scan at the dtu_eval prediction geometry, 49 views of
+# a plane with 10 sources each, images at DTU's 1200x1600 (so that the
+# resize to the prediction runs), depths the plane plus noise that puts
+# pixels on every side of each level's thresholds (level i passes a
+# relative depth error under i/1300, 0.92 i at 600).
+FUSE_VIEWS, FUSE_SRCS, FUSE_IMG_H, FUSE_IMG_W = 49, 10, 1200, 1600
+FUSE_FOCAL, FUSE_BASELINE, FUSE_PLANE, FUSE_NOISE = 2000.0, 2.0, 600.0, 3.0
+# The chain: run_inference, fusion and quality on a plane scene at 864x1152,
+# 4 maps, D cut from 512 to 128 at 2.5 a step, with matching_model weights.
+CHAIN_MAPS, CHAIN_D, CHAIN_DEPTH_MIN, CHAIN_INTERVAL = 4, 128, 440.0, 2.5
+# The H100 SXM's float64 rate outside the tensor cores (NVIDIA's data
+# sheet), the fusion kernel's operations bound.
+FP64_PER_S = 34e12
 
 
 def _fail(msg: str) -> None:
@@ -1170,7 +1189,8 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
           f"[{secs}], peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
           f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16); PFMs finite, depth in the sweep, "
           "confidence in (0, 1]", flush=True)
-    return launches, depth0, {"map_seconds": stats["map_seconds"], "peak": peak}
+    return launches, depth0, {"map_seconds": stats["map_seconds"], "peak": peak,
+                              "modes": stats["modes"]}
 
 
 def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
@@ -1470,6 +1490,271 @@ def phase_train_evidential() -> tuple[int, int]:
     return launches, backward
 
 
+def phase_feat_chunk(samples, phase5: dict) -> None:
+    """5e: FeatNet with all views in one batch (chunk 0, the default)
+    against one view at a time (chunk 1), and the automatic depth block's
+    estimate against the measured peaks."""
+    from aa_rmvsnet_tpu_torch.models.network import cast_model, extract_features
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+    from aa_rmvsnet_tpu_torch.utils.config import (
+        derive_depth_block, featnet_memory_bytes, memory_budget, sweep_memory_bytes,
+    )
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene, seeded_model
+
+    model = seeded_model(SEED).cuda()
+    imgs = torch.from_numpy(samples[0]["imgs"][None]).cuda()
+    feats, secs, peaks = {}, {}, {}
+    with torch.inference_mode():
+        bf16 = cast_model(model, torch.bfloat16)
+        fp32 = extract_features(model, imgs, torch.float32)
+        for chunk in (0, 1, 0, 1):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            feats[chunk] = extract_features(bf16, imgs, torch.bfloat16, chunk)
+            torch.cuda.synchronize()
+            secs.setdefault(chunk, []).append(time.perf_counter() - t0)
+            peaks[chunk] = torch.cuda.max_memory_allocated() - held
+    chunk_err = (feats[0].float() - feats[1].float()).abs().max().item()
+    equal = (feats[0] == feats[1]).float().mean().item()
+    bf16_err = (feats[1].float() - fp32).abs().max().item()
+    estimates = {k: featnet_memory_bytes(MAIN_H, MAIN_W, MAIN_V, True, k) for k in (0, 1)}
+    ok = chunk_err <= 2 * bf16_err and all(
+        abs(estimates[k] / peaks[k] - 1) <= ESTIMATE_BAR for k in (0, 1))
+    print(f"feat-chunk: FeatNet bf16 at {MAIN_H}x{MAIN_W}, V={MAIN_V}: chunk 0 (one batch) "
+          f"{', '.join(f'{t:.4f}' for t in secs[0])} s, peak {peaks[0] / 2**30:.2f} GiB "
+          f"(estimate {estimates[0] / 2**30:.2f}); chunk 1 "
+          f"{', '.join(f'{t:.4f}' for t in secs[1])} s, peak {peaks[1] / 2**30:.2f} GiB "
+          f"(estimate {estimates[1] / 2**30:.2f}); equal on {equal:.4%} of features, "
+          f"max_abs_err {chunk_err:.3e} (bar: twice bf16's own max_abs_err from fp32, "
+          f"{bf16_err:.3e}; estimates within {ESTIMATE_BAR:.0%}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        _fail("FeatNet chunks disagree beyond bf16's rounding, or their memory estimate "
+              "is off")
+    del feats, fp32, bf16
+
+    budget = memory_budget("cuda")
+    rows = []
+    pick = derive_depth_block(MAIN_H, MAIN_W, MAIN_V, MAIN_D, budget=budget)
+    if pick != MAIN_BLOCK:
+        _fail(f"the automatic depth block at dtu_eval is {pick}; phase 5 ran {MAIN_BLOCK}")
+    rows.append(("dtu_eval", MAIN_H, MAIN_W, MAIN_V, MAIN_D, pick,
+                 sweep_memory_bytes(MAIN_H, MAIN_W, MAIN_V, pick, MAIN_D), phase5["peak"],
+                 phase5["modes"][0]))
+    pick = derive_depth_block(TNT_H, TNT_W, TNT_V, 512, budget=budget)
+    tnt = plane_scene(TNT_H, TNT_W, TNT_V, TNT_D, maps=1, seed=SEED + 13, focal=2000.0,
+                      baseline=2.0, plane_depth=600.0, depth_min=MAIN_DEPTH_MIN,
+                      depth_interval=MAIN_DEPTH_INTERVAL)
+    with tempfile.TemporaryDirectory() as out_root:
+        torch.cuda.reset_peak_memory_stats()
+        stats = run_inference(seeded_model(SEED), tnt, InferConfig(
+            out_root=out_root, depth_block=pick, num_workers=2, device="cuda"))
+        peak = torch.cuda.max_memory_allocated()
+    if stats["modes"] != [(True, 1, 4)]:
+        _fail(f"the tnt_intermediate_1920 map took packed mode {stats['modes']}")
+    rows.append(("tnt_intermediate_1920", TNT_H, TNT_W, TNT_V, TNT_D, pick,
+                 sweep_memory_bytes(TNT_H, TNT_W, TNT_V, pick, TNT_D), peak,
+                 stats["modes"][0]))
+    for name, H, W, V, D, block, estimate, measured, mode in rows:
+        ratio = estimate / measured
+        ok = abs(ratio - 1.0) <= ESTIMATE_BAR and measured <= budget
+        print(f"auto-block: {name} ({H}x{W}, V={V}, D={D}), budget {budget / 2**30:.2f} GiB: "
+              f"derive_depth_block picks {block}; estimate {estimate / 2**30:.2f} GiB, "
+              f"max_memory_allocated {measured / 2**30:.2f} GiB in mode {mode}, ratio "
+              f"{ratio:.3f} (bar 1 +- {ESTIMATE_BAR}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            _fail(f"the depth-block estimate at {name} is off the measured peak")
+    print(f"auto-block: the tnt_intermediate_1920 map ran in {stats['map_seconds'][0]:.3f} s "
+          f"(D={TNT_D}, cut from 512)", flush=True)
+
+
+def _fusion_cameras(n_views: int) -> tuple[list, dict]:
+    """Cameras of the fusion scan: the prediction geometry's (864x1152) and
+    the images' (1200x1600), whose intrinsics the fusion scales by 0.72."""
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras
+
+    pred = plane_cameras(MAIN_H, MAIN_W, n_views, FUSE_FOCAL, FUSE_BASELINE)
+    image = {}
+    for v, (K, E) in enumerate(pred):
+        K_img = K.copy()
+        K_img[:2] /= np.float32(MAIN_H / FUSE_IMG_H)
+        image[v] = (K_img, E)
+    return pred, image
+
+
+def _nearest_pairs(views, n_src: int):
+    return [(r, sorted((v for v in views if v != r), key=lambda v: (abs(v - r), v))[:n_src])
+            for r in views]
+
+
+def phase_fusion_kernel() -> dict:
+    """7: the fusion kernel against its plain version on the card and on
+    the CPU, bit for bit, and its times."""
+    from aa_rmvsnet_tpu_torch.ops import fusion
+
+    pred, _ = _fusion_cameras(FUSE_SRCS + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    depths = (FUSE_PLANE + FUSE_NOISE * torch.randn(
+        FUSE_SRCS + 1, MAIN_H, MAIN_W, device="cuda", generator=gen)).contiguous()
+    ref = FUSE_SRCS // 2
+    (_, srcs), = _nearest_pairs(range(FUSE_SRCS + 1), FUSE_SRCS)[ref:ref + 1]
+    mats = torch.from_numpy(np.stack([
+        fusion.pair_matrices(pred[ref][0], pred[ref][1], pred[s][0], pred[s][1])
+        for s in srcs])).cuda()
+    index = torch.tensor(srcs, dtype=torch.int32, device="cuda")
+    args = (depths, ref, index, mats)
+
+    kernel = fusion.fuse_ref(*args)
+    torch.cuda.synchronize()
+    plain = fusion.fuse_ref_reference(*args)
+    cpu = fusion.fuse_ref_reference(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    names = ("level counts", "loose count", "reprojected sum")
+    for name, k, p, c in zip(names, kernel, plain, cpu):
+        if not (torch.equal(k, p) and torch.equal(k.cpu(), c)):
+            diff = (k.cpu() != c).float().mean().item()
+            _fail(f"fusion kernel {name} differs from its plain version ({diff:.4%} of the "
+                  "CPU's differ)")
+    shares = [f"{c.float().mean().item() / FUSE_SRCS:.3f}" for c in kernel[0]]
+
+    flush = torch.empty(2**28, device="cuda")
+    ms = _cold_step_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
+    plain_ms = _cold_step_ms(lambda: fusion.fuse_ref_reference(*args), flush, reps=3, warmup=1)
+    ms_again = _cold_step_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
+    del flush
+    px = MAIN_H * MAIN_W
+    levels = kernel[0].shape[0]
+    nbytes = px * 4 * (1 + FUSE_SRCS + levels + 2)
+    bytes_ms = nbytes / memory_bytes_per_s() * 1e3
+    ops_ms = px * FUSE_SRCS * fusion.FP64_OPS_PER_PIXEL_SOURCE / FP64_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"fusion: kernel vs plain at {MAIN_H}x{MAIN_W}, 1 reference view, {FUSE_SRCS} "
+          f"sources, depths {FUSE_PLANE} + N(0, {FUSE_NOISE}^2): level counts, loose count "
+          f"and reprojected sums equal bit for bit to the plain version on the card and on "
+          f"the CPU; share of sources passing per level [{', '.join(shares)}]; kernel "
+          f"{ms:.4f} ms (again {ms_again:.4f}) per reference view, plain {plain_ms:.4f} ms; "
+          f"bound {bound_ms:.4f} ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
+          f"({bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB, {ops_ms:.4f} ms for "
+          f"{px * FUSE_SRCS * fusion.FP64_OPS_PER_PIXEL_SOURCE / 1e9:.3f} G float64 "
+          f"operations at {FP64_PER_S / 1e12:.0f} TFLOP/s), {bound_ms / ms:.0%} of it",
+          flush=True)
+    return {
+        "name": "fuse_ref",
+        "route": "cuda",
+        "source": "aa_rmvsnet_tpu_torch/csrc/fusion_core.cu",
+        "replaces": "native/fusion_core.cpp:82",
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def phase_fusion_scan() -> int:
+    """7b: a DTU-sized scan fused in memory on the card."""
+    from aa_rmvsnet_tpu_torch.ops import fusion
+    from aa_rmvsnet_tpu_torch.pipeline.fuse import FuseConfig, fuse_views
+
+    _, cams = _fusion_cameras(FUSE_VIEWS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    depths = FUSE_PLANE + FUSE_NOISE * torch.randn(
+        FUSE_VIEWS, MAIN_H, MAIN_W, device="cuda", generator=gen)
+    confs = torch.rand(FUSE_VIEWS, MAIN_H, MAIN_W, device="cuda", generator=gen)
+    images = torch.randint(0, 256, (FUSE_VIEWS, FUSE_IMG_H, FUSE_IMG_W, 3), device="cuda",
+                           dtype=torch.uint8, generator=gen)
+    pairs = _nearest_pairs(range(FUSE_VIEWS), FUSE_SRCS)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fusion.launches = 0
+        t0 = time.perf_counter()
+        xyz, rgb = fuse_views(dict(enumerate(depths)), dict(enumerate(confs)),
+                              dict(enumerate(images)), cams, pairs, FuseConfig(device="cuda"))
+        secs.append(time.perf_counter() - t0)
+        launches = fusion.launches
+        peak = torch.cuda.max_memory_allocated()
+    z_err = float(np.median(np.abs(xyz[:, 2] - FUSE_PLANE)))
+    if launches != FUSE_VIEWS or len(xyz) == 0 or not np.isfinite(xyz).all() \
+            or z_err > FUSE_NOISE:
+        _fail(f"the fused scan: {launches} kernel launches, {len(xyz)} points, median "
+              f"|z - plane| {z_err}")
+    print(f"fusion-scan: fuse_views, {FUSE_VIEWS} views x {FUSE_SRCS} sources at "
+          f"{MAIN_H}x{MAIN_W}, images {FUSE_IMG_H}x{FUSE_IMG_W}: "
+          f"{', '.join(f'{s:.3f}' for s in secs)} s per scan, {len(xyz)} points, median "
+          f"|z - plane| {z_err:.4f}, peak memory {peak / 2**30:.2f} GiB (the inputs "
+          f"{(depths.numel() * 8 + images.numel()) / 2**30:.2f} GiB), fusion kernel launches "
+          f"{launches} (one per reference view)", flush=True)
+    return launches
+
+
+def phase_chain() -> tuple[int, int]:
+    """7c: depth maps, fusion and quality on the card, end to end."""
+    from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
+    from aa_rmvsnet_tpu_torch.ops import fusion, gates
+    from aa_rmvsnet_tpu_torch.pipeline.fuse import FuseConfig, fuse_views
+    from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+    from aa_rmvsnet_tpu_torch.utils.quality import accuracy_completeness
+    from aa_rmvsnet_tpu_torch.utils.synthetic import (
+        matching_model, plane_cameras, plane_scene,
+    )
+
+    plane = 600.0
+    samples = plane_scene(MAIN_H, MAIN_W, MAIN_V, CHAIN_D, maps=CHAIN_MAPS, seed=SEED + 23,
+                          focal=FUSE_FOCAL, baseline=FUSE_BASELINE, plane_depth=plane,
+                          depth_min=CHAIN_DEPTH_MIN, depth_interval=CHAIN_INTERVAL)
+    cams = plane_cameras(MAIN_H, MAIN_W, CHAIN_MAPS, FUSE_FOCAL, FUSE_BASELINE)
+    with tempfile.TemporaryDirectory() as out_root:
+        gates.launches = gates.backward_launches = fusion.launches = 0
+        stats = run_inference(matching_model(SEED, sharpness=1000.0), samples,
+                              InferConfig(out_root=out_root, num_workers=2, device="cuda"))
+        launches, backward = gates.launches, gates.backward_launches
+        maps = {
+            family: {r: read_pfm(os.path.join(out_root, "scan1", family, f"{r:08d}.pfm"))[0]
+                     for r in range(CHAIN_MAPS)}
+            for family in ("depth_est_0", "confidence_0")
+        }
+    if launches != 5 * CHAIN_D * CHAIN_MAPS or backward != 0:
+        _fail(f"the chain's maps launched the gate kernel {launches} times, backward "
+              f"{backward}; expected {5 * CHAIN_D * CHAIN_MAPS} and 0")
+    images = {r: np.full((MAIN_H, MAIN_W, 3), 128, np.uint8) for r in range(CHAIN_MAPS)}
+    pairs = _nearest_pairs(range(CHAIN_MAPS), CHAIN_MAPS - 1)
+    t0 = time.perf_counter()
+    xyz, _ = fuse_views(maps["depth_est_0"], maps["confidence_0"], images, dict(enumerate(cams)),
+                        pairs, FuseConfig(device="cuda"))
+    fuse_s = time.perf_counter() - t0
+    fused_launches = fusion.launches
+    z_err = float(np.median(np.abs(xyz[:, 2] - plane))) if len(xyz) else float("inf")
+    # The ground truth: every other pixel of the reference views on the plane.
+    ys, xs = np.mgrid[0:MAIN_H:2, 0:MAIN_W:2].astype(np.float64)
+    K = cams[0][0].astype(np.float64)
+    gt = np.concatenate([np.stack([(xs - K[0, 2]) * plane / K[0, 0] + r * FUSE_BASELINE,
+                                   (ys - K[1, 2]) * plane / K[1, 1],
+                                   np.full_like(xs, plane)], -1).reshape(-1, 3)
+                         for r in range(CHAIN_MAPS)])
+    quality = accuracy_completeness(xyz, gt, max_dist=20.0, downsample=1.0) if len(xyz) else {}
+    depth_err = np.median(np.abs(np.stack(list(maps["depth_est_0"].values())) - plane))
+    if fused_launches != CHAIN_MAPS or len(xyz) == 0 or z_err >= CHAIN_INTERVAL:
+        _fail(f"the chain fused {len(xyz)} points with {fused_launches} kernel launches, "
+              f"median |z - plane| {z_err} (bar one hypothesis interval, {CHAIN_INTERVAL})")
+    print(f"chain: run_inference, InferConfig() defaults, matching_model weights, at "
+          f"{MAIN_H}x{MAIN_W}, V={MAIN_V}, D={CHAIN_D} (cut from 512), {CHAIN_MAPS} maps in "
+          f"packed modes {stats['modes']}, {', '.join(f'{s:.3f}' for s in stats['map_seconds'])} "
+          f"s a map, gate kernel launches {launches} (= 5 x {CHAIN_D} x {CHAIN_MAPS}); median "
+          f"|depth - plane| {depth_err:.4f}; fuse_views {fuse_s:.3f} s, {len(xyz)} points, "
+          f"fusion kernel launches {fused_launches}, median |z - plane| {z_err:.4f} (bar "
+          f"{CHAIN_INTERVAL}); accuracy mean {quality['accuracy_mean']:.4f} median "
+          f"{quality['accuracy_median']:.4f}, completeness mean "
+          f"{quality['completeness_mean']:.4f} median {quality['completeness_median']:.4f}, "
+          f"overall {quality['overall']:.4f} (voxel 1.0, clamp 20; {quality['n_pred']} / "
+          f"{quality['n_gt']} points)", flush=True)
+    return launches, fused_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -1498,24 +1783,31 @@ def main() -> int:
     phase_levers_guardrail()
     samples = _main_scene()
     bf16_launches, packed_depth0, phase5 = phase_main(samples)
+    phase_feat_chunk(samples, phase5)
     fp32_launches = phase_main_exact(samples, packed_depth0)
     evidential_launches, evidential_backward = phase_evidential(samples)
     levers_launches = phase_main_levers(samples, packed_depth0, phase5)
     forward["launches"], backward["launches"] = phase_train()
     train_ev_launches, train_ev_backward = phase_train_evidential()
+    fusion = phase_fusion_kernel()
+    fusion["launches"] = phase_fusion_scan()
+    chain_launches, chain_fused = phase_chain()
+    fusion["launches_by_path"] = {"fusion_scan": fusion["launches"], "chain": chain_fused}
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
                                    "inference_evidential": evidential_launches,
                                    "inference_levers": levers_launches,
                                    "training": forward["launches"],
-                                   "training_evidential": train_ev_launches}
+                                   "training_evidential": train_ev_launches,
+                                   "chain": chain_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
                                     "inference_levers": 0,
                                     "training": backward["launches"],
-                                    "training_evidential": train_ev_backward}
+                                    "training_evidential": train_ev_backward,
+                                    "chain": 0}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [forward, backward]}), flush=True)
+    print(json.dumps({"kernels": [forward, backward, fusion]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The port's ConvLSTM gate kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions: the
+ConvLSTM gate kernels and the fusion's reproject-and-vote.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports nothing of JAX, so it also runs on a machine
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from aa_rmvsnet_tpu_torch.models.blocks import ConvLSTMCell
-from aa_rmvsnet_tpu_torch.ops import gates
+from aa_rmvsnet_tpu_torch.ops import fusion, gates
 from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
 
 _DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 5e-2)}
@@ -185,3 +186,35 @@ def test_cell_scan_under_checkpoint_matches_cpu():
         grads[dev] = [g.cpu() for g in (cell.conv.weight.grad, cell.conv.bias.grad, x.grad)]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_levels", [9, 3])
+def test_fusion_kernel_matches_plain(num_levels):
+    """``fuse_ref`` on the card equals its plain version on the card and on
+    the CPU bit for bit (the kernel is built with -fmad=false), at an odd
+    size, with a source listed twice and one whose depths are zero, on
+    noisy planes whose masks are mixed at every level."""
+    _card()
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras
+
+    h, w, views = 37, 53, 5
+    cams = plane_cameras(h, w, views, 300.0, 2.0)
+    rng = np.random.RandomState(9)
+    depths = (500.0 + 1.5 * rng.randn(views, h, w)).astype(np.float32)
+    depths[4] = 0.0
+    ref, srcs = 2, [1, 3, 0, 1, 4]
+    mats = np.stack([fusion.pair_matrices(*cams[ref], *cams[s]) for s in srcs])
+    args = [torch.from_numpy(depths), ref, torch.tensor(srcs, dtype=torch.int32),
+            torch.from_numpy(mats), num_levels]
+    cpu = fusion.fuse_ref(*args)
+    cuda = [a.cuda() if torch.is_tensor(a) else a for a in args]
+    before = fusion.launches
+    kernel = fusion.fuse_ref(*cuda)
+    torch.cuda.synchronize()
+    assert fusion.launches == before + 1
+    plain = fusion.fuse_ref_reference(*cuda)
+    share = (cpu[0] > 0).float().mean(dim=(1, 2))
+    assert bool(((share > 0.05) & (share < 0.999)).all()), share
+    for k, p, c in zip(kernel, plain, cpu):
+        assert k.dtype == c.dtype and torch.equal(k, p) and torch.equal(k.cpu(), c)

@@ -163,7 +163,7 @@ def test_unported_flag_is_refused(tmp_path):
 
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["eval", "--testpath", str(tmp_path), "--testlist", "x",
-                  "--loadckpt", "x", "--feat_chunk", "2"])
+                  "--loadckpt", "x", "--spatial", "2"])
 
 
 @pytest.mark.parametrize("flag,value", [("--fold_omega", "hybird"), ("--packed_rows", "2"),
@@ -178,26 +178,42 @@ def test_eval_lever_flags_are_strict(tmp_path, flag, value, capsys):
     assert exc.value.code == 2 and flag in capsys.readouterr().err
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Every module of the port, and ``chip_smoke.py``, import nothing of
     JAX, flax, orbax or the JAX package (compared by first dotted
-    component: ``aa_rmvsnet_tpu_torch`` starts with ``aa_rmvsnet_tpu``)."""
-    code = textwrap.dedent("""
+    component: ``aa_rmvsnet_tpu_torch`` starts with ``aa_rmvsnet_tpu``),
+    and the port's fusion, run on the CPU, never loads the JAX package's
+    C++ core (``native/libfusion_core.so``)."""
+    make_plane_scene(str(tmp_path), H=32, W=40, num_views=3)
+    from scenefix import write_prediction
+
+    for v in range(3):
+        write_prediction(str(tmp_path / "out"), v, np.full((32, 40), 500.0, np.float32),
+                         np.full((32, 40), 0.9, np.float32))
+    code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import aa_rmvsnet_tpu_torch as pkg
         for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(info.name)
         importlib.import_module("chip_smoke")
+        from aa_rmvsnet_tpu_torch.pipeline.fuse import FuseConfig, fuse_scan
+        n = fuse_scan({str(tmp_path / "scan1")!r}, {str(tmp_path / "out")!r},
+                      {str(tmp_path / "fused.ply")!r},
+                      FuseConfig(num_workers=2, device="cpu"))
+        print("FUSED", n)
+        with open("/proc/self/maps") as f:
+            print("NATIVE", "libfusion_core" in f.read())
         bad = sorted(
             name for name in sys.modules
             if name.split(".")[0] == "aa_rmvsnet_tpu"
             or name.split(".")[0].startswith(("jax", "flax", "orbax"))
         )
-        training = [
+        wanted = [
             "models.losses", "utils.metrics", "utils.logging", "data.dtu",
-            "pipeline.checkpoint", "pipeline.train",
+            "pipeline.checkpoint", "pipeline.train", "pipeline.fuse", "ops.fusion",
+            "ops.image", "core.ply", "utils.quality",
         ]
-        print("MISSING", [m for m in training
+        print("MISSING", [m for m in wanted
                           if "aa_rmvsnet_tpu_torch." + m not in sys.modules])
         print("BAD", bad)
         print("N", sum(n.startswith("aa_rmvsnet_tpu_torch.") for n in sys.modules))
@@ -207,4 +223,6 @@ def test_port_imports_no_jax():
     assert run.returncode == 0, run.stderr[-3000:]
     assert "MISSING []" in run.stdout, run.stdout
     assert "BAD []" in run.stdout, run.stdout
-    assert int(run.stdout.split("N ")[1]) >= 37
+    assert int(run.stdout.split("FUSED ")[1].split()[0]) > 0, run.stdout
+    assert "NATIVE False" in run.stdout, run.stdout
+    assert int(run.stdout.split("N ")[1]) >= 42
