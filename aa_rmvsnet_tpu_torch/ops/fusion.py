@@ -20,11 +20,22 @@ each matrix-vector product as ``m0*v0 + m1*v1 + m2*v2``, never ``@``, and
 no division by a Python scalar (torch's CUDA kernels multiply by its
 reciprocal).  The two are equal bit for bit on the same inputs, on the
 CPU and on the card.  ``launches`` counts kernel launches.
+
+The kernel tests the levels in an exact rewrite whose constants
+:func:`kernel_levels` builds on the host: the squared distance against
+:func:`dist_sq_threshold` of each distance threshold (no square root),
+and no level at all where the relative difference misses the loosest
+relative threshold.  :func:`check_kernel_inputs` holds the arguments to
+what the kernel takes, on any device.  Its quotients share a divisor's
+reciprocal; :func:`kernel_quotients` runs that division alone, to hold it
+to IEEE division.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -34,18 +45,22 @@ from . import _build
 #: Kernel launches since the last reset (CPU calls are not counted).
 launches = 0
 
-#: Largest ``num_levels`` the kernel keeps in registers.
+#: Largest ``num_levels`` (the kernel's template parameter, 1 to 16).
 MAX_LEVELS = 16
-#: Largest source count whose matrices fit the kernel's 48 KiB of shared
-#: memory (60 float64 each).
+#: Largest source count whose matrices the kernel stages in a block's
+#: shared memory (60 float64 each: 48,960 bytes).
 MAX_SOURCES = 102
 #: float64 values per source in ``mats``: kinv_ref, k_src, kinv_src, k_ref
 #: (3x3), rt_ref2src, rt_src2ref (3x4), row-major.
 MAT_STRIDE = 60
-#: float64 operations per reference pixel and source: the pixel times
-#: the depth (2), four 3x3 products (4 x 15) and two rigid transforms
-#: (2 x 18), four divisions, the source pixel times its depth (2), and the
-#: distance and relative difference (8).  The kernel's bound counts these.
+#: float64 operations per reference pixel and source by the FLOP
+#: convention (an operation each, a division or square root one): the
+#: pixel times the depth (2), four 3x3 products (4 x 15) and two rigid
+#: transforms (2 x 18), the four projective divisions (xs, ys, xr, yr), the
+#: source pixel times its depth (2), and the distance and relative
+#: difference (8: two differences, two squares, their sum, the square root,
+#: the depth difference and the relative quotient, the fifth division).
+#: The kernel's bound counts these.
 FP64_OPS_PER_PIXEL_SOURCE = 2 + 4 * 15 + 2 * 18 + 4 + 2 + 8
 
 _kernel_fn = None
@@ -140,6 +155,53 @@ def level_thresholds(num_levels: int, dist_base: float, rel_base: float):
     return [(i / dist_base, i / rel_base) for i in range(2, 2 + num_levels)]
 
 
+def dist_sq_threshold(t: float) -> float:
+    """S(t): the least float64 whose correctly rounded square root reaches
+    ``t``, so that ``sqrt(s) < t`` exactly where ``s < S(t)`` for every
+    float64 ``s >= 0`` and for NaN (``sqrt`` is monotone).  0 where ``t <= 0``
+    or NaN (no ``s`` passes), inf where ``t`` is inf."""
+    t = float(t)
+    if not t > 0.0:
+        return 0.0
+    with np.errstate(over="ignore"):
+        s = np.float64(t) * np.float64(t)
+    zero, inf = np.float64(0.0), np.float64(np.inf)
+    while s > 0.0 and np.sqrt(np.nextafter(s, zero)) >= t:
+        s = np.nextafter(s, zero)
+    while np.sqrt(s) < t:
+        s = np.nextafter(s, inf)
+    return float(s)
+
+
+class KernelLevels(ctypes.Structure):
+    """The kernel's ``FuseLevels`` (``csrc/fusion_core.cu``): per level the
+    squared distance threshold and the relative one, and the loosest
+    relative threshold."""
+
+    _fields_ = [
+        ("num_levels", ctypes.c_int),
+        ("dist_sq", ctypes.c_double * MAX_LEVELS),
+        ("rel", ctypes.c_double * MAX_LEVELS),
+        ("rel_max", ctypes.c_double),
+    ]
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_levels(num_levels: int, dist_base: float, rel_base: float) -> KernelLevels:
+    """The thresholds of :func:`level_thresholds` as the kernel tests them:
+    S(i / dist_base) (:func:`dist_sq_threshold`) and i / rel_base, and the
+    largest relative threshold (-inf where all are NaN: no value passes a
+    NaN threshold, and none can pass any level).  Entries past
+    ``num_levels`` are 0 and unread."""
+    pairs = level_thresholds(num_levels, dist_base, rel_base)
+    rel = [rt for _, rt in pairs]
+    levels = KernelLevels(num_levels=num_levels,
+                          rel_max=max((r for r in rel if not math.isnan(r)), default=-math.inf))
+    levels.dist_sq[:num_levels] = [dist_sq_threshold(dt) for dt, _ in pairs]
+    levels.rel[:num_levels] = rel
+    return levels
+
+
 def fuse_ref_reference(depths: torch.Tensor, ref: int, src_index: torch.Tensor,
                        mats: torch.Tensor, num_levels: int = 9, dist_base: float = 4.0,
                        rel_base: float = 1300.0):
@@ -161,28 +223,31 @@ def fuse_ref_reference(depths: torch.Tensor, ref: int, src_index: torch.Tensor,
     return counts, loose, reproj_sum
 
 
-def _refusal(depths, src_index, mats, ref, num_levels) -> Exception:
+def check_kernel_inputs(depths: torch.Tensor, ref: int, src_index: torch.Tensor,
+                        mats: torch.Tensor, num_levels: int = 9) -> None:
+    """Raise where the kernel cannot take these arguments (their device
+    aside): ``depths`` ``(views, h, w)`` float32, ``src_index`` ``(S,)``
+    int32 with ``S <= MAX_SOURCES``, ``mats`` ``(S, 60)`` float64 row-major
+    as its blocks stage them, all contiguous, ``ref`` a view and
+    ``num_levels`` in ``[1, MAX_LEVELS]``."""
     tensors = (depths, src_index, mats)
-    index = depths.get_device()
-    if not all(t.is_cuda and t.get_device() == index for t in tensors):
-        return ValueError(f"fuse_ref: tensors on {sorted({str(t.device) for t in tensors})}; "
-                          "all must be on one CUDA device (or all on the CPU)")
     if depths.dtype != torch.float32 or src_index.dtype != torch.int32 \
             or mats.dtype != torch.float64:
-        return TypeError(f"fuse_ref: dtypes {[t.dtype for t in tensors]}; the kernel takes "
-                         "float32 depths, int32 source indices and float64 matrices")
+        raise TypeError(f"fuse_ref: dtypes {[t.dtype for t in tensors]}; the kernel takes "
+                        "float32 depths, int32 source indices and float64 matrices")
     S = src_index.shape[0] if src_index.dim() == 1 else -1
     if depths.dim() != 3 or src_index.dim() != 1 or tuple(mats.shape) != (S, MAT_STRIDE):
-        return ValueError(f"fuse_ref: depths {tuple(depths.shape)} must be (views, h, w), "
-                          f"src_index {tuple(src_index.shape)} (S,) and mats "
-                          f"{tuple(mats.shape)} (S, {MAT_STRIDE})")
+        raise ValueError(f"fuse_ref: depths {tuple(depths.shape)} must be (views, h, w), "
+                         f"src_index {tuple(src_index.shape)} (S,) and mats "
+                         f"{tuple(mats.shape)} (S, {MAT_STRIDE})")
     if not all(t.is_contiguous() for t in tensors):
-        return ValueError("fuse_ref: every tensor must be contiguous")
+        raise ValueError("fuse_ref: every tensor must be contiguous")
     if not 0 <= ref < depths.shape[0]:
-        return ValueError(f"fuse_ref: reference view {ref} of {depths.shape[0]}")
+        raise ValueError(f"fuse_ref: reference view {ref} of {depths.shape[0]}")
     if not 1 <= num_levels <= MAX_LEVELS:
-        return ValueError(f"fuse_ref: num_levels {num_levels} outside [1, {MAX_LEVELS}]")
-    return ValueError(f"fuse_ref: {S} sources; the kernel takes at most {MAX_SOURCES}")
+        raise ValueError(f"fuse_ref: num_levels {num_levels} outside [1, {MAX_LEVELS}]")
+    if S > MAX_SOURCES:
+        raise ValueError(f"fuse_ref: {S} sources; the kernel takes at most {MAX_SOURCES}")
 
 
 def fuse_ref(depths: torch.Tensor, ref: int, src_index: torch.Tensor, mats: torch.Tensor,
@@ -204,21 +269,16 @@ def fuse_ref(depths: torch.Tensor, ref: int, src_index: torch.Tensor, mats: torc
       passing sources per level, ``(h, w)`` int32 of them at the loosest
       level, and ``(h, w)`` float32 the sum of their reprojected depths.
     """
-    if not depths.is_cuda:
-        if depths.is_cpu and src_index.is_cpu and mats.is_cpu:
-            return fuse_ref_reference(depths, ref, src_index, mats, num_levels, dist_base,
-                                      rel_base)
-        raise _refusal(depths, src_index, mats, ref, num_levels)
+    tensors = (depths, src_index, mats)
+    if all(t.is_cpu for t in tensors):
+        return fuse_ref_reference(depths, ref, src_index, mats, num_levels, dist_base,
+                                  rel_base)
     index = depths.get_device()
-    if not (src_index.is_cuda and mats.is_cuda and src_index.get_device() == index
-            and mats.get_device() == index and depths.dtype == torch.float32
-            and src_index.dtype == torch.int32 and mats.dtype == torch.float64
-            and depths.dim() == 3 and src_index.dim() == 1
-            and tuple(mats.shape) == (src_index.shape[0], MAT_STRIDE)
-            and depths.is_contiguous() and src_index.is_contiguous() and mats.is_contiguous()
-            and 0 <= ref < depths.shape[0] and 1 <= num_levels <= MAX_LEVELS
-            and src_index.shape[0] <= MAX_SOURCES):
-        raise _refusal(depths, src_index, mats, ref, num_levels)
+    if not all(t.is_cuda and t.get_device() == index for t in tensors):
+        raise ValueError(f"fuse_ref: tensors on {sorted({str(t.device) for t in tensors})}; "
+                         "all must be on one CUDA device (or all on the CPU)")
+    check_kernel_inputs(depths, ref, src_index, mats, num_levels)
+    levels = kernel_levels(num_levels, float(dist_base), float(rel_base))
     _, h, w = depths.shape
     counts = torch.empty(num_levels, h, w, dtype=torch.int32, device=depths.device)
     loose = torch.empty(h, w, dtype=torch.int32, device=depths.device)
@@ -226,14 +286,38 @@ def fuse_ref(depths: torch.Tensor, ref: int, src_index: torch.Tensor, mats: torc
     with torch.cuda.device(index):
         rc = _kernel()(
             depths.data_ptr(), h * w, ref, src_index.data_ptr(), src_index.shape[0],
-            mats.data_ptr(), h, w, float(dist_base), float(rel_base), num_levels,
-            counts.data_ptr(), loose.data_ptr(), reproj_sum.data_ptr(),
-            torch.cuda.current_stream(index).cuda_stream)
+            mats.data_ptr(), ctypes.byref(levels), h, w, counts.data_ptr(), loose.data_ptr(),
+            reproj_sum.data_ptr(), torch.cuda.current_stream(index).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fuse_ref: kernel launch failed (cudaError {rc})")
     global launches
     launches += 1
     return counts, loose, reproj_sum
+
+
+def kernel_quotients(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a / c`` by the kernel's division (``csrc/fusion_core.cu:quotient``
+    of a ``divisor``), float64, elementwise, for holding it to IEEE
+    division; on CPU tensors ``a / c``.  No launch of it is counted: the
+    fusion does not call it."""
+    if a.is_cpu and c.is_cpu:
+        return a / c
+    if not (a.is_cuda and c.is_cuda and a.get_device() == c.get_device()
+            and a.dtype == c.dtype == torch.float64 and a.shape == c.shape
+            and a.is_contiguous() and c.is_contiguous()):
+        raise ValueError("kernel_quotients: a and c must be contiguous float64 tensors of "
+                         "one shape on one CUDA device (or both on the CPU)")
+    out = torch.empty_like(a)
+    fn = _build.load("fusion_core.cu").fuse_quotients
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.get_device()):
+        rc = fn(a.data_ptr(), c.data_ptr(), a.numel(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel_quotients: kernel launch failed (cudaError {rc})")
+    return out
 
 
 def _kernel():
@@ -242,8 +326,8 @@ def _kernel():
         fn = _build.load("fusion_core.cu").fuse_ref_views
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.POINTER(KernelLevels), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _kernel_fn = fn

@@ -11,6 +11,11 @@ its ground truth the plane's depth.
 and :func:`matching_model` the same with a regularizer that passes the
 photometric cost through, a stand-in for a trained network.
 :func:`seeded_head` gives the evidential head random weights from a seed.
+:func:`fusion_plane_views` gives the fusion kernel the views of a noisy
+plane, :func:`fusion_edge_case` inputs that reach every branch of its
+arithmetic, :func:`fusion_scan` a scan of such views for
+``pipeline/fuse.py:fuse_views``, and :func:`division_operands` operands
+for its division.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from ..core.samplers import linear_depth_train
 from ..core.transforms import standardize_image
 from ..models.evidential import EvidentialHead
 from ..models.network import AARMVSNetCore
+from ..ops.fusion import pair_matrices
 
 
 def seeded_model(seed: int) -> AARMVSNetCore:
@@ -115,6 +121,122 @@ def plane_cameras(height: int, width: int, n_cams: int, focal: float,
         E[0, 3] = -v * baseline
         cams.append((K, E))
     return cams
+
+
+def fusion_plane_views(height: int, width: int, num_src: int, focal: float, baseline: float,
+                       plane: float, noise: float, seed: int, device="cuda"):
+    """Inputs of ``ops/fusion.py:fuse_ref`` on ``device``: ``num_src + 1``
+    views of a plane at ``plane`` + N(0, ``noise``^2) (``torch.randn`` from
+    a generator on ``device`` seeded with ``seed``) seen by
+    :func:`plane_cameras`, the middle view the reference and the others its
+    sources, nearest first.
+
+    Returns ``(depths, ref, src_index, mats)`` as ``fuse_ref`` takes them.
+    """
+    cams = plane_cameras(height, width, num_src + 1, focal, baseline)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    depths = (plane + noise * torch.randn(num_src + 1, height, width, device=device,
+                                          generator=gen)).contiguous()
+    ref = num_src // 2
+    (_, srcs), = nearest_pairs(range(num_src + 1), num_src)[ref:ref + 1]
+    mats = torch.from_numpy(np.stack([pair_matrices(*cams[ref], *cams[s]) for s in srcs]))
+    return depths, ref, torch.tensor(srcs, dtype=torch.int32, device=device), mats.to(device)
+
+
+def nearest_pairs(views, num_src: int) -> list[tuple[int, list[int]]]:
+    """``[(ref, srcs)]``: each view with its ``num_src`` nearest others as
+    sources, nearest (then lowest) first."""
+    return [(r, sorted((v for v in views if v != r), key=lambda v: (abs(v - r), v))[:num_src])
+            for r in views]
+
+
+def fusion_scan(views: int, num_src: int, height: int, width: int, image_height: int,
+                image_width: int, focal: float, baseline: float, plane: float, noise: float,
+                seed: int, device="cuda"):
+    """A scan for ``fuse_views`` on ``device``: ``views`` depth maps of a
+    plane at ``plane`` + N(0, ``noise``^2) at ``height`` x ``width``,
+    confidences uniform in [0, 1) and uint8 RGB images at ``image_height`` x
+    ``image_width`` (drawn in that order from a generator on ``device``
+    seeded with ``seed``), the cameras :func:`plane_cameras` with intrinsics
+    at the images' size, and :func:`nearest_pairs`.
+
+    Returns ``(depths, confidences, images, cams, pairs)``, the maps as
+    ``{view: tensor}``.
+    """
+    cams = {}
+    for v, (K, E) in enumerate(plane_cameras(height, width, views, focal, baseline)):
+        K_img = K.copy()
+        K_img[:2] /= np.float32(height / image_height)
+        cams[v] = (K_img, E)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    depths = plane + noise * torch.randn(views, height, width, device=device, generator=gen)
+    confs = torch.rand(views, height, width, device=device, generator=gen)
+    images = torch.randint(0, 256, (views, image_height, image_width, 3), device=device,
+                           dtype=torch.uint8, generator=gen)
+    return (dict(enumerate(depths)), dict(enumerate(confs)), dict(enumerate(images)), cams,
+            nearest_pairs(range(views), num_src))
+
+
+def division_operands(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` float64 dividend and divisor pairs: a third random bit patterns
+    (every exponent, subnormals, infinities and NaNs), a third magnitudes
+    log-uniform in [1e-6, 1e6] with random signs (the fusion's
+    coordinates and depths), and a third at the edges of a division's fast
+    range (magnitudes from 2^-1074 to 2^1023, zeros, infinities, NaNs, and
+    quotients that land on whole numbers and on halfway points)."""
+    rng = np.random.RandomState(seed)
+    third = n // 3
+    bits = rng.randint(-2**63, 2**63 - 1, size=(2, third), dtype=np.int64).view(np.float64)
+    signs = rng.choice([-1.0, 1.0], size=(2, third))
+    typical = signs * 10.0 ** rng.uniform(-6, 6, size=(2, third))
+    rest = n - 2 * third
+    edges = np.ldexp(rng.uniform(1, 2, size=(2, rest)), rng.randint(-1075, 1024, size=(2, rest)))
+    edges *= rng.choice([-1.0, 1.0], size=(2, rest))
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 5e-324, 2.0**-1022, 2.0**1023])
+    pick = rng.randint(0, len(special), size=(2, rest))
+    where = rng.rand(2, rest) < 0.05
+    edges[where] = special[pick[where]]
+    exact = rng.rand(rest) < 0.1  # a = c * k, k a whole number or a half
+    k = rng.randint(-1000, 1000, size=rest) / rng.choice([1.0, 2.0], size=rest)
+    with np.errstate(over="ignore", invalid="ignore"):
+        edges[0, exact] = edges[1, exact] * k[exact]
+    a, c = np.concatenate([bits, typical, edges], axis=1)
+    return np.ascontiguousarray(a), np.ascontiguousarray(c)
+
+
+def fusion_edge_case(height: int, width: int, num_src: int, seed: int):
+    """Inputs of ``ops/fusion.py:fuse_ref`` that reach every branch of its
+    arithmetic: a reference view (0) and five source views of a plane at
+    500 + N(0, 1.5^2), cameras of focal ``width`` 2 apart (every level's
+    masks mixed) besides one 0.4 of the image away and one turned 0.2 rad
+    about y (pixels project outside the image); in every map 2 % of the
+    depths each 0, negative, NaN, +inf and -inf.  ``num_src`` sources cycle
+    over the five views (a view repeats, with its matrices).
+
+    Returns ``(depths (6, height, width) float32, ref, srcs, mats
+    (num_src, 60) float64)``, numpy.
+    """
+    rng = np.random.RandomState(seed)
+    focal, plane = float(width), 500.0
+    K = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0], [0, 0, 1]], np.float32)
+    cams = []
+    for v, (shift, turn) in enumerate([(0.0, 0.0), (2.0, 0.0), (-2.0, 0.0), (4.0, 0.0),
+                                       (0.4 * plane, 0.0), (1.0, 0.2)]):
+        E = np.eye(4, dtype=np.float32)
+        c, s = np.cos(turn), np.sin(turn)
+        E[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        E[0, 3] = -shift
+        cams.append((K, E))
+    depths = (plane + 1.5 * rng.randn(len(cams), height, width)).astype(np.float32)
+    special = rng.randint(0, 50, size=depths.shape)
+    depths[special == 0] = 0.0
+    depths[special == 1] *= -1.0
+    depths[special == 2] = np.nan
+    depths[special == 3] = np.inf
+    depths[special == 4] = -np.inf
+    srcs = [1 + i % (len(cams) - 1) for i in range(num_src)]
+    mats = np.stack([pair_matrices(*cams[0], *cams[s]) for s in srcs])
+    return depths, 0, srcs, mats
 
 
 def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,

@@ -126,7 +126,17 @@ Phases, each printing a line; any failure exits non-zero:
    the same launch counts per step, a falling finite loss, BatchNorm
    running statistics that changed, and a checkpoint that restores core,
    head, statistics and Adam moments bit for bit and trains one more
-   step; it prints the seconds of each step and the peak memory.
+   step; it prints the seconds of each step and the peak memory;
+7. the fusion kernel (``ops/fusion.py:fuse_ref``) against its plain
+   version, bit for bit on the card and on the CPU: one 864x1152 reference
+   view of a noisy plane against 10 sources, with how many of its terms lie
+   within 1e-12, 1e-9 and 1e-6 of a threshold, and inputs with every
+   special depth and sources projecting outside (1 and ``MAX_SOURCES``
+   sources; 1, 9 and 16 levels); its division against IEEE division on
+   2^24 operand pairs; its time per reference view against its bound;
+7b. a 49-view scan fused in memory (``fuse_views``), one kernel launch per
+   reference view;
+7c. depth maps, fusion and quality end to end on a plane.
 
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
@@ -191,13 +201,21 @@ ESTIMATE_BAR = 0.20
 # resize to the prediction runs), depths the plane plus noise that puts
 # pixels on every side of each level's thresholds (level i passes a
 # relative depth error under i/1300, 0.92 i at 600).
-FUSE_VIEWS, FUSE_SRCS, FUSE_IMG_H, FUSE_IMG_W = 49, 10, 1200, 1600
+FUSE_VIEWS, FUSE_SRCS, FUSE_IMG_H, FUSE_IMG_W, FUSE_LEVELS = 49, 10, 1200, 1600, 9
 FUSE_FOCAL, FUSE_BASELINE, FUSE_PLANE, FUSE_NOISE = 2000.0, 2.0, 600.0, 3.0
+# How close phase 7's terms come to a threshold; the fusion kernel's edge
+# cases (utils/synthetic.py:fusion_edge_case) at an odd size, with 1 and
+# MAX_SOURCES sources and these level counts.
+NEAR_TOLERANCES = (1e-12, 1e-9, 1e-6)
+EDGE_H, EDGE_W, EDGE_LEVELS = 75, 101, (1, 9, 16)
+# Operand pairs on which the fusion kernel's division is held to IEEE's.
+DIVISION_PAIRS = 1 << 24
 # The chain: run_inference, fusion and quality on a plane scene at 864x1152,
 # 4 maps, D cut from 512 to 128 at 2.5 a step, with matching_model weights.
 CHAIN_MAPS, CHAIN_D, CHAIN_DEPTH_MIN, CHAIN_INTERVAL = 4, 128, 440.0, 2.5
 # The H100 SXM's float64 rate outside the tensor cores (NVIDIA's data
-# sheet), the fusion kernel's operations bound.
+# sheet), the fusion kernel's operations bound.  The rate counts an FMA as
+# two operations: 64 FMA lanes an SM x 2 x 132 SMs x ~1.98 GHz.
 FP64_PER_S = 34e12
 
 
@@ -1570,53 +1588,69 @@ def phase_feat_chunk(samples, phase5: dict) -> None:
           f"(D={TNT_D}, cut from 512)", flush=True)
 
 
-def _fusion_cameras(n_views: int) -> tuple[list, dict]:
-    """Cameras of the fusion scan: the prediction geometry's (864x1152) and
-    the images' (1200x1600), whose intrinsics the fusion scales by 0.72."""
-    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras
-
-    pred = plane_cameras(MAIN_H, MAIN_W, n_views, FUSE_FOCAL, FUSE_BASELINE)
-    image = {}
-    for v, (K, E) in enumerate(pred):
-        K_img = K.copy()
-        K_img[:2] /= np.float32(MAIN_H / FUSE_IMG_H)
-        image[v] = (K_img, E)
-    return pred, image
-
-
-def _nearest_pairs(views, n_src: int):
-    return [(r, sorted((v for v in views if v != r), key=lambda v: (abs(v - r), v))[:n_src])
-            for r in views]
-
-
-def phase_fusion_kernel() -> dict:
-    """7: the fusion kernel against its plain version on the card and on
-    the CPU, bit for bit, and its times."""
-    from aa_rmvsnet_tpu_torch.ops import fusion
-
-    pred, _ = _fusion_cameras(FUSE_SRCS + 1)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
-    depths = (FUSE_PLANE + FUSE_NOISE * torch.randn(
-        FUSE_SRCS + 1, MAIN_H, MAIN_W, device="cuda", generator=gen)).contiguous()
-    ref = FUSE_SRCS // 2
-    (_, srcs), = _nearest_pairs(range(FUSE_SRCS + 1), FUSE_SRCS)[ref:ref + 1]
-    mats = torch.from_numpy(np.stack([
-        fusion.pair_matrices(pred[ref][0], pred[ref][1], pred[s][0], pred[s][1])
-        for s in srcs])).cuda()
-    index = torch.tensor(srcs, dtype=torch.int32, device="cuda")
-    args = (depths, ref, index, mats)
-
-    kernel = fusion.fuse_ref(*args)
+def _fusion_equal(fusion, args, num_levels: int, what: str) -> tuple:
+    """The kernel's outputs on ``args``, failing unless they equal the plain
+    version's on the card and on the CPU bit for bit."""
+    kernel = fusion.fuse_ref(*args, num_levels)
     torch.cuda.synchronize()
-    plain = fusion.fuse_ref_reference(*args)
-    cpu = fusion.fuse_ref_reference(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    plain = fusion.fuse_ref_reference(*args, num_levels)
+    cpu = fusion.fuse_ref_reference(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                                    num_levels)
     names = ("level counts", "loose count", "reprojected sum")
     for name, k, p, c in zip(names, kernel, plain, cpu):
         if not (torch.equal(k, p) and torch.equal(k.cpu(), c)):
             diff = (k.cpu() != c).float().mean().item()
-            _fail(f"fusion kernel {name} differs from its plain version ({diff:.4%} of the "
-                  "CPU's differ)")
+            _fail(f"fusion kernel {name} differs from its plain version on {what}, "
+                  f"{num_levels} levels ({diff:.4%} of the CPU's differ)")
+    return kernel
+
+
+def _near_thresholds(fusion, args, num_levels: int, tolerances) -> list[int]:
+    """Pixel-sources whose distance or relative difference lies within each
+    tolerance of one of its level's thresholds (the plain version's terms)."""
+    depths, ref, index, mats = args
+    thresholds = torch.tensor(fusion.level_thresholds(num_levels, 4.0, 1300.0),
+                              dtype=torch.float64, device=depths.device)
+    near = [0] * len(tolerances)
+    for s, m in zip(index.tolist(), mats.cpu().tolist()):
+        dist, rel, *_ = fusion.pair_terms(depths[ref], depths[s], m)
+        gap = torch.minimum((dist[..., None] - thresholds[:, 0]).abs().amin(-1),
+                            (rel[..., None] - thresholds[:, 1]).abs().amin(-1))
+        for i, tol in enumerate(tolerances):
+            near[i] += int((gap < tol).sum())
+    return near
+
+
+def phase_fusion_kernel() -> dict:
+    """7: the fusion kernel against its plain version on the card and on
+    the CPU, bit for bit, on a plane and on inputs with every special depth,
+    and its times."""
+    from aa_rmvsnet_tpu_torch.ops import fusion
+    from aa_rmvsnet_tpu_torch.utils.synthetic import (
+        division_operands, fusion_edge_case, fusion_plane_views,
+    )
+
+    args = fusion_plane_views(MAIN_H, MAIN_W, FUSE_SRCS, FUSE_FOCAL, FUSE_BASELINE, FUSE_PLANE,
+                              FUSE_NOISE, SEED + 17)
+    kernel = _fusion_equal(fusion, args, FUSE_LEVELS, "the plane")
     shares = [f"{c.float().mean().item() / FUSE_SRCS:.3f}" for c in kernel[0]]
+    near = _near_thresholds(fusion, args, FUSE_LEVELS, NEAR_TOLERANCES)
+    a, c = division_operands(DIVISION_PAIRS, SEED + 31)
+    quotients = fusion.kernel_quotients(torch.from_numpy(a).cuda(), torch.from_numpy(c).cuda())
+    with np.errstate(all="ignore"):
+        ieee = a / c
+    if not np.array_equal(quotients.cpu().numpy(), ieee, equal_nan=True):
+        _fail(f"the fusion kernel's division differs from IEEE division on "
+              f"{int((quotients.cpu().numpy() != ieee).sum())} of {DIVISION_PAIRS} pairs")
+    edges = []
+    for num_src in (1, fusion.MAX_SOURCES):
+        depths, ref, srcs, mats = fusion_edge_case(EDGE_H, EDGE_W, num_src, seed=SEED + 29)
+        edge_args = (torch.from_numpy(depths).cuda(), ref,
+                     torch.tensor(srcs, dtype=torch.int32, device="cuda"),
+                     torch.from_numpy(mats).cuda())
+        for num_levels in EDGE_LEVELS:
+            counts = _fusion_equal(fusion, edge_args, num_levels, f"{num_src} edge sources")[0]
+            edges.append(f"{num_src} x {num_levels}: {(counts[-1] > 0).float().mean().item():.3f}")
 
     flush = torch.empty(2**28, device="cuda")
     ms = _cold_step_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
@@ -1624,21 +1658,29 @@ def phase_fusion_kernel() -> dict:
     ms_again = _cold_step_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
     del flush
     px = MAIN_H * MAIN_W
-    levels = kernel[0].shape[0]
-    nbytes = px * 4 * (1 + FUSE_SRCS + levels + 2)
+    nbytes = px * 4 * (1 + FUSE_SRCS + FUSE_LEVELS + 2)
     bytes_ms = nbytes / memory_bytes_per_s() * 1e3
     ops_ms = px * FUSE_SRCS * fusion.FP64_OPS_PER_PIXEL_SOURCE / FP64_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"fusion: kernel vs plain at {MAIN_H}x{MAIN_W}, 1 reference view, {FUSE_SRCS} "
           f"sources, depths {FUSE_PLANE} + N(0, {FUSE_NOISE}^2): level counts, loose count "
           f"and reprojected sums equal bit for bit to the plain version on the card and on "
-          f"the CPU; share of sources passing per level [{', '.join(shares)}]; kernel "
+          f"the CPU; share of sources passing per level [{', '.join(shares)}]; pixel-sources "
+          f"within {', '.join(f'{t:g}' for t in NEAR_TOLERANCES)} of a threshold: "
+          f"{', '.join(str(n) for n in near)} of {px * FUSE_SRCS}; kernel "
           f"{ms:.4f} ms (again {ms_again:.4f}) per reference view, plain {plain_ms:.4f} ms; "
           f"bound {bound_ms:.4f} ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
           f"({bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB, {ops_ms:.4f} ms for "
           f"{px * FUSE_SRCS * fusion.FP64_OPS_PER_PIXEL_SOURCE / 1e9:.3f} G float64 "
           f"operations at {FP64_PER_S / 1e12:.0f} TFLOP/s), {bound_ms / ms:.0%} of it",
           flush=True)
+    print(f"fusion-division: the kernel's quotients (a divisor's reciprocal shared) equal "
+          f"IEEE division bit for bit on {DIVISION_PAIRS} pairs: random bit patterns, "
+          f"magnitudes 1e-6 to 1e6, and the edges of the fast range", flush=True)
+    print(f"fusion-edges: bit for bit on the card and the CPU at {EDGE_H}x{EDGE_W} with 2 % "
+          f"each of 0, negative, NaN, +inf and -inf depths and sources projecting outside, "
+          f"sources x levels: share of pixels whose loosest level passes "
+          f"[{'; '.join(edges)}]", flush=True)
     return {
         "name": "fuse_ref",
         "route": "cuda",
@@ -1658,23 +1700,18 @@ def phase_fusion_scan() -> int:
     """7b: a DTU-sized scan fused in memory on the card."""
     from aa_rmvsnet_tpu_torch.ops import fusion
     from aa_rmvsnet_tpu_torch.pipeline.fuse import FuseConfig, fuse_views
+    from aa_rmvsnet_tpu_torch.utils.synthetic import fusion_scan
 
-    _, cams = _fusion_cameras(FUSE_VIEWS)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
-    depths = FUSE_PLANE + FUSE_NOISE * torch.randn(
-        FUSE_VIEWS, MAIN_H, MAIN_W, device="cuda", generator=gen)
-    confs = torch.rand(FUSE_VIEWS, MAIN_H, MAIN_W, device="cuda", generator=gen)
-    images = torch.randint(0, 256, (FUSE_VIEWS, FUSE_IMG_H, FUSE_IMG_W, 3), device="cuda",
-                           dtype=torch.uint8, generator=gen)
-    pairs = _nearest_pairs(range(FUSE_VIEWS), FUSE_SRCS)
+    depths, confs, images, cams, pairs = fusion_scan(
+        FUSE_VIEWS, FUSE_SRCS, MAIN_H, MAIN_W, FUSE_IMG_H, FUSE_IMG_W, FUSE_FOCAL,
+        FUSE_BASELINE, FUSE_PLANE, FUSE_NOISE, SEED + 19)
     secs = []
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fusion.launches = 0
         t0 = time.perf_counter()
-        xyz, rgb = fuse_views(dict(enumerate(depths)), dict(enumerate(confs)),
-                              dict(enumerate(images)), cams, pairs, FuseConfig(device="cuda"))
+        xyz, rgb = fuse_views(depths, confs, images, cams, pairs, FuseConfig(device="cuda"))
         secs.append(time.perf_counter() - t0)
         launches = fusion.launches
         peak = torch.cuda.max_memory_allocated()
@@ -1687,7 +1724,8 @@ def phase_fusion_scan() -> int:
           f"{MAIN_H}x{MAIN_W}, images {FUSE_IMG_H}x{FUSE_IMG_W}: "
           f"{', '.join(f'{s:.3f}' for s in secs)} s per scan, {len(xyz)} points, median "
           f"|z - plane| {z_err:.4f}, peak memory {peak / 2**30:.2f} GiB (the inputs "
-          f"{(depths.numel() * 8 + images.numel()) / 2**30:.2f} GiB), fusion kernel launches "
+          f"{sum(d.numel() * 8 + images[v].numel() for v, d in depths.items()) / 2**30:.2f} "
+          f"GiB), fusion kernel launches "
           f"{launches} (one per reference view)", flush=True)
     return launches
 
@@ -1700,7 +1738,7 @@ def phase_chain() -> tuple[int, int]:
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
     from aa_rmvsnet_tpu_torch.utils.quality import accuracy_completeness
     from aa_rmvsnet_tpu_torch.utils.synthetic import (
-        matching_model, plane_cameras, plane_scene,
+        matching_model, nearest_pairs, plane_cameras, plane_scene,
     )
 
     plane = 600.0
@@ -1722,7 +1760,7 @@ def phase_chain() -> tuple[int, int]:
         _fail(f"the chain's maps launched the gate kernel {launches} times, backward "
               f"{backward}; expected {5 * CHAIN_D * CHAIN_MAPS} and 0")
     images = {r: np.full((MAIN_H, MAIN_W, 3), 128, np.uint8) for r in range(CHAIN_MAPS)}
-    pairs = _nearest_pairs(range(CHAIN_MAPS), CHAIN_MAPS - 1)
+    pairs = nearest_pairs(range(CHAIN_MAPS), CHAIN_MAPS - 1)
     t0 = time.perf_counter()
     xyz, _ = fuse_views(maps["depth_est_0"], maps["confidence_0"], images, dict(enumerate(cams)),
                         pairs, FuseConfig(device="cuda"))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-ConvLSTM gate kernels and the fusion's reproject-and-vote.
+ConvLSTM gate kernels and the fusion's reproject-and-vote (and its
+division against IEEE division).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports nothing of JAX, so it also runs on a machine
@@ -188,14 +189,9 @@ def test_cell_scan_under_checkpoint_matches_cpu():
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("num_levels", [9, 3])
-def test_fusion_kernel_matches_plain(num_levels):
-    """``fuse_ref`` on the card equals its plain version on the card and on
-    the CPU bit for bit (the kernel is built with -fmad=false), at an odd
-    size, with a source listed twice and one whose depths are zero, on
+def _fusion_plane():
+    """An odd size, a source listed twice and one whose depths are zero, on
     noisy planes whose masks are mixed at every level."""
-    _card()
     from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras
 
     h, w, views = 37, 53, 5
@@ -204,7 +200,26 @@ def test_fusion_kernel_matches_plain(num_levels):
     depths = (500.0 + 1.5 * rng.randn(views, h, w)).astype(np.float32)
     depths[4] = 0.0
     ref, srcs = 2, [1, 3, 0, 1, 4]
-    mats = np.stack([fusion.pair_matrices(*cams[ref], *cams[s]) for s in srcs])
+    return depths, ref, srcs, np.stack([fusion.pair_matrices(*cams[ref], *cams[s]) for s in srcs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, num_src, num_levels", [
+    ("plane", 5, 9), ("plane", 5, 3),
+    *[("edges", n, nl) for n in (1, fusion.MAX_SOURCES) for nl in (1, 9, 16)],
+])
+def test_fusion_kernel_matches_plain(case, num_src, num_levels):
+    """``fuse_ref`` on the card equals its plain version on the card and on
+    the CPU bit for bit (the kernel is built with -fmad=false): on noisy
+    planes (``_fusion_plane``), and on inputs with 2 % each of 0, negative,
+    NaN, +inf and -inf depths in every map and sources that project outside
+    the image (``utils/synthetic.py:fusion_edge_case``), with 1 and
+    ``MAX_SOURCES`` sources."""
+    _card()
+    from aa_rmvsnet_tpu_torch.utils.synthetic import fusion_edge_case
+
+    depths, ref, srcs, mats = _fusion_plane() if case == "plane" else \
+        fusion_edge_case(75, 101, num_src, seed=5)
     args = [torch.from_numpy(depths), ref, torch.tensor(srcs, dtype=torch.int32),
             torch.from_numpy(mats), num_levels]
     cpu = fusion.fuse_ref(*args)
@@ -215,6 +230,49 @@ def test_fusion_kernel_matches_plain(num_levels):
     assert fusion.launches == before + 1
     plain = fusion.fuse_ref_reference(*cuda)
     share = (cpu[0] > 0).float().mean(dim=(1, 2))
-    assert bool(((share > 0.05) & (share < 0.999)).all()), share
+    if case == "plane":
+        assert bool(((share > 0.05) & (share < 0.999)).all()), share
+    else:
+        assert 0.05 < share[-1] < 0.999, share
     for k, p, c in zip(kernel, plain, cpu):
         assert k.dtype == c.dtype and torch.equal(k, p) and torch.equal(k.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_fusion_kernel_past_2_24_pixels():
+    """Past 2^24 pixels a row, float32 sample coordinates step by 2 and
+    floor + 1 rounds to floor or floor + 2: the kernel still takes the taps
+    the plain version takes, bit for bit (on the card; the CPU's plain
+    version is the same arithmetic, held to it by the tests above)."""
+    _card()
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras
+
+    h, w = 2, (1 << 24) + 96
+    cams = plane_cameras(h, w, 3, 1000.0, 0.5)  # sources 1 px apart
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    depths = (500.0 + 1.5 * torch.randn(3, h, w, device="cuda", generator=gen)).contiguous()
+    srcs = [0, 2]
+    mats = np.stack([fusion.pair_matrices(*cams[1], *cams[s]) for s in srcs])
+    args = (depths, 1, torch.tensor(srcs, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(mats).cuda())
+    kernel = fusion.fuse_ref(*args)
+    plain = fusion.fuse_ref_reference(*args)
+    assert bool((kernel[1][:, 1 << 24:] > 0).any())
+    for k, p in zip(kernel, plain):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_fusion_division_matches_ieee():
+    """The fusion kernel's quotients (a divisor's reciprocal shared by the
+    quotients, ``__ddiv_rn`` outside its fast range) equal IEEE division
+    bit for bit, on random bit patterns, the fusion's magnitudes and the
+    edges of the fast range."""
+    _card()
+    from aa_rmvsnet_tpu_torch.utils.synthetic import division_operands
+
+    a, c = division_operands(1 << 20, seed=7)
+    got = fusion.kernel_quotients(torch.from_numpy(a).cuda(), torch.from_numpy(c).cuda())
+    with np.errstate(all="ignore"):
+        want = a / c
+    assert np.array_equal(got.cpu().numpy(), want, equal_nan=True)
