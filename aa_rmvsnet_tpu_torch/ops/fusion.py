@@ -53,15 +53,19 @@ MAX_SOURCES = 102
 #: float64 values per source in ``mats``: kinv_ref, k_src, kinv_src, k_ref
 #: (3x3), rt_ref2src, rt_src2ref (3x4), row-major.
 MAT_STRIDE = 60
-#: float64 operations per reference pixel and source by the FLOP
-#: convention (an operation each, a division or square root one): the
-#: pixel times the depth (2), four 3x3 products (4 x 15) and two rigid
-#: transforms (2 x 18), the four projective divisions (xs, ys, xr, yr), the
-#: source pixel times its depth (2), and the distance and relative
-#: difference (8: two differences, two squares, their sum, the square root,
-#: the depth difference and the relative quotient, the fifth division).
-#: The kernel's bound counts these.
-FP64_OPS_PER_PIXEL_SOURCE = 2 + 4 * 15 + 2 * 18 + 4 + 2 + 8
+#: float64 operations by the FLOP convention (an operation each, a division
+#: one) that the function needs per reference pixel: the pixel times its
+#: depth (2); per distinct kinv_ref, that matrix times the pixel (15); and
+#: per pixel and source two rigid transforms (2 x 18), three 3x3 products
+#: (3 x 15), the four projective divisions (xs, ys, xr, yr), the source
+#: pixel times its depth (2), the squared distance (5: two differences, two
+#: squares, their sum; no square root, as :func:`dist_sq_threshold` compares
+#: the square) and the relative difference (2: the depth difference and the
+#: quotient, the fifth division).  :func:`fp64_operations` sums them; the
+#: kernel's bound counts them.
+FP64_OPS_PER_PIXEL = 2
+FP64_OPS_PER_REFERENCE_RAY = 15
+FP64_OPS_PER_PIXEL_SOURCE = 2 * 18 + 3 * 15 + 4 + 2 + 5 + 2
 
 _kernel_fn = None
 
@@ -82,6 +86,17 @@ def pair_matrices(K_ref: np.ndarray, E_ref: np.ndarray, K_src: np.ndarray,
         (E_src64 @ np.linalg.inv(E_ref64))[:3].reshape(-1),
         (E_ref64 @ np.linalg.inv(E_src64))[:3].reshape(-1),
     ])
+
+
+def fp64_operations(pixels: int, mats: np.ndarray) -> int:
+    """float64 operations by the FLOP convention of one reference view of
+    ``pixels`` pixels against the sources of ``mats`` (``(S, 60)``,
+    :func:`pair_matrices`): the counts above, the reference ray once for
+    each distinct kinv_ref (compared bit for bit)."""
+    mats = np.ascontiguousarray(mats, np.float64).reshape(-1, MAT_STRIDE)
+    rays = len(np.unique(mats[:, :9].view(np.int64), axis=0))
+    return pixels * (FP64_OPS_PER_PIXEL + rays * FP64_OPS_PER_REFERENCE_RAY
+                     + len(mats) * FP64_OPS_PER_PIXEL_SOURCE)
 
 
 def _mul_vec(m, v):

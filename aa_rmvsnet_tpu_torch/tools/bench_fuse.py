@@ -1,97 +1,76 @@
-"""Time the fusion kernel, other builds of it and an earlier source on the card.
+"""What the fusion kernel compiles to, and its time, on the card.
 
-    python -m aa_rmvsnet_tpu_torch.tools.bench_fuse [--reps 20]
-        [--baseline-source PATH] [--variant NAME=FLAGS ...] [--sass-out DIR]
+    python -m aa_rmvsnet_tpu_torch.tools.bench_fuse [--reps 20] [--sass-out DIR]
 
 At ``chip_smoke.py`` phase 7's inputs (one 864x1152 reference view of a
 plane at 600 + N(0, 3^2) against its 10 nearest sources, 9 levels; from
 ``utils/synthetic.py:fusion_plane_views`` with phase 7's seed), on one
-CUDA device, for each build:
+CUDA device:
 
-1. what ``ptxas -v`` reports for the 9-level kernel (registers, spills),
-   and from its SASS (``cuobjdump -sass``) the instructions of the loop
-   over the sources per pixel and source, counted statically: all of them
-   (the path where no work is skipped, with the reference ray's product
-   that runs once a pixel), the float64 pipe's (``D*`` arithmetic and
-   compares, and apart from them the conversions to and from float64),
-   MUFU, shared-memory and constant loads, and calls (a division's slow
-   path, out of line); and the float64 pipe's issue floor, the time its 64
-   lanes an SM take for those instructions at the card's maximum SM clock;
-2. the outputs against the plain version (``ops/fusion.py:
-   fuse_ref_reference``) bit for bit, there and, for the builds of the
-   current source, on ``fusion_edge_case`` with 1 and 102 sources;
-3. the device time of one reference view as phase 7 takes it (CUDA events
-   around the call alone, 1 GiB written before each run so that the depths
-   come from device memory), mean over ``--reps`` runs, in two rounds, the
-   second in reverse order; then once with nothing written between runs,
-   the depths left in the L2 cache.
+1. what ``ptxas -v`` reports for the 9-level kernel of
+   ``csrc/fusion_core.cu`` built with the wrapper's flags (registers,
+   spills), and from its SASS (``cuobjdump -sass``) the instructions of the
+   loop over the sources per pixel and source, counted statically: all of
+   them (the path where no work is skipped), the float64 pipe's (``D*``
+   arithmetic and compares, and apart from them the conversions to and
+   from float64), MUFU, shared-memory and constant loads, and calls (a
+   division's slow path, out of line); and the float64 pipe's issue floor,
+   the time its 64 lanes an SM take for those instructions at the card's
+   maximum SM clock;
+2. the device time of one reference view through the wrapper
+   (``ops/fusion.py:fuse_ref``) as phase 7 takes it (``utils/device.py:
+   device_ms``, 1 GiB written before each run so that the depths come from
+   device memory), mean over ``--reps`` runs, in two rounds; then once with
+   nothing written between runs, the depths left in the L2 cache; and the
+   share of the FLOP-convention bound (``ops/fusion.py:fp64_operations``).
 
-The builds: ``kernel``, ``csrc/fusion_core.cu`` through the wrapper
-(``ops/fusion.py:fuse_ref``); each ``--variant NAME=FLAGS``, the same
-source with extra nvcc flags, its tuning switches (``-DFUSE_SHARED_DIV=0``
-for ``__ddiv_rn`` at every quotient, ``-DFUSE_BLOCK_Y=8`` for blocks of
-32x8 pixels, ``-DFUSE_MIN_BLOCKS=3`` for ``__launch_bounds__``'s blocks an
-SM); and ``--baseline-source``, an earlier ``fusion_core.cu`` whose C
-entry point takes the bases and ``num_levels`` as arguments (the design
-before ``FuseLevels``), e.g. unpacked by ``git archive``.  ``--sass-out`` writes each build's 9-level SASS there.
-Prints the card's name and power limit, a line per build and, last, one
+Bit for bit against the plain version is ``chip_smoke.py`` phase 7's and
+the card tests' work.  ``--sass-out`` writes the 9-level SASS there.
+Prints the card's name and power limit, a line of results and, last, one
 JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import subprocess
 import tempfile
-import time
 from collections import Counter
 from pathlib import Path
 
 import torch
 
 from ..ops import _build, fusion
-from ..utils.synthetic import fusion_edge_case, fusion_plane_views
+from ..utils.device import device_ms
+from ..utils.synthetic import fusion_plane_views
 
 SOURCE = _build.CSRC_DIR / "fusion_core.cu"
 # chip_smoke.py phase 7: the dtu_eval prediction geometry, its plane and seed.
 H, W, NUM_SRC, LEVELS = 864, 1152, 10, 9
 FOCAL, BASELINE, PLANE, NOISE, SEED = 2000.0, 2.0, 600.0, 3.0, 17
+#: The H100 SXM's float64 rate outside the tensor cores, an FMA counted as
+#: two operations (as ``chip_smoke.py:FP64_PER_S``).
+FP64_PER_S = 34e12
 FP64_ARITHMETIC = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
 _SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+([^;]+);")
 _BRANCH = re.compile(r"\bBRA\b.*?0x([0-9a-f]+)")
+_NINE_LEVELS = f"fuse_ref_kernelILi{LEVELS}E"
 
 
-def _flags(extra=()) -> list[str]:
-    return [*_build.NVCC_FLAGS, *_build.SOURCE_FLAGS[SOURCE.name], *extra]
-
-
-def _is_nine_levels(name: str) -> bool:
-    """The 9-level instantiation, or the one kernel of a source without the
-    template (the baseline's)."""
-    m = re.search(r"fuse_ref_kernelILi(\d+)E", name)
-    return m.group(1) == str(LEVELS) if m else "fuse_ref_kernel" in name
-
-
-def _compile(source: Path, extra, library: Path) -> subprocess.Popen:
-    """Start nvcc on ``source`` with the wrapper's flags, ``extra`` and
-    ``-Xptxas -v``."""
-    return subprocess.Popen([_build.find_nvcc(), *_flags(extra), "-Xptxas", "-v", "-o",
-                             str(library), str(source)], stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-
-
-def _ptxas_report(proc: subprocess.Popen, name: str) -> list[str]:
-    """ptxas's lines for the 9-level kernel, once nvcc is done."""
-    _, err = proc.communicate()
+def _ptxas_report(library: Path) -> list[str]:
+    """Build ``SOURCE`` into ``library`` with the wrapper's flags and
+    ``-Xptxas -v``; ptxas's lines for the 9-level kernel."""
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                           *_build.SOURCE_FLAGS[SOURCE.name], "-Xptxas", "-v", "-o",
+                           str(library), str(SOURCE)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise SystemExit(f"bench_fuse: nvcc failed on {name}:\n{err}")
+        raise SystemExit(f"bench_fuse: nvcc failed:\n{proc.stderr}")
     lines, keep = [], False
-    for line in err.splitlines():
+    for line in proc.stderr.splitlines():
         if "Compiling entry function" in line:
-            keep = _is_nine_levels(line)
+            keep = _NINE_LEVELS in line
         if keep and "Compile time" not in line:
             lines.append(line.strip())
     return lines
@@ -105,7 +84,7 @@ def _sass(library: Path) -> list[tuple[int, str]]:
     out, keep = [], False
     for line in text.splitlines():
         if "Function :" in line:
-            keep = _is_nine_levels(line)
+            keep = _NINE_LEVELS in line
             continue
         m = _SASS_LINE.match(line)
         if keep and m is not None:
@@ -150,82 +129,9 @@ def _fp64_floor_ms(per_pixel_source: float, pixel_sources: int, clock_mhz: float
     return per_pixel_source * pixel_sources / (64 * sms * clock_mhz * 1e6) * 1e3
 
 
-def _bind(library: Path, baseline: bool):
-    """A function of ``(depths, ref, src_index, mats)`` that launches the
-    build in ``library`` as the wrapper launches the kernel."""
-    fn = ctypes.CDLL(str(library)).fuse_ref_views
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = ([p, ctypes.c_longlong, i, p, i, p, i, i, d, d, i, p, p, p, p] if baseline else
-                   [p, ctypes.c_longlong, i, p, i, p, ctypes.POINTER(fusion.KernelLevels), i, i,
-                    p, p, p, p])
-    fn.restype = ctypes.c_int
-
-    def run(depths, ref, src_index, mats, num_levels=LEVELS, dist_base=4.0, rel_base=1300.0):
-        _, h, w = depths.shape
-        counts = torch.empty(num_levels, h, w, dtype=torch.int32, device=depths.device)
-        loose = torch.empty(h, w, dtype=torch.int32, device=depths.device)
-        reproj_sum = torch.empty(h, w, dtype=torch.float32, device=depths.device)
-        head = (depths.data_ptr(), h * w, ref, src_index.data_ptr(), src_index.shape[0],
-                mats.data_ptr())
-        outs = (counts.data_ptr(), loose.data_ptr(), reproj_sum.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        if baseline:
-            rc = fn(*head, h, w, dist_base, rel_base, num_levels, *outs)
-        else:
-            levels = fusion.kernel_levels(num_levels, dist_base, rel_base)
-            rc = fn(*head, ctypes.byref(levels), h, w, *outs)
-        if rc != 0:
-            raise RuntimeError(f"{library.name}: launch failed (cudaError {rc})")
-        return counts, loose, reproj_sum
-    return run
-
-
-def _step_ms(step, flush, reps: int, warmup: int = 3) -> float:
-    """chip_smoke.py's ``_cold_step_ms``: mean device time of ``step()`` by
-    CUDA events around it alone, ``flush`` written before each run (none:
-    the inputs stay in the L2 cache from the run before)."""
-    for _ in range(warmup):
-        step()
-    events = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
-def _equal(run, args, **levels) -> bool:
-    got = run(*args, **levels)
-    want = fusion.fuse_ref_reference(*args, **levels)
-    return all(torch.equal(a, b) for a, b in zip(got, want))
-
-
-def _edge_cases_equal(run) -> bool:
-    ok = True
-    for num_src in (1, fusion.MAX_SOURCES):
-        depths, ref, srcs, mats = fusion_edge_case(75, 101, num_src, seed=5)
-        args = (torch.from_numpy(depths).cuda(), ref,
-                torch.tensor(srcs, dtype=torch.int32, device="cuda"),
-                torch.from_numpy(mats).cuda())
-        for num_levels in (1, 9, 16):
-            ok &= _equal(run, args, num_levels=num_levels)
-    return ok
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--baseline-source", type=Path, default=None,
-                        help="an earlier fusion_core.cu (bases as arguments) to time beside "
-                             "the current one")
-    parser.add_argument("--variant", action="append", default=[],
-                        help="NAME=FLAGS: the current source with extra nvcc flags")
     parser.add_argument("--sass-out", type=Path, default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -235,80 +141,51 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     card, power, clock = (s.strip() for s in smi.splitlines()[0].split(","))
     print(f"{card}, {power} W, max SM clock {clock} MHz", flush=True)
-    # name -> (source, extra nvcc flags, the earlier C entry point)
-    builds = {"kernel": (SOURCE, (), False)}
-    for spec in args.variant:
-        name, _, flags = spec.partition("=")
-        builds[name] = (SOURCE, tuple(flags.split()), False)
-    if args.baseline_source is not None:
-        builds["baseline"] = (args.baseline_source, (), True)
     with tempfile.TemporaryDirectory() as tmp:
-        # Every build at once; the kernel's report comes from a build with the
-        # wrapper's flags beside the wrapper's own.
-        t0 = time.perf_counter()
-        libs = {name: Path(tmp) / f"{name}.so" for name in builds}
-        procs = {name: _compile(source, extra, libs[name])
-                 for name, (source, extra, _) in builds.items()}
-        _build.build_all([SOURCE.name])
-        reports = {name: _ptxas_report(proc, name) for name, proc in procs.items()}
-        print(f"built {len(builds) + 1} libraries in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        library = Path(tmp) / "fusion_core.so"
+        report = _ptxas_report(library)
+        sass = _sass(library)
+    for line in report:
+        print(f"ptxas: {line}", flush=True)
+    if args.sass_out is not None:
+        args.sass_out.mkdir(parents=True, exist_ok=True)
+        (args.sass_out / "fuse_ref_kernel.sass").write_text(
+            "\n".join(f"/*{a:04x}*/ {i};" for a, i in sass) + "\n")
+    counts = _loop_counts(sass)
+    pixel_sources = H * W * NUM_SRC
+    fp64 = counts.get("fp64_arithmetic", 0) + counts.get("fp64_conversions", 0)
 
-        depths, ref, index, mats = fusion_plane_views(H, W, NUM_SRC, FOCAL, BASELINE, PLANE,
-                                                      NOISE, SEED)
-        phase7 = (depths, ref, index, mats)
-        pixel_sources = H * W * NUM_SRC
-        results = {}
-        runs = {}
-        for name, (_, _, baseline) in builds.items():
-            for line in reports[name]:
-                print(f"ptxas {name}: {line}", flush=True)
-            sass = _sass(libs[name])
-            if args.sass_out is not None:
-                args.sass_out.mkdir(parents=True, exist_ok=True)
-                (args.sass_out / f"{name}.sass").write_text(
-                    "\n".join(f"/*{a:04x}*/ {i};" for a, i in sass) + "\n")
-            counts = _loop_counts(sass)
-            fp64 = counts.get("fp64_arithmetic", 0.0) + counts.get("fp64_conversions", 0.0)
-            run = fusion.fuse_ref if name == "kernel" else _bind(libs[name], baseline)
-            results[name] = {
-                "loop_per_pixel_source": counts,
-                "fp64_floor_ms": _fp64_floor_ms(fp64, pixel_sources, float(clock)),
-                "fp64_arithmetic_floor_ms": _fp64_floor_ms(counts.get("fp64_arithmetic", 0.0),
-                                                           pixel_sources, float(clock)),
-                "equal_phase7": _equal(run, phase7),
-                "equal_edge_cases": None if baseline else _edge_cases_equal(run),
-                "ms": [],
-                "warm_ms": [],
-            }
-            runs[name] = run
-        flush = torch.empty(2**28, device="cuda")
-        order = list(runs)
-        for names in (order, order[::-1]):
-            for name in names:
-                results[name]["ms"].append(_step_ms(lambda: runs[name](*phase7), flush,
-                                                    args.reps))
-        for name in order:
-            results[name]["warm_ms"].append(_step_ms(lambda: runs[name](*phase7), None,
-                                                     args.reps))
-        del flush
-    for name, r in results.items():
-        c = r["loop_per_pixel_source"]
-        print(f"{name:10s} ms {', '.join(f'{t:.4f}' for t in r['ms'])} (the depths in L2: "
-              f"{r['warm_ms'][0]:.4f}); bit for bit: phase 7 "
-              f"{r['equal_phase7']}, edge cases {r['equal_edge_cases']}; loop per pixel-source: "
-              f"{c.get('all', 0):.1f} instructions, float64 "
-              f"arithmetic {c.get('fp64_arithmetic', 0):.1f} + conversions "
-              f"{c.get('fp64_conversions', 0):.1f}, MUFU {c.get('mufu', 0):.1f}, LDS "
-              f"{c.get('lds', 0):.1f}, LDC {c.get('ldc', 0):.1f}, ULDC {c.get('uldc', 0):.1f}, "
-              f"LDG {c.get('ldg', 0):.1f}, CALL {c.get('call', 0):.1f}; float64 issue floor "
-              f"{r['fp64_floor_ms']:.4f} ms ({r['fp64_arithmetic_floor_ms']:.4f} without the "
-              f"conversions) at {clock} MHz", flush=True)
-    if not all(r["equal_phase7"] and r["equal_edge_cases"] is not False
-               for r in results.values()):
-        raise SystemExit("bench_fuse: a build differs from the plain version")
+    depths, ref, index, mats = fusion_plane_views(H, W, NUM_SRC, FOCAL, BASELINE, PLANE, NOISE,
+                                                  SEED)
+    bound_ms = fusion.fp64_operations(H * W, mats.cpu().numpy()) / FP64_PER_S * 1e3
+
+    def step():
+        fusion.fuse_ref(depths, ref, index, mats, LEVELS)
+
+    flush = torch.empty(2**28, device="cuda")
+    ms = [device_ms(step, flush, args.reps) for _ in range(2)]
+    del flush
+    warm_ms = device_ms(step, None, args.reps)
+    result = {
+        "loop_per_pixel_source": counts,
+        "fp64_floor_ms": _fp64_floor_ms(fp64, pixel_sources, float(clock)),
+        "fp64_arithmetic_floor_ms": _fp64_floor_ms(counts.get("fp64_arithmetic", 0),
+                                                   pixel_sources, float(clock)),
+        "ms": ms,
+        "warm_ms": warm_ms,
+        "bound_ms": bound_ms,
+    }
+    c = counts
+    print(f"fuse_ref_kernel ms {', '.join(f'{t:.4f}' for t in ms)} (the depths in L2: "
+          f"{warm_ms:.4f}), {bound_ms / min(ms):.0%} of its {bound_ms:.4f} ms bound; loop per "
+          f"pixel-source: {c.get('all', 0)} instructions, float64 arithmetic "
+          f"{c.get('fp64_arithmetic', 0)} + conversions {c.get('fp64_conversions', 0)}, MUFU "
+          f"{c.get('mufu', 0)}, LDS {c.get('lds', 0)}, LDC {c.get('ldc', 0)}, ULDC "
+          f"{c.get('uldc', 0)}, LDG {c.get('ldg', 0)}, CALL {c.get('call', 0)}; float64 issue "
+          f"floor {result['fp64_floor_ms']:.4f} ms ({result['fp64_arithmetic_floor_ms']:.4f} "
+          f"without the conversions) at {clock} MHz", flush=True)
     print(json.dumps({"device": f"{card}, {power} W", "max_sm_clock_mhz": float(clock),
-                      "pixel_sources": pixel_sources, "results": results}), flush=True)
+                      "pixel_sources": pixel_sources, "result": result}), flush=True)
     return 0
 
 

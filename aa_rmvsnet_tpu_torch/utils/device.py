@@ -26,3 +26,26 @@ def disable_tf32() -> None:
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def device_ms(step, flush=None, reps: int = 50, warmup: int = 3) -> float:
+    """Mean device time of ``step()`` in ms, by CUDA events around it alone.
+
+    ``flush``, a tensor far larger than the card's L2 cache (50 MB on an
+    H100), is written before each run so that the inputs come from device
+    memory; with ``None`` they stay in the L2 cache from the run before.
+    """
+    for _ in range(warmup):
+        step()
+    events = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps

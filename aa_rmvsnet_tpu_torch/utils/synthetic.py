@@ -211,7 +211,10 @@ def fusion_edge_case(height: int, width: int, num_src: int, seed: int):
     masks mixed) besides one 0.4 of the image away and one turned 0.2 rad
     about y (pixels project outside the image); in every map 2 % of the
     depths each 0, negative, NaN, +inf and -inf.  ``num_src`` sources cycle
-    over the five views (a view repeats, with its matrices).
+    over the five views (a view repeats, with its matrices); every third
+    source sees the reference through intrinsics whose principal point lies
+    0.25 px to the right, so that the reference intrinsics change between
+    sources.
 
     Returns ``(depths (6, height, width) float32, ref, srcs, mats
     (num_src, 60) float64)``, numpy.
@@ -235,7 +238,10 @@ def fusion_edge_case(height: int, width: int, num_src: int, seed: int):
     depths[special == 3] = np.inf
     depths[special == 4] = -np.inf
     srcs = [1 + i % (len(cams) - 1) for i in range(num_src)]
-    mats = np.stack([pair_matrices(*cams[0], *cams[s]) for s in srcs])
+    K_moved = K.copy()
+    K_moved[0, 2] += 0.25
+    mats = np.stack([pair_matrices(K_moved if i % 3 == 2 else K, cams[0][1], *cams[s])
+                     for i, s in enumerate(srcs)])
     return depths, 0, srcs, mats
 
 

@@ -312,25 +312,6 @@ def _at_storage_offset(t):
     return out.copy_(t)
 
 
-def _cold_step_ms(step, flush, reps: int = 50, warmup: int = 3) -> float:
-    """Mean device time of ``step()``, by CUDA events around it alone, with
-    ``flush`` (far larger than the 50 MB L2) written before each run so
-    that the inputs come from device memory."""
-    for _ in range(warmup):
-        step()
-    events = []
-    for _ in range(reps):
-        flush.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
 def _host_us(fn, calls: int = 1000, rounds: int = 3) -> float:
     """Host microseconds per call of ``fn()``: the least over ``rounds``
     rounds of ``calls`` calls each, with no synchronisation inside a round
@@ -350,6 +331,7 @@ def _host_us(fn, calls: int = 1000, rounds: int = 3) -> float:
 
 def phase_kernel() -> dict:
     from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cells = _cell_shapes(MAIN_H, MAIN_W)
@@ -470,10 +452,10 @@ def phase_kernel() -> dict:
             for args in train_lib_inputs:
                 _library_gates(*args)
 
-        train_ms = _cold_step_ms(train_kernel_step, flush)
-        train_library_ms = _cold_step_ms(train_library_step, flush)
-        train_ms_again = _cold_step_ms(train_kernel_step, flush)
-        train_library_ms_again = _cold_step_ms(train_library_step, flush)
+        train_ms = device_ms(train_kernel_step, flush)
+        train_library_ms = device_ms(train_library_step, flush)
+        train_ms_again = device_ms(train_kernel_step, flush)
+        train_library_ms_again = device_ms(train_library_step, flush)
         del flush
 
         # The host's cost of one call at the smallest dtu_train cell.
@@ -532,6 +514,7 @@ def _backward_library_inputs(z, c, dh, dcn):
 
 def phase_backward_kernel() -> dict:
     from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.utils.device import device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cells = _cell_shapes(MAIN_H, MAIN_W)
@@ -633,10 +616,10 @@ def phase_backward_kernel() -> dict:
             for args in train_lib_inputs:
                 _library_gates_backward(*args)
 
-        train_ms = _cold_step_ms(train_kernel_step, flush)
-        train_library_ms = _cold_step_ms(train_library_step, flush)
-        train_ms_again = _cold_step_ms(train_kernel_step, flush)
-        train_library_ms_again = _cold_step_ms(train_library_step, flush)
+        train_ms = device_ms(train_kernel_step, flush)
+        train_library_ms = device_ms(train_library_step, flush)
+        train_ms_again = device_ms(train_kernel_step, flush)
+        train_library_ms_again = device_ms(train_library_step, flush)
         del flush
 
         # The host's cost of one call at the smallest dtu_train cell.
@@ -1626,6 +1609,7 @@ def phase_fusion_kernel() -> dict:
     the CPU, bit for bit, on a plane and on inputs with every special depth,
     and its times."""
     from aa_rmvsnet_tpu_torch.ops import fusion
+    from aa_rmvsnet_tpu_torch.utils.device import device_ms
     from aa_rmvsnet_tpu_torch.utils.synthetic import (
         division_operands, fusion_edge_case, fusion_plane_views,
     )
@@ -1653,14 +1637,15 @@ def phase_fusion_kernel() -> dict:
             edges.append(f"{num_src} x {num_levels}: {(counts[-1] > 0).float().mean().item():.3f}")
 
     flush = torch.empty(2**28, device="cuda")
-    ms = _cold_step_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
-    plain_ms = _cold_step_ms(lambda: fusion.fuse_ref_reference(*args), flush, reps=3, warmup=1)
-    ms_again = _cold_step_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
+    ms = device_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
+    plain_ms = device_ms(lambda: fusion.fuse_ref_reference(*args), flush, reps=3, warmup=1)
+    ms_again = device_ms(lambda: fusion.fuse_ref(*args), flush, reps=20)
     del flush
     px = MAIN_H * MAIN_W
     nbytes = px * 4 * (1 + FUSE_SRCS + FUSE_LEVELS + 2)
     bytes_ms = nbytes / memory_bytes_per_s() * 1e3
-    ops_ms = px * FUSE_SRCS * fusion.FP64_OPS_PER_PIXEL_SOURCE / FP64_PER_S * 1e3
+    ops = fusion.fp64_operations(px, args[3].cpu().numpy())
+    ops_ms = ops / FP64_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"fusion: kernel vs plain at {MAIN_H}x{MAIN_W}, 1 reference view, {FUSE_SRCS} "
           f"sources, depths {FUSE_PLANE} + N(0, {FUSE_NOISE}^2): level counts, loose count "
@@ -1671,14 +1656,15 @@ def phase_fusion_kernel() -> dict:
           f"{ms:.4f} ms (again {ms_again:.4f}) per reference view, plain {plain_ms:.4f} ms; "
           f"bound {bound_ms:.4f} ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
           f"({bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB, {ops_ms:.4f} ms for "
-          f"{px * FUSE_SRCS * fusion.FP64_OPS_PER_PIXEL_SOURCE / 1e9:.3f} G float64 "
+          f"{ops / 1e9:.3f} G float64 "
           f"operations at {FP64_PER_S / 1e12:.0f} TFLOP/s), {bound_ms / ms:.0%} of it",
           flush=True)
     print(f"fusion-division: the kernel's quotients (a divisor's reciprocal shared) equal "
           f"IEEE division bit for bit on {DIVISION_PAIRS} pairs: random bit patterns, "
           f"magnitudes 1e-6 to 1e6, and the edges of the fast range", flush=True)
     print(f"fusion-edges: bit for bit on the card and the CPU at {EDGE_H}x{EDGE_W} with 2 % "
-          f"each of 0, negative, NaN, +inf and -inf depths and sources projecting outside, "
+          f"each of 0, negative, NaN, +inf and -inf depths, sources projecting outside and "
+          f"reference intrinsics changing between sources, "
           f"sources x levels: share of pixels whose loosest level passes "
           f"[{'; '.join(edges)}]", flush=True)
     return {

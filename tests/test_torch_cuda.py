@@ -212,9 +212,10 @@ def test_fusion_kernel_matches_plain(case, num_src, num_levels):
     """``fuse_ref`` on the card equals its plain version on the card and on
     the CPU bit for bit (the kernel is built with -fmad=false): on noisy
     planes (``_fusion_plane``), and on inputs with 2 % each of 0, negative,
-    NaN, +inf and -inf depths in every map and sources that project outside
-    the image (``utils/synthetic.py:fusion_edge_case``), with 1 and
-    ``MAX_SOURCES`` sources."""
+    NaN, +inf and -inf depths in every map, sources that project outside
+    the image and reference intrinsics that change between sources
+    (``utils/synthetic.py:fusion_edge_case``), with 1 and ``MAX_SOURCES``
+    sources."""
     _card()
     from aa_rmvsnet_tpu_torch.utils.synthetic import fusion_edge_case
 

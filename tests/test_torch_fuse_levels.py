@@ -21,6 +21,8 @@ constants on the host.  Here:
 - what the wrapper hands the kernel, built on the CPU: the thresholds in
   order (``ops/fusion.py:kernel_levels``), the ``FuseLevels`` layout, and
   the refusals of ``ops/fusion.py:check_kernel_inputs``.
+- the operation count of the kernel's bound
+  (``ops/fusion.py:fp64_operations``).
 
 The kernel itself is held to the plain version bit for bit on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
@@ -206,3 +208,22 @@ def test_kernel_input_refusals(change, error, match):
                                    change.get("num_levels", 9))
     if "num_src" in change:  # the largest count passes
         fusion.check_kernel_inputs(depths, 0, index[:-1], mats[:-1])
+
+
+def test_fp64_operations_count():
+    """94 float64 operations a pixel-source and 17 a pixel (the pixel times
+    its depth, the reference ray) when every source shares the reference
+    intrinsics: 957 a pixel for 10 sources."""
+    assert fusion.FP64_OPS_PER_PIXEL_SOURCE == 94
+    cams = plane_cameras(8, 10, 11, 2000.0, 2.0)
+    mats = np.stack([fusion.pair_matrices(*cams[5], *cams[s]) for s in range(11) if s != 5])
+    assert fusion.fp64_operations(80, mats) == 80 * (2 + 15 + 10 * 94)
+
+
+@pytest.mark.parametrize("num_src, rays", [(1, 1), (3, 2), (12, 2)])
+def test_fp64_operations_counts_each_reference_ray(num_src, rays):
+    """The reference ray counts once for each distinct kinv_ref (every
+    third source of ``fusion_edge_case`` moves the reference's principal
+    point)."""
+    _, _, _, mats = fusion_edge_case(6, 7, num_src, seed=1)
+    assert fusion.fp64_operations(42, mats) == 42 * (2 + 15 * rays + num_src * 94)
