@@ -1,19 +1,30 @@
 """Command-line entry point: ``python -m aa_rmvsnet_tpu_torch.cli
-{eval,fuse,quality,train}``.
+{eval,fuse,train,convert,analyze,quality,viz}``.
 
 - ``eval``: depth and confidence maps for a scene list, from a reference
-  torch ``.ckpt`` (or one that ``train`` wrote); with ``--evidential_ckpt``
-  also the evidential head's aleatoric and epistemic maps.
+  torch ``.ckpt``, one that ``train`` or ``convert`` wrote, or an orbax
+  directory of the JAX package; with ``--evidential_ckpt`` also the
+  evidential head's aleatoric and epistemic maps; ``--save_png`` adds
+  colour-mapped PNG previews; ``--dry_check`` checks the dataset root's
+  layout and exits without running the model.
 - ``fuse``: the consistency filter and point-cloud fusion of ``eval``'s
   maps into one PLY per scan (``dtu``, ``tnt`` or ``tnt_padded``), by
   scan shard (``--host_id/--num_hosts``) or by reference-view block
   (``--view_block``, then ``--merge_blocks``).
-- ``quality``: accuracy and completeness of a fused PLY against a
-  ground-truth cloud (numpy and scipy, on the host).
 - ``train``: the core network on DTU (``data/dtu.py``), from scratch or
   from ``--loadckpt``, with checkpoints in ``--logdir`` and ``--resume``;
   with ``--evidential`` the evidential head with it (``loss_emvsnet``),
   fresh or from ``--head_ckpt``.
+- ``convert``: an orbax checkpoint of the JAX package (a params
+  directory, a ``cli train`` step or logdir) to a torch ``.ckpt`` under the
+  reference key names, the way back from JAX's ``convert``; it reads orbax
+  with tensorstore, on a host that has it.
+- ``analyze``: the uncertainty analytics over a training logdir's
+  ``.npz`` dumps (numpy, scikit-learn, scipy and matplotlib, on the host).
+- ``quality``: accuracy and completeness of a fused PLY against a
+  ground-truth cloud (numpy and scipy, on the host).
+- ``viz``: the module tree with parameter counts and a graphviz DOT graph
+  of the flax parameter tree.
 
 ``eval``, ``fuse`` and ``train`` run on the card by default (``--device
 cpu`` to run on the CPU).
@@ -23,25 +34,18 @@ warp wherever its exactness gate passes and the fused squared residual;
 quantized levers (``--fp8_tables``, ``--int8_tables``, ``--fp8_residual``,
 ``--int8_residual``, ``--dual_residual``) are approximate and opt-in; the
 JAX package's production stack is ``--int8_tables --dual_residual
---gather_pack 2 --table_taps 6``.  ``train`` runs in fp32.  Flags of the
-JAX CLI that the port does not implement yet are accepted by the parser
-only to fail with "not ported yet"; so are the JAX CLI's ``convert``,
-``analyze`` and ``viz`` subcommands.
+--gather_pack 2 --table_taps 6``.  ``train`` runs in fp32.  The JAX CLI's
+multi-device flags are accepted by the parser only to fail with "not
+ported yet".
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 #: JAX ``eval`` flags the port does not implement yet (multi-device
-#: layouts, previews, dataset checks).
-NOT_PORTED = (
-    "fanout", "spatial", "depth_stages", "pipeline_maps", "save_png", "dry_check",
-)
-
-#: JAX subcommands the port does not implement yet.
-NOT_PORTED_COMMANDS = ("convert", "analyze", "viz")
+#: layouts).
+NOT_PORTED = ("fanout", "spatial", "depth_stages", "pipeline_maps")
 
 
 #: JAX ``train`` flags the port does not implement yet (multi-process and
@@ -97,7 +101,11 @@ def _add_eval(sub):
     p.add_argument("--testlist", required=True, help="file with one scan per line")
     p.add_argument("--outdir", default="outputs")
     p.add_argument("--preset", default="dtu_eval")
-    p.add_argument("--loadckpt", required=True, help="reference torch .ckpt")
+    p.add_argument("--loadckpt", help="torch .ckpt or orbax directory (required "
+                                      "unless --dry_check)")
+    p.add_argument("--dry_check", action="store_true",
+                   help="check the dataset root's layout (pair.txt, cams, images, "
+                        "cam-file shapes) and exit without running the model")
     p.add_argument("--view_num", type=int)
     p.add_argument("--numdepth", type=int)
     p.add_argument("--max_h", type=int)
@@ -153,10 +161,16 @@ def _add_eval(sub):
                         "than fp8 in the JAX package's tests)")
     p.add_argument("--evidential_ckpt",
                    help="evidential head weights (torch .ckpt, evidential.* keys or the "
-                        "head's own); writes aleatoric_0/epistemic_0 maps")
+                        "head's own, or orbax directory); writes aleatoric_0/"
+                        "epistemic_0 maps")
     p.add_argument("--depth_source", choices=["wta", "evidential"],
                    help="depth map source; defaults to 'evidential' when "
                         "--evidential_ckpt is given, else the core WTA depth")
+    p.add_argument("--save_png", action="store_true",
+                   help="colour-mapped PNG previews beside every PFM family")
+    p.add_argument("--pallas_gates", action="store_true",
+                   help="accepted for the JAX CLI's command lines; no effect: the port "
+                        "always runs its ConvLSTM gate kernel on the card")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails where there is no card")
     _add_not_ported(p, NOT_PORTED)
@@ -180,7 +194,7 @@ def _add_train(sub):
     p.add_argument("--lr", type=float)
     p.add_argument("--depth_block", type=int, help="hypotheses per remat block")
     p.add_argument("--seed", type=int, help="data order")
-    p.add_argument("--loadckpt", help="reference torch .ckpt to start from")
+    p.add_argument("--loadckpt", help="torch .ckpt or orbax directory to start from")
     p.add_argument("--resume", action="store_true",
                    help="continue from the highest checkpoint in --logdir")
     p.add_argument("--max_steps", type=int, help="stop early (after a checkpoint)")
@@ -191,7 +205,8 @@ def _add_train(sub):
     p.add_argument("--evidential", action="store_true",
                    help="attach the evidential head and train with loss_emvsnet")
     p.add_argument("--head_ckpt",
-                   help="warm-start head weights (torch .ckpt; needs --evidential)")
+                   help="warm-start head weights (torch .ckpt or orbax directory; "
+                        "needs --evidential)")
     p.add_argument("--maxdisp", type=int,
                    help="the head's depth hypotheses (default 32; needs --evidential)")
     p.add_argument("--device", default="cuda",
@@ -232,6 +247,39 @@ def _add_fuse(sub):
     return p
 
 
+def _add_convert(sub):
+    p = sub.add_parser("convert", help="orbax checkpoint -> torch .ckpt")
+    p.add_argument("--ckpt", required=True,
+                   help="orbax directory: params, a cli train step, or a train logdir "
+                        "(its highest step)")
+    p.add_argument("--out", required=True, help="output torch .ckpt")
+    p.add_argument("--evidential", action="store_true",
+                   help="the evidential head's variables, written under evidential.* keys")
+    return p
+
+
+def _add_analyze(sub):
+    p = sub.add_parser("analyze", help="offline uncertainty analytics over "
+                                       "a train logdir's .npz dumps")
+    p.add_argument("--logdir", required=True)
+    p.add_argument("--mode", default="train", choices=["train", "fulltest"])
+    p.add_argument("--out", help="report directory (default <logdir>/analysis)")
+    p.add_argument("--error_threshold", type=float, default=2.0,
+                   help="depth-error threshold (mm) for ROC/PR labels")
+    return p
+
+
+def _add_viz(sub):
+    p = sub.add_parser("viz", help="module summary and graphviz DOT of the "
+                                   "parameter tree")
+    p.add_argument("--out", default="viz", help="output directory")
+    p.add_argument("--loadckpt", help="checkpoint whose parameter tree is graphed "
+                                      "(torch .ckpt or orbax directory; default: "
+                                      "a fresh init)")
+    p.add_argument("--maxdisp", type=int, default=32)
+    return p
+
+
 def _add_quality(sub):
     p = sub.add_parser("quality", help="accuracy/completeness of a fused PLY "
                                        "vs a ground-truth point cloud")
@@ -244,8 +292,46 @@ def _add_quality(sub):
     return p
 
 
+def _load(flag: str, loader, module, path):
+    """``loader(module, path)``, a checkpoint the loaders cannot read
+    refused by the flag's name."""
+    from .models.convert import UnreadableCheckpoint
+
+    try:
+        return loader(module, path)
+    except UnreadableCheckpoint as exc:
+        raise SystemExit(f"{flag} {exc}") from exc
+
+
 def cmd_eval(args):
     _refuse_not_ported(args, NOT_PORTED)
+
+    from .utils.config import eval_preset
+
+    overrides = {
+        k: v
+        for k, v in (
+            ("nviews", args.view_num), ("ndepths", args.numdepth),
+            ("max_h", args.max_h), ("max_w", args.max_w),
+            ("depth_block", None if args.depth_block == "auto" else args.depth_block),
+            ("interval_scale", args.interval_scale),
+            ("inverse_depth", True if args.inverse_depth else None),
+        )
+        if v is not None
+    }
+    cfg = eval_preset(args.preset, **overrides)
+    if args.dry_check:
+        from .data.validate import check_dataset_root
+
+        with open(args.testlist) as f:
+            scans = [line.strip() for line in f if line.strip()]
+        report = check_dataset_root(args.testpath, scans, padded=cfg.pad_vertical)
+        print(report.summary())
+        if not report.ok:
+            raise SystemExit(1)
+        return
+    if not args.loadckpt:
+        raise SystemExit("--loadckpt is required (or use --dry_check)")
 
     import torch
 
@@ -254,15 +340,13 @@ def cmd_eval(args):
     from .models.evidential import EvidentialHead
     from .models.network import AARMVSNetCore
     from .pipeline.infer import InferConfig, run_inference
-    from .utils.config import derive_depth_block, eval_preset, memory_budget
+    from .utils.config import derive_depth_block, memory_budget
     from .utils.device import resolve_device
 
     head = None
     if args.evidential_ckpt:
-        try:
-            head = load_evidential_checkpoint(EvidentialHead(), args.evidential_ckpt)
-        except NotImplementedError as exc:
-            raise SystemExit(f"--evidential_ckpt {exc}") from exc
+        head = _load("--evidential_ckpt", load_evidential_checkpoint, EvidentialHead(),
+                     args.evidential_ckpt)
     depth_source = args.depth_source or ("evidential" if head is not None else "wta")
     if depth_source == "evidential" and head is None:
         raise SystemExit("--depth_source evidential requires --evidential_ckpt")
@@ -274,20 +358,7 @@ def cmd_eval(args):
     residual_dtype = ("dual" if args.dual_residual
                       else torch.int8 if args.int8_residual
                       else torch.float8_e4m3fn if args.fp8_residual else None)
-    auto_block = args.depth_block == "auto"
-    overrides = {
-        k: v
-        for k, v in (
-            ("nviews", args.view_num), ("ndepths", args.numdepth),
-            ("max_h", args.max_h), ("max_w", args.max_w),
-            ("depth_block", None if auto_block else args.depth_block),
-            ("interval_scale", args.interval_scale),
-            ("inverse_depth", True if args.inverse_depth else None),
-        )
-        if v is not None
-    }
-    cfg = eval_preset(args.preset, **overrides)
-    if auto_block:
+    if args.depth_block == "auto":
         # The estimate of the path these flags ask for, on this device.
         packed = args.packed_rows is not False
         cfg.depth_block = derive_depth_block(
@@ -303,7 +374,7 @@ def cmd_eval(args):
         interval_scale=cfg.interval_scale, inverse_depth=cfg.inverse_depth,
         max_h=cfg.max_h, max_w=cfg.max_w, pad_vertical=cfg.pad_vertical,
     )
-    model = load_reference_checkpoint(AARMVSNetCore(), args.loadckpt)
+    model = _load("--loadckpt", load_reference_checkpoint, AARMVSNetCore(), args.loadckpt)
     stats = run_inference(
         model, ds,
         InferConfig(
@@ -316,7 +387,7 @@ def cmd_eval(args):
             fused_residual=not args.no_fused_residual, device=args.device,
             evidential=head, depth_source=depth_source,
             table_dtype=table_dtype, residual_dtype=residual_dtype,
-            feature_view_chunk=args.feat_chunk,
+            feature_view_chunk=args.feat_chunk, save_png_previews=args.save_png,
         ),
     )
     print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s")
@@ -407,10 +478,7 @@ def cmd_train(args):
         # A fresh head from seed 1, as the JAX CLI's PRNGKey(1).
         head = EvidentialHead(maxdisp, generator=torch.Generator().manual_seed(1))
         if args.head_ckpt:
-            try:
-                load_evidential_checkpoint(head, args.head_ckpt)
-            except NotImplementedError as exc:
-                raise SystemExit(f"--head_ckpt {exc}") from exc
+            _load("--head_ckpt", load_evidential_checkpoint, head, args.head_ckpt)
 
     overrides = {
         k: v
@@ -437,7 +505,7 @@ def cmd_train(args):
                                  image_scale=cfg.image_scale, light_idx=3, both=False)
     model = AARMVSNetCore()
     if cfg.loadckpt:
-        load_reference_checkpoint(model, cfg.loadckpt)
+        _load("--loadckpt", load_reference_checkpoint, model, cfg.loadckpt)
     logger = None
     if not args.no_tensorboard:
         from .utils.logging import TrainLogger
@@ -459,21 +527,140 @@ def cmd_train(args):
           f"checkpoints in {cfg.logdir}", flush=True)
 
 
+def cmd_convert(args):
+    from .models.convert import UnreadableCheckpoint, convert_orbax_checkpoint
+
+    try:
+        n = convert_orbax_checkpoint(args.ckpt, args.out, evidential=args.evidential)
+    except UnreadableCheckpoint as exc:
+        raise SystemExit(f"--ckpt {exc}") from exc
+    print(f"converted {args.ckpt} -> {args.out} ({n} params)")
+
+
+def cmd_analyze(args):
+    """A training logdir's ``.npz`` dumps through the analytics suite (the
+    JAX CLI's ``cmd_analyze``; reference train.py:229-239 and
+    evidential/statistics.py)."""
+    import glob
+    import json
+    import os
+
+    import numpy as np
+
+    from .utils import analysis
+
+    dump_dir = os.path.join(args.logdir, "results", args.mode)
+    paths = sorted(glob.glob(os.path.join(dump_dir, "*.npz")),
+                   key=lambda p: int(os.path.splitext(os.path.basename(p))[0]))
+    if not paths:
+        raise SystemExit(f"no dumps under {dump_dir} (train with --summary_freq)")
+    out_dir = args.out or os.path.join(args.logdir, "analysis")
+    os.makedirs(out_dir, exist_ok=True)
+
+    report = {}
+    for path in paths:
+        step = os.path.splitext(os.path.basename(path))[0]
+        d = np.load(path)
+        if not {"depth_est", "depth_gt", "mask"} <= set(d.files):
+            continue
+        error = d["depth_est"] - d["depth_gt"]
+        mask = d["mask"]
+        entry = {"error": analysis.summarize(error, np.abs(error), mask)}
+        if "alea_1" in d.files and "epis_1" in d.files:
+            alea, epis = d["alea_1"], d["epis_1"]
+            unc = alea + epis
+            entry["uncertainty"] = analysis.summarize(error, unc, mask)
+            roc = analysis.uncertainty_roc(error, unc, mask, args.error_threshold)
+            pr = analysis.uncertainty_precision_recall(error, unc, mask, args.error_threshold)
+            cal = analysis.calibration_curve(error, unc, mask)
+            entry["roc_auc"] = roc["auc"]
+            entry["average_precision"] = pr["average_precision"]
+            entry["ause"] = analysis.sparsification_curve(error, unc, mask)["ause"]
+            entry["calibration"] = {"bin_uncertainty": cal["bin_uncertainty"],
+                                    "bin_abs_error": cal["bin_abs_error"]}
+            entry["regression"] = analysis.regression_fit(error, unc, mask)
+            sweep = analysis.precision_recall_vs_threshold(error, unc, mask,
+                                                          args.error_threshold)
+            entry["pr_vs_threshold"] = {k: sweep[k]
+                                        for k in ("precision", "recall", "fraction_kept")}
+            analysis.plot_density(os.path.join(out_dir, f"density_{step}.png"),
+                                  error, unc, mask)
+            ref_img = d["ref_img"] if "ref_img" in d.files else np.zeros_like(d["depth_gt"])
+            analysis.plot_report(os.path.join(out_dir, f"report_{step}.png"), ref_img,
+                                 d["depth_est"], d["depth_gt"], mask, alea, epis)
+            m = mask > 0.5
+            entry["means"] = {"aleatoric": float(alea[m].mean()) if m.any() else 0.0,
+                              "epistemic": float(epis[m].mean()) if m.any() else 0.0}
+        report[step] = entry
+
+    # Across dumps (reference statistics.py:1352-1365 compares scenes; the
+    # entries here are training steps).
+    means = {s: e["means"] for s, e in report.items() if "means" in e}
+    if means:
+        analysis.plot_means_comparison(os.path.join(out_dir, "means_comparison.png"), means)
+
+    report_path = os.path.join(out_dir, "report.json")
+    with open(report_path, "w") as f:
+        json.dump(report, f, indent=2, default=float)
+    print(f"analyzed {len(report)} dumps -> {report_path}")
+
+
+def cmd_viz(args):
+    """The core's and the head's module trees with parameter counts, and a
+    graphviz DOT of the core's flax parameter tree (the JAX CLI's
+    ``cmd_viz``; reference evidential/visu.py)."""
+    import os
+
+    from .models.convert import (
+        UnreadableCheckpoint,
+        load_reference_checkpoint,
+        params_to_jax,
+        read_orbax,
+    )
+    from .models.network import AARMVSNetCore
+    from .utils.visualize import model_graph_dot, model_summary
+
+    os.makedirs(args.out, exist_ok=True)
+    summary_path = os.path.join(args.out, "model_summary.txt")
+    with open(summary_path, "w") as f:
+        f.write(model_summary(maxdisp=args.maxdisp))
+
+    try:
+        if args.loadckpt and os.path.isdir(args.loadckpt):
+            tree = read_orbax(args.loadckpt)  # graphed as it is, as JAX does
+        else:
+            import torch
+
+            model = AARMVSNetCore(generator=torch.Generator().manual_seed(0))
+            if args.loadckpt:
+                load_reference_checkpoint(model, args.loadckpt)
+            tree = params_to_jax(model.state_dict())
+    except UnreadableCheckpoint as exc:
+        raise SystemExit(f"--loadckpt {exc}") from exc
+    dot_path = os.path.join(args.out, "model_graph.dot")
+    with open(dot_path, "w") as f:
+        f.write(model_graph_dot(tree))
+    print(f"wrote {summary_path} and {dot_path}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="aa_rmvsnet_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_eval(sub)
     _add_fuse(sub)
     _add_train(sub)
+    _add_convert(sub)
+    _add_analyze(sub)
     _add_quality(sub)
-    for name in NOT_PORTED_COMMANDS:
-        sub.add_parser(name, help="not ported yet")
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED_COMMANDS:
-        raise SystemExit(f"{argv[0]}: not ported yet to aa_rmvsnet_tpu_torch")
+    _add_viz(sub)
     args = parser.parse_args(argv)
-    {"eval": cmd_eval, "fuse": cmd_fuse, "quality": cmd_quality,
-     "train": cmd_train}[args.cmd](args)
+    from .utils.optional import MissingPackage
+
+    try:
+        {"eval": cmd_eval, "fuse": cmd_fuse, "train": cmd_train, "convert": cmd_convert,
+         "analyze": cmd_analyze, "quality": cmd_quality, "viz": cmd_viz}[args.cmd](args)
+    except MissingPackage as exc:
+        raise SystemExit(f"{args.cmd}: {exc}") from exc
 
 
 if __name__ == "__main__":

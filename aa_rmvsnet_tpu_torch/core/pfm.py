@@ -52,6 +52,28 @@ def read_pfm(path) -> tuple[np.ndarray, float]:
     return np.flipud(data.reshape(shape)).astype(np.float32), scale
 
 
+def read_pf(path) -> np.ndarray | None:
+    """Read a ``Pic98::TPlane<float>`` .PF image (reference: pfm_viewer.py:7-34).
+
+    Text header with ``Typ=Pic98::TPlane<float>``, ``Lines=``/``Columns=``
+    fields; payload is little-endian float32 taken from the end of the file.
+    Returns None if the header does not match.
+    """
+    import re
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if not re.match(rb"Typ=Pic98::TPlane<float>", data):
+        return None
+    lines = re.search(rb"Lines=(\d+)", data)
+    cols = re.search(rb"Columns=(\d+)", data)
+    if not (lines and cols):
+        return None
+    height, width = int(lines.group(1)), int(cols.group(1))
+    payload = data[-4 * height * width:]
+    return np.frombuffer(payload, dtype="<f4").reshape(height, width).copy()
+
+
 def save_pfm(path, image: np.ndarray, scale: float = 1.0) -> None:
     """Write ``image`` (``(H, W)``, ``(H, W, 1)`` or ``(H, W, 3)`` float32) as PFM."""
     image = np.asarray(image)

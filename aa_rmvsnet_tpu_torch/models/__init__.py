@@ -17,6 +17,8 @@ from .convert import (
     load_evidential_checkpoint,
     load_reference_checkpoint,
     params_from_jax,
+    params_to_jax,
+    read_orbax,
 )
 from .evidential import EvidentialHead, evidential_apply
 from .init import init_like_jax
@@ -33,8 +35,10 @@ __all__ = [
     "load_evidential_checkpoint",
     "load_reference_checkpoint",
     "params_from_jax",
+    "params_to_jax",
     "pick_depth_block",
     "pick_packed_rows",
     "probability_volume",
+    "read_orbax",
     "sweep",
 ]

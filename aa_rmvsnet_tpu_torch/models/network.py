@@ -52,6 +52,7 @@ per map.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -588,8 +589,11 @@ def sweep(
         # Online WTA, one block at a time: argmax keeps the first maximum in
         # the block and the strict > the earlier block on ties, as the
         # reference's running argmax does.  No gradient flows through depth
-        # or confidence.
-        with record_function("sweep.wta"), torch.no_grad():
+        # or confidence.  Where no graph is recorded (inference, export) no
+        # grad-mode switch is entered: an exported program records each one,
+        # and splitting the graph at them doubles the export's time.
+        no_grad = torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext()
+        with record_function("sweep.wta"), no_grad:
             for i in range(pack):
                 sub = costs[i * block:(i + 1) * block]
                 dblock = dsuper[:, i * block:(i + 1) * block]

@@ -20,6 +20,15 @@ main path went through the kernels.  ``lstm_gates_backward`` is the
 backward kernel's own wrapper, for callers that time or check it alone.
 Where there is no graph to record (inference), the forward skips the
 ``Function``, whose host cost is a large share of a small cell's call.
+
+Both directions are also registered as ``torch.library`` custom ops,
+``torch.ops.aa_rmvsnet_torch.lstm_gates`` and ``lstm_gates_backward``, with
+fake implementations and the forward's autograd formula, so that
+``torch.export`` and ``torch.compile`` keep the kernel as one node of their
+graph (tracing cannot follow a ctypes launch on ``data_ptr()``).  Their
+CPU implementations are the plain versions, their CUDA ones the launches
+above.  :func:`lstm_gates` goes through the op only while it is traced:
+the dispatcher's host cost would add to every eager call.
 """
 
 from __future__ import annotations
@@ -218,6 +227,54 @@ class LSTMGates(torch.autograd.Function):
         return lstm_gates_backward(z, c, dh.contiguous(), dc_next.contiguous())
 
 
+@torch.library.custom_op("aa_rmvsnet_torch::lstm_gates", mutates_args=(), device_types="cpu")
+def lstm_gates_op(z: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gate forward as a custom op: the plain version on the CPU, the
+    kernel on CUDA (registered below)."""
+    return lstm_gates_reference(z, c)
+
+
+@torch.library.custom_op("aa_rmvsnet_torch::lstm_gates_backward", mutates_args=(),
+                         device_types="cpu")
+def lstm_gates_backward_op(z: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
+                           dc_next: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gate backward as a custom op, as :func:`lstm_gates_op`."""
+    return lstm_gates_backward_reference(z, c, dh, dc_next)
+
+
+lstm_gates_op.register_kernel("cuda")(_forward)
+lstm_gates_backward_op.register_kernel("cuda")(lstm_gates_backward)
+
+
+@lstm_gates_op.register_fake
+def _(z, c):
+    if z.dim() != 4 or c.dim() != 4 or z.shape[1] != 4 * c.shape[1] or z.dtype != c.dtype:
+        raise ValueError(f"lstm_gates: z {tuple(z.shape)} {z.dtype} must be "
+                         f"(B, 4*hidden, H, W) for c {tuple(c.shape)} {c.dtype}")
+    return torch.empty_like(c), torch.empty_like(c)
+
+
+@lstm_gates_backward_op.register_fake
+def _(z, c, dh, dc_next):
+    return torch.empty_like(z), torch.empty_like(c)
+
+
+def _save_gate_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _gate_op_backward(ctx, dh, dc_next):
+    # As LSTMGates: the activations are recomputed from (z, c), and a
+    # missing cotangent is zeros.
+    z, c = ctx.saved_tensors
+    dh = torch.zeros_like(c) if dh is None else dh.contiguous()
+    dc_next = torch.zeros_like(c) if dc_next is None else dc_next.contiguous()
+    return lstm_gates_backward_op(z, c, dh, dc_next)
+
+
+lstm_gates_op.register_autograd(_gate_op_backward, setup_context=_save_gate_inputs)
+
+
 def lstm_gates(z: torch.Tensor, c: torch.Tensor):
     """Fused gate math, differentiable in ``z`` and ``c``.
 
@@ -229,6 +286,8 @@ def lstm_gates(z: torch.Tensor, c: torch.Tensor):
       ``(h_next, c_next)``, both shaped and typed like ``c``.  On CUDA the
       math runs in fp32 for fp32 or bf16 storage, forward and backward.
     """
+    if torch.compiler.is_compiling():  # torch.export or torch.compile
+        return lstm_gates_op(z, c)
     if torch.is_grad_enabled() and (z.requires_grad or c.requires_grad):
         return LSTMGates.apply(z, c)
     return _forward(z, c)  # no graph to record: skip the Function's host cost

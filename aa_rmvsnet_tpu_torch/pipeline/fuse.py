@@ -26,7 +26,9 @@ The reproject-and-vote runs on the card, in the kernel of
 the JAX package's C++ core (``native/fusion_core.cpp``); on the CPU its
 plain version gives the same bits.  The JAX package's second path (numpy
 and ``cv2.remap``, ``FuseConfig(use_native=False)``), which quantises the
-sample coordinates to 1/32 px, is not ported.  Everything after decoding
+sample coordinates to 1/32 px and which it takes only where its C++ core
+is not built, is refused: the port has the core's arithmetic on every
+device.  Everything after decoding
 runs as torch ops on the fusion device, the ``cv2`` image operations
 included (``ops/image.py``); ``cv2`` is imported only to read JPEGs and to
 show or write masks.  :func:`fuse_views` is the in-memory entry point;
@@ -59,7 +61,7 @@ class FuseConfig:
     rel_diff_base: float = 1300.0  # level-i relative depth threshold = i / base
     num_levels: int = 9  # graduated levels i in [2, 2+num_levels)
     num_workers: int = 8  # threads reading the scene's files
-    use_native: bool = True  # the C++ core's arithmetic; False is not ported
+    use_native: bool = True  # the C++ core's arithmetic; False is refused
     device: str = "cuda"
 
 
@@ -195,8 +197,10 @@ def fuse_views(depths: dict, confidences: dict, images: dict, cams: dict, pairs,
     """
     if not config.use_native:
         raise NotImplementedError(
-            "FuseConfig(use_native=False) (the numpy/cv2.remap path) is not ported yet "
-            "to aa_rmvsnet_tpu_torch; the port fuses with the C++ core's arithmetic")
+            "FuseConfig(use_native=False): the port has no numpy/cv2.remap fusion path. "
+            "It computes the C++ core's arithmetic on every device (the kernel on the "
+            "card, its plain version on the CPU); the JAX package takes that path only "
+            "where its C++ core is not built")
     dev = resolve_device(config.device)
 
     def crop(a):

@@ -6,6 +6,7 @@ one map at a time)::
     <out_root>/<scan>/depth_est_0/<ref_view:08d>.pfm
     <out_root>/<scan>/confidence_0/<ref_view:08d>.pfm
     [<out_root>/<scan>/{aleatoric_0,epistemic_0}/<ref_view:08d>.pfm]
+    [<out_root>/<scan>/<family>_png_0/<ref_view:08d>.png]  (save_png_previews)
 
 By default the depth map is the winner-take-all depth of the core network
 and the sweep runs with ``collect_volume=False``, so device memory stays
@@ -66,7 +67,9 @@ class InferConfig:
     ``depth_source``: ``"wta"`` writes the core's winner-take-all depth,
     ``"evidential"`` the head's gamma (it needs a head).
     ``feature_view_chunk``: FeatNet views per batch, 0 for all at once
-    (:class:`..models.network.SweepConfig`)."""
+    (:class:`..models.network.SweepConfig`).
+    ``save_png_previews``: a colour-mapped PNG beside every PFM
+    (:func:`save_outputs`; matplotlib on the host)."""
 
     out_root: str
     depth_block: int = 8
@@ -84,17 +87,32 @@ class InferConfig:
     evidential: Any = None  # EvidentialHead | None
     depth_source: str = "wta"  # "wta" | "evidential"
     feature_view_chunk: int = 0
+    save_png_previews: bool = False
 
 
 def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
-                 confidence: np.ndarray, uncertainty: dict | None = None) -> None:
+                 confidence: np.ndarray, uncertainty: dict | None = None,
+                 save_png: bool = False) -> None:
     """Write the depth and confidence PFMs of one map, and one PFM per
-    entry of ``uncertainty`` (family name -> map, e.g. ``aleatoric_0``)."""
+    entry of ``uncertainty`` (family name -> map, e.g. ``aleatoric_0``).
+    With ``save_png``, also a preview of each family in
+    ``<family>_png_0`` (``depth_est_0``'s in ``depth_png_0``), as the JAX
+    package writes them (reference eval.py:158-160): depth in the inverted
+    jet colour map, the others normalised to their range."""
     name = f"{ref_view:08d}"
     maps = {"depth_est_0": depth, "confidence_0": confidence, **(uncertainty or {})}
     for family, arr in maps.items():
         os.makedirs(os.path.join(out_dir, family), exist_ok=True)
         save_pfm(os.path.join(out_dir, family, name + ".pfm"), arr.astype(np.float32))
+    if save_png:
+        from ..utils.visualize import save_depth_png
+
+        for family, arr in maps.items():
+            png_dir = os.path.join(out_dir, "depth_png_0" if family == "depth_est_0"
+                                   else family.replace("_0", "_png_0"))
+            os.makedirs(png_dir, exist_ok=True)
+            save_depth_png(os.path.join(png_dir, name + ".png"), arr,
+                           mode="depth" if family == "depth_est_0" else "relative")
 
 
 def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfig:
@@ -247,7 +265,8 @@ def run_inference(
                     depth = gamma
 
             save_outputs(os.path.join(config.out_root, sample["scan"]),
-                         sample["ref_view"], depth, conf, uncertainty)
+                         sample["ref_view"], depth, conf, uncertainty,
+                         config.save_png_previews)
             map_seconds.append(dt)
             modes.append(mode)
             if progress:

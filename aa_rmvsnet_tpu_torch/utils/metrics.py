@@ -1,10 +1,11 @@
 """Depth-map quality metrics on tensors (port of
-``threshold_error_rate``, ``abs_depth_error`` and ``MeterDict`` in
-``aa_rmvsnet_tpu/utils/metrics.py``; reference utils.py:102-175).
+``aa_rmvsnet_tpu/utils/metrics.py``; reference utils.py:102-175 and
+statistics.py:11-16).
 
-Both metrics are masked means over the batch: the share of valid pixels
-whose error exceeds ``threshold`` (evaluated at 2/4/8/16/32 mm during
-validation), and the masked mean absolute error.
+The error metrics are masked means over the batch: the share of valid
+pixels whose error exceeds ``threshold`` (evaluated at 2/4/8/16/32 mm
+during validation) or ``k`` depth intervals, and the masked mean absolute
+error.  ``std_prob`` is the probability volume's spread over depth.
 """
 
 from __future__ import annotations
@@ -25,6 +26,25 @@ def abs_depth_error(depth_est: torch.Tensor, depth_gt: torch.Tensor,
     return (torch.abs(depth_est - depth_gt) * valid).sum() / valid.sum().clamp(min=1)
 
 
+def std_prob(prob_volume: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Standard deviation of the probability volume over the depth axis, a
+    cheap confidence proxy (reference statistics.py:11-16); the population
+    deviation, as ``jnp.std``."""
+    return torch.std(prob_volume, dim=dim, correction=0)
+
+
+def interval_threshold_error_rate(depth_est: torch.Tensor, depth_gt: torch.Tensor,
+                                  mask: torch.Tensor, depth_interval: torch.Tensor,
+                                  threshold_in_intervals: float) -> torch.Tensor:
+    """Share of valid pixels with ``|err| > k * depth_interval``, one
+    interval per sample (``(B,)``), the reference's interval-relative
+    variant (utils.py ``Thres_metrics_tfversion``)."""
+    tau = depth_interval * threshold_in_intervals
+    valid = mask > 0.5
+    bad = (torch.abs(depth_est - depth_gt) > tau[..., None, None]) & valid
+    return bad.sum() / valid.sum().clamp(min=1)
+
+
 class MeterDict:
     """Running mean of scalar metric dicts (values: 0-d tensors or numbers)."""
 
@@ -39,3 +59,7 @@ class MeterDict:
 
     def mean(self) -> dict:
         return {k: v / max(self._count, 1) for k, v in self._sums.items()}
+
+    @property
+    def count(self) -> int:
+        return self._count

@@ -19,8 +19,11 @@ Phases, each printing a line; any failure exits non-zero:
    and the kernel's bound per depth step, in fp32 and in bf16 (the
    inference main path's type); kernel and library-call times of one fp32
    depth step at the ``dtu_train`` cell shapes (128x160) with the inputs
-   cold in device memory (launch-bound there, so no bound share); and the
-   host's cost per call of the wrapper and of the library call;
+   cold in device memory (launch-bound there, so no bound share); the
+   registered custom op (``torch.ops.aa_rmvsnet_torch.lstm_gates``, the
+   path of a traced program) on a cell, equal to the wrapper bit for bit
+   with one launch; and the host's cost per call of the wrapper, of the
+   custom op and of the library call;
 3b. backward kernel vs plain: the same for the ConvLSTM gate-backward
    kernel, fp32 (atol 1e-5) and bf16 (atol 5e-2), its times in fp32;
 4. CUDA vs CPU: the whole ``forward`` at 64x80, V=3, D=48 on both devices
@@ -136,17 +139,34 @@ Phases, each printing a line; any failure exits non-zero:
    2^24 operand pairs; its time per reference view against its bound;
 7b. a 49-view scan fused in memory (``fuse_views``), one kernel launch per
    reference view;
-7c. depth maps, fusion and quality end to end on a plane.
+7c. depth maps, fusion and quality end to end on a plane;
+8. export (``utils/export.py``): ``export_forward`` of seeded weights at the
+   JAX package's export defaults ((1, 3, 64, 80, 3), D=16, depth block 8,
+   fp32, unpacked) on a plane scene, its graph holding the gate kernel as
+   the custom op ``aa_rmvsnet_torch::lstm_gates`` 5 x D times and no
+   ``tanh``; the exported program run on the card, with exactly 5 x D
+   gate-kernel launches, against eager ``forward`` on the same inputs
+   (depth and confidence bit for bit; failing that, held to the card's
+   bars, depth equal on >= 99.9 % of pixels and confidence 1e-4, with the
+   differences printed); the serialised program written, loaded with
+   ``load_and_call`` and equal to the program it came from; the same for
+   ``export_evidential`` of a seeded head at (1, 32, 64, 80), maxdisp 32,
+   held to eager at the head's CPU bars, and its round trip through
+   ``save_exported_evidential`` held to the program at the same bars
+   (cuDNN's transposed 3D convolutions may sum in another order from one
+   call to the next: eager run twice is printed beside them).
 
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
-``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d, 6
-and 6b);
+``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d, 6,
+6b, 7c and 8);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
 ``dtu_train`` depth step, and ``host_us_per_call`` and
-``library_host_us_per_call`` the host's cost of one call.  Device times
+``library_host_us_per_call`` the host's cost of one call (the forward's
+``op_host_us_per_call`` that of the registered custom op, which only a
+traced program calls).  Device times
 come from CUDA events around runs queued behind a sleep on the device
 (``dtu_eval`` shapes) or a 1 GiB write (``dtu_train`` shapes), so that they
 time the device and not the host.  The last line is
@@ -213,6 +233,11 @@ DIVISION_PAIRS = 1 << 24
 # The chain: run_inference, fusion and quality on a plane scene at 864x1152,
 # 4 maps, D cut from 512 to 128 at 2.5 a step, with matching_model weights.
 CHAIN_MAPS, CHAIN_D, CHAIN_DEPTH_MIN, CHAIN_INTERVAL = 4, 128, 440.0, 2.5
+# Export (phase 8) at the JAX package's export defaults: the forward at
+# (1, 3, 64, 80, 3), D=16, depth block 8, fp32, unpacked; the head at
+# (1, 32, 64, 80), maxdisp 32.
+EXPORT_SHAPE, EXPORT_D, EXPORT_BLOCK = (1, 3, 64, 80, 3), 16, 8
+EXPORT_HEAD_SHAPE, EXPORT_MAXDISP = (1, 32, 64, 80), 32
 # The H100 SXM's float64 rate outside the tensor cores (NVIDIA's data
 # sheet), the fusion kernel's operations bound.  The rate counts an FMA as
 # two operations: 64 FMA lanes an SM x 2 x 132 SMs x ~1.98 GHz.
@@ -458,11 +483,23 @@ def phase_kernel() -> dict:
         train_library_ms_again = device_ms(train_library_step, flush)
         del flush
 
-        # The host's cost of one call at the smallest dtu_train cell.
+        # The custom op a traced program calls: the same kernel, one launch.
         small, small_lib = train_inputs[2], train_lib_inputs[2]
+        before = gates.launches
+        h_op, c_op = gates.lstm_gates_op(*small)
+        torch.cuda.synchronize()
+        h_w, c_w = gates.lstm_gates(*small)
+        if gates.launches - before != 2 or not (torch.equal(h_op, h_w)
+                                                and torch.equal(c_op, c_w)):
+            _fail(f"the custom op and the wrapper launched {gates.launches - before} "
+                  "kernels for a call each, or they disagree")
+
+        # The host's cost of one call at the smallest dtu_train cell, in turns.
         host_us = [_host_us(lambda: gates.lstm_gates(*small))]
+        op_host_us = [_host_us(lambda: gates.lstm_gates_op(*small))]
         library_host_us = [_host_us(lambda: _library_gates(*small_lib))]
         library_host_us.append(_host_us(lambda: _library_gates(*small_lib)))
+        op_host_us.append(_host_us(lambda: gates.lstm_gates_op(*small)))
         host_us.append(_host_us(lambda: gates.lstm_gates(*small)))
 
     train_elems = sum(B * h * H * W for B, h, H, W in train_cells)
@@ -472,9 +509,12 @@ def phase_kernel() -> dict:
           f"{train_ms * 1e3 / 5:.2f} us a launch; library {train_library_ms * 1e3:.2f} us "
           f"(again {train_library_ms_again * 1e3:.2f}), {train_library_ms * 1e3 / 5:.2f} us "
           "a launch; launch-bound at these shapes, so no bound share", flush=True)
+    print(f"kernel: custom op aa_rmvsnet_torch::lstm_gates on {train_cells[2]}: equal to "
+          "the wrapper bit for bit, one launch", flush=True)
     print(f"kernel: host cost per call at {train_cells[2]}, 1000 calls, no sync, no "
           f"autograd graph: wrapper gates.lstm_gates {host_us[0]:.2f}, {host_us[1]:.2f} us; "
-          f"library call {library_host_us[0]:.2f}, {library_host_us[1]:.2f} us", flush=True)
+          f"custom op {op_host_us[0]:.2f}, {op_host_us[1]:.2f} us; library call "
+          f"{library_host_us[0]:.2f}, {library_host_us[1]:.2f} us", flush=True)
     fp32, bf16 = times[torch.float32], times[torch.bfloat16]
     return {
         "name": "lstm_gates",
@@ -489,6 +529,7 @@ def phase_kernel() -> dict:
         "ms_train_shapes": train_ms,
         "library_ms_train_shapes": train_library_ms,
         "host_us_per_call": min(host_us),
+        "op_host_us_per_call": min(op_host_us),
         "library_host_us_per_call": min(library_host_us),
     }
 
@@ -1779,6 +1820,116 @@ def phase_chain() -> tuple[int, int]:
     return launches, fused_launches
 
 
+def _held_to(name: str, got: dict, want: dict, bars: dict) -> str:
+    """The verdict on ``got`` against ``want``: bit for bit where they are
+    equal on every key of ``bars``, else each key's difference, failing
+    past its bar (``depth``: the least share of equal pixels; the others:
+    max_abs_err)."""
+    if all(torch.equal(got[k], want[k]) for k in bars):
+        return "bit for bit"
+    notes = []
+    for key, bar in bars.items():
+        if key == "depth":
+            share = (got[key] == want[key]).float().mean().item()
+            ok, note = share >= bar, f"depth equal on {share:.4%} (bar {bar:.1%})"
+        else:
+            err = (got[key] - want[key]).abs().max().item()
+            ok, note = err <= bar, f"{key} max_abs_err {err:.3e} (bar {bar:g})"
+        notes.append(note)
+        if not ok:
+            _fail(f"{name}: {note}")
+    return "within the bars, not bit for bit: " + ", ".join(notes)
+
+
+def phase_export() -> int:
+    from aa_rmvsnet_tpu_torch.models import SweepConfig, evidential_apply, forward
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.utils.export import (
+        export_evidential,
+        export_forward,
+        load_and_call,
+        save_exported_evidential,
+    )
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene, seeded_head, seeded_model
+
+    # A plane scene at the export shape, 16 hypotheses 2.5 apart around it.
+    _, V, H, W, _ = EXPORT_SHAPE
+    (sample,) = plane_scene(H, W, V, EXPORT_D, maps=1, seed=SEED + 2, focal=400.0,
+                            baseline=2.0, plane_depth=500.0, depth_min=480.0,
+                            depth_interval=2.5)
+    imgs, proj, depths = (torch.from_numpy(sample[k])[None].cuda()
+                          for k in ("imgs", "proj_matrices", "depth_values"))
+    model = seeded_model(SEED)
+    gates.launches = 0
+    t0 = time.perf_counter()
+    data, program = export_forward(model, EXPORT_SHAPE, EXPORT_D, EXPORT_BLOCK)
+    export_s = time.perf_counter() - t0
+    traced_launches = gates.launches
+    targets = [node.target for node in program.graph.nodes if node.op == "call_function"]
+    n_op = sum(t is torch.ops.aa_rmvsnet_torch.lstm_gates.default for t in targets)
+    n_tanh = sum("tanh" in str(t) for t in targets)
+    if n_op != 5 * EXPORT_D or n_tanh or traced_launches:
+        _fail(f"the exported forward holds {n_op} gate ops (expected {5 * EXPORT_D}) and "
+              f"{n_tanh} tanh nodes (expected 0); tracing launched {traced_launches} kernels")
+
+    with torch.no_grad():
+        eager = forward(model, imgs, proj, depths,
+                        SweepConfig(depth_block=EXPORT_BLOCK, collect_volume=False))
+        module = program.module()
+        gates.launches = 0
+        exported = module(imgs, proj, depths)
+        torch.cuda.synchronize()
+        launches = gates.launches
+    if launches != 5 * EXPORT_D:
+        _fail(f"the exported forward launched the gate kernel {launches} times, not "
+              f"5 x {EXPORT_D}")
+    verdict = _held_to("exported forward", exported, eager,
+                       {"depth": 0.999, "photometric_confidence": 1e-4})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "forward.pt2")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        loaded = load_and_call(path, model, imgs, proj, depths)
+        load_s = time.perf_counter() - t0
+    if not all(torch.equal(loaded[k], exported[k]) for k in exported):
+        _fail("the loaded forward disagrees with the program it was saved from")
+    print(f"export: forward at {EXPORT_SHAPE}, D={EXPORT_D}, depth block {EXPORT_BLOCK}, fp32, "
+          f"unpacked: exported and serialised in {export_s:.1f} s ({len(data) / 2**20:.1f} MiB, "
+          f"{len(targets)} call nodes, {n_op} aa_rmvsnet_torch::lstm_gates, no tanh); run on "
+          f"the card with {launches} gate kernel launches (= 5 x {EXPORT_D}); against eager "
+          f"forward: {verdict}; written, loaded and called (load_and_call) in {load_s:.1f} s, "
+          "equal to the program", flush=True)
+
+    head = seeded_head(SEED)
+    B, D, H, W = EXPORT_HEAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cost = 3.0 * torch.randn(EXPORT_HEAD_SHAPE, device="cuda", generator=gen)
+    dvals = (MAIN_DEPTH_MIN + 2.75 * torch.arange(D, device="cuda", dtype=torch.float32))[None]
+    t0 = time.perf_counter()
+    _, head_program = export_evidential(head, EXPORT_HEAD_SHAPE, EXPORT_MAXDISP)
+    head_export_s = time.perf_counter() - t0
+    with torch.no_grad():
+        eager = evidential_apply(head, cost, dvals)
+        eager_again = evidential_apply(head, cost, dvals)
+        exported = head_program.module()(cost, dvals)
+    verdict = _held_to("exported head", exported, eager, EV_BARS)
+    repeat = _held_to("eager head run twice", eager_again, eager, EV_BARS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "head.pt2")
+        nbytes = save_exported_evidential(path, head, input_shape=EXPORT_HEAD_SHAPE,
+                                          maxdisp=EXPORT_MAXDISP)
+        loaded = load_and_call(path, head, cost, dvals)
+    # Not held bit for bit: cuDNN's transposed 3D convolutions may sum in
+    # another order from one call to the next.
+    round_trip = _held_to("loaded head", loaded, exported, EV_BARS)
+    print(f"export: evidential head at {EXPORT_HEAD_SHAPE}, maxdisp {EXPORT_MAXDISP}, seeded "
+          f"weights: exported and serialised in {head_export_s:.1f} s; against eager: "
+          f"{verdict}; save_exported_evidential ({nbytes / 2**20:.1f} MiB) and load_and_call "
+          f"against the program: {round_trip}; eager run twice: {repeat}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -1816,6 +1967,7 @@ def main() -> int:
     fusion = phase_fusion_kernel()
     fusion["launches"] = phase_fusion_scan()
     chain_launches, chain_fused = phase_chain()
+    export_launches = phase_export()
     fusion["launches_by_path"] = {"fusion_scan": fusion["launches"], "chain": chain_fused}
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
@@ -1823,13 +1975,14 @@ def main() -> int:
                                    "inference_levers": levers_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches,
-                                   "chain": chain_launches}
+                                   "chain": chain_launches,
+                                   "export": export_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
                                     "inference_levers": 0,
                                     "training": backward["launches"],
                                     "training_evidential": train_ev_backward,
-                                    "chain": 0}
+                                    "chain": 0, "export": 0}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [forward, backward, fusion]}), flush=True)
     print(json.dumps({"ok": True, "device": {

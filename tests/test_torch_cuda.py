@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-ConvLSTM gate kernels and the fusion's reproject-and-vote (and its
-division against IEEE division).
+ConvLSTM gate kernels (also through their registered custom ops) and the
+fusion's reproject-and-vote (and its division against IEEE division).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports nothing of JAX, so it also runs on a machine
@@ -132,6 +132,27 @@ def test_backward_kernel_scalar_path_matches_plain(case, dtype):
     torch.testing.assert_close(dz.float(), dz_p.float(), atol=atol, rtol=0)
     torch.testing.assert_close(dc.float(), dc_p.float(), atol=atol, rtol=0)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(_FORWARD_DTYPES))
+def test_gate_op_launches_the_kernel(dtype):
+    """The registered custom ops (``torch.ops.aa_rmvsnet_torch.lstm_gates``
+    and ``lstm_gates_backward``, what an exported or compiled program calls)
+    on CUDA tensors launch the kernels once a call and match the plain
+    versions at the kernels' bars."""
+    _card()
+    dtype, bar = _FORWARD_DTYPES[dtype]
+    z, c, dh, dcn = _inputs(16, dtype, seed=7)
+    before, before_bwd = gates.launches, gates.backward_launches
+    out = torch.ops.aa_rmvsnet_torch.lstm_gates(z, c)
+    grads = torch.ops.aa_rmvsnet_torch.lstm_gates_backward(z, c, dh, dcn)
+    torch.cuda.synchronize()
+    assert (gates.launches, gates.backward_launches) == (before + 1, before_bwd + 1)
+    for got, want in zip(out, gates.lstm_gates_reference(z, c)):
+        assert (got.float() - want.float()).abs().max().item() <= bar
+    bwd_bar = _DTYPES[str(dtype).removeprefix("torch.")][1]
+    for got, want in zip(grads, gates.lstm_gates_backward_reference(z, c, dh, dcn)):
+        assert (got.float() - want.float()).abs().max().item() <= bwd_bar
 
 @pytest.mark.cuda
 def test_launch_counters_move_by_one_per_call():

@@ -354,7 +354,9 @@ def test_inference_with_head_matches_jax(scene_outputs, source, family):
 
 @pytest.mark.parametrize("flags,message", [
     (["--depth_source", "evidential"], "--depth_source evidential requires --evidential_ckpt"),
-    (["--evidential_ckpt", TRAINED_HEAD], "not ported yet"),
+    # checkpoints/ holds an orbax directory but is none itself.
+    (["--evidential_ckpt", os.path.dirname(TRAINED_HEAD)],
+     "--evidential_ckpt .*neither a torch .ckpt nor an orbax checkpoint directory"),
 ])
 def test_cli_refuses(tmp_path, flags, message):
     with pytest.raises(SystemExit, match=message):

@@ -211,7 +211,7 @@ def test_empty_view_block_writes_an_empty_cloud(tmp_path):
 def test_use_native_false_and_cuda_without_a_card_are_refused(tmp_path):
     scene, out_dir, _, _ = _noisy(tmp_path)
     path = str(tmp_path / "x.ply")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="no numpy/cv2.remap fusion path"):
         fuse.fuse_scan(scene, out_dir, path, fuse.FuseConfig(use_native=False, device="cpu"))
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -211,7 +211,8 @@ def test_port_imports_no_jax(tmp_path):
         wanted = [
             "models.losses", "utils.metrics", "utils.logging", "data.dtu",
             "pipeline.checkpoint", "pipeline.train", "pipeline.fuse", "ops.fusion",
-            "ops.image", "core.ply", "utils.quality",
+            "ops.image", "core.ply", "utils.quality", "models.convert", "utils.export",
+            "utils.analysis", "utils.visualize", "data.validate", "tools.bench",
         ]
         print("MISSING", [m for m in wanted
                           if "aa_rmvsnet_tpu_torch." + m not in sys.modules])

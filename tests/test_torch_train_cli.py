@@ -179,7 +179,8 @@ def test_cli_train_warm_starts_the_head(dtu_tree, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--evidential", "--head_ckpt", TRAINED_HEAD], "--head_ckpt .*not ported yet"),
+    (["--evidential", "--head_ckpt", os.path.dirname(TRAINED_HEAD)],
+     "--head_ckpt .*neither a torch .ckpt nor an orbax checkpoint directory"),
     (["--head_ckpt", "head.ckpt"], "--head_ckpt needs --evidential"),
     (["--maxdisp", "8"], "--maxdisp needs --evidential"),
 ])
