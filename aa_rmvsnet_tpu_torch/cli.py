@@ -34,9 +34,14 @@ warp wherever its exactness gate passes and the fused squared residual;
 quantized levers (``--fp8_tables``, ``--int8_tables``, ``--fp8_residual``,
 ``--int8_residual``, ``--dual_residual``) are approximate and opt-in; the
 JAX package's production stack is ``--int8_tables --dual_residual
---gather_pack 2 --table_taps 6``.  ``train`` runs in fp32.  The JAX CLI's
-multi-device flags are accepted by the parser only to fail with "not
-ported yet".
+--gather_pack 2 --table_taps 6``.  ``train`` runs in fp32; with
+``--coordinator host:port --num_processes N --process_id k`` it trains data
+parallel across N processes on ``torch.distributed`` (one card each, NCCL;
+gloo with ``--device cpu``), ``--batch_size`` per process, as the JAX CLI
+does, and ``--single_device`` makes each process step alone on its shard.
+The JAX CLI's other multi-device flags (``eval --fanout --spatial
+--depth_stages --pipeline_maps``, ``train --spatial``) are accepted by the
+parser only to fail with "not ported yet".
 """
 
 from __future__ import annotations
@@ -48,11 +53,9 @@ import argparse
 NOT_PORTED = ("fanout", "spatial", "depth_stages", "pipeline_maps")
 
 
-#: JAX ``train`` flags the port does not implement yet (multi-process and
-#: multi-device layouts).
-NOT_PORTED_TRAIN = (
-    "coordinator", "num_processes", "process_id", "spatial", "single_device",
-)
+#: JAX ``train`` flags the port does not implement yet (the spatial mesh
+#: axis).
+NOT_PORTED_TRAIN = ("spatial",)
 
 
 def _fold_omega_arg(s: str):
@@ -211,6 +214,13 @@ def _add_train(sub):
                    help="the head's depth hypotheses (default 32; needs --evidential)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails where there is no card")
+    # Data-parallel training across processes, one per card (or on the CPU):
+    # torch.distributed, NCCL on cards and gloo with --device cpu.
+    p.add_argument("--coordinator", help="host:port of process 0 (multi-process)")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--single_device", action="store_true",
+                   help="no mesh: each process steps alone on its data shard")
     _add_not_ported(p, NOT_PORTED_TRAIN)
     return p
 
@@ -456,19 +466,66 @@ def cmd_quality(args):
     print(json.dumps(metrics, indent=2))
 
 
+def check_global_batch(batch_size: int, num_processes: int, data_size: int,
+                       num_devices: int, spatial: int = 1) -> None:
+    """The JAX CLI's refusal of a global batch (``batch_size`` per process
+    times the processes) that the mesh's data axis does not divide.  The
+    port runs one process per card, so its data axis is the process count
+    and divides every global batch; the check stays for the mesh's sake."""
+    global_batch = batch_size * num_processes
+    if global_batch % data_size:
+        raise SystemExit(
+            f"global batch {global_batch} (= {batch_size} x {num_processes} "
+            f"processes) must be divisible by the data mesh axis "
+            f"({data_size} = {num_devices} devices / spatial {spatial})"
+        )
+
+
+def _check_processes(args) -> None:
+    """The multi-process flags, refused by name where they cannot work."""
+    if args.num_processes < 1:
+        raise SystemExit(f"--num_processes {args.num_processes}: must be at least 1")
+    if not 0 <= args.process_id < args.num_processes:
+        raise SystemExit(f"--process_id {args.process_id}: must be in "
+                         f"[0, --num_processes {args.num_processes})")
+    if args.num_processes > 1 and not args.coordinator:
+        raise SystemExit(f"--num_processes {args.num_processes} needs --coordinator host:port")
+    if args.coordinator is not None and ":" not in args.coordinator:
+        raise SystemExit(f"--coordinator {args.coordinator!r}: must be host:port")
+
+
 def cmd_train(args):
     _refuse_not_ported(args, NOT_PORTED_TRAIN)
     if not args.evidential:
         given = [f"--{n}" for n in ("head_ckpt", "maxdisp") if getattr(args, n) is not None]
         if given:
             raise SystemExit(f"{', '.join(given)} needs --evidential")
+    _check_processes(args)
 
     import torch
+
+    from .parallel.mesh import initialize_distributed
+
+    # Before the first device query, as the JAX CLI's (a no-op for one
+    # process): gloo for CPU ranks, NCCL for cards.
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                           backend="gloo" if torch.device(args.device).type == "cpu" else None)
+    try:
+        _train(args)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args):
+    import torch
+    import torch.distributed as dist
 
     from .data.dtu import DTUTrainDataset
     from .models.convert import load_evidential_checkpoint, load_reference_checkpoint
     from .models.evidential import EvidentialHead
     from .models.network import AARMVSNetCore
+    from .parallel.mesh import local_mesh, make_mesh
     from .pipeline.train import TrainConfig, run_training
     from .utils.config import train_preset
 
@@ -506,8 +563,21 @@ def cmd_train(args):
     model = AARMVSNetCore()
     if cfg.loadckpt:
         _load("--loadckpt", load_reference_checkpoint, model, cfg.loadckpt)
+
+    nproc = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = None
+    if args.single_device:
+        if nproc > 1:  # each process alone on its shard; rank 0 writes
+            mesh = local_mesh(args.device)
+    elif nproc > 1:
+        mesh = make_mesh(device=args.device)
+        check_global_batch(cfg.batch_size, nproc, mesh.shape["data"], nproc)
+        if mesh.is_main:
+            print(f"mesh: {mesh.shape} over {nproc} processes ({dist.get_backend()}), "
+                  f"global batch {cfg.batch_size * nproc}", flush=True)
+    is_main = mesh is None or mesh.is_main
     logger = None
-    if not args.no_tensorboard:
+    if not args.no_tensorboard and is_main:
         from .utils.logging import TrainLogger
 
         logger = TrainLogger(cfg.logdir)
@@ -516,15 +586,16 @@ def cmd_train(args):
         epochs=cfg.epochs, batch_size=cfg.batch_size, num_workers=args.num_workers,
         summary_freq=cfg.summary_freq, max_steps=args.max_steps, logdir=cfg.logdir,
         resume=cfg.resume, seed=cfg.seed, device=args.device,
-        evidential=args.evidential, maxdisp=maxdisp,
+        evidential=args.evidential, maxdisp=maxdisp, mesh=mesh,
     )
     try:
         stats = run_training(model, ds, config, val_dataset=val_ds, logger=logger, head=head)
     finally:
         if logger is not None:
             logger.close()
-    print(f"train done: steps {stats['start_step']} -> {stats['step']}, "
-          f"checkpoints in {cfg.logdir}", flush=True)
+    if is_main:
+        print(f"train done: steps {stats['start_step']} -> {stats['step']}, "
+              f"checkpoints in {cfg.logdir}", flush=True)
 
 
 def cmd_convert(args):

@@ -68,6 +68,15 @@ class DTUTrainDataset:
     def __len__(self):
         return len(self.metas)
 
+    def shard(self, host_id: int, num_hosts: int) -> "DTUTrainDataset":
+        """Per-process meta shard for data-parallel training: every
+        ``num_hosts``-th meta from ``host_id``."""
+        import copy
+
+        out = copy.copy(self)
+        out.metas = self.metas[host_id::num_hosts]
+        return out
+
     def _intrinsics_scale(self) -> float:
         # Shipped DTU train cams are calibrated at 1/4 input resolution.
         return {0.25: 1.0, 0.5: 2.0, 1.0: 4.0}.get(self.image_scale, 1.0)

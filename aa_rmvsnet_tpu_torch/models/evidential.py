@@ -28,14 +28,17 @@ Profiler ranges (``evidential.volumes``, ``.dres``, ``.hourglass_up``,
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
 from ..ops.resize import interp_matrix, resize_trilinear_align_corners
+from ..parallel.mesh import all_reduce_sum
 from .init import init_like_jax
 
 
@@ -51,7 +54,19 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
     variance, where ``nn.BatchNorm3d`` takes the unbiased one (n / (n - 1)
     times larger).  The normalisation, its gradient through the batch
     statistics, the eval mode and the ``state_dict`` keys are
-    ``nn.BatchNorm3d``'s."""
+    ``nn.BatchNorm3d``'s.
+
+    With ``process_group`` set (:func:`batch_statistics_over`, data-parallel
+    training) the batch is the group's global batch, as flax computes it
+    over the whole sharded batch: the sum and the sum of centred squares
+    are summed over the ranks by a differentiable all-reduce, so that the
+    normalisation, its gradient and the running statistics (identical on
+    every rank) are those of one process holding the global batch.
+    ``nn.SyncBatchNorm`` is no substitute: it refuses CPU tensors and keeps
+    the unbiased running variance."""
+
+    #: The process group whose ranks share the batch in train mode, or None.
+    process_group = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -59,12 +74,44 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._forward_global(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        dims, group = (0, 2, 3, 4), self.process_group
+        count = x.new_full((1,), x.numel() // x.shape[1])
+        total = all_reduce_sum(torch.cat([x.sum(dims), count]), group)
+        mean = total[:-1] / total[-1]
+        centred = x - mean[:, None, None, None]
+        var = all_reduce_sum(centred.square().sum(dims), group) / total[-1]
+        with torch.no_grad():
+            self._update_running(mean, var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return centred * scale[:, None, None, None] + self.bias[:, None, None, None]
+
+
+@contextlib.contextmanager
+def batch_statistics_over(module: nn.Module, group):
+    """Every :class:`FlaxBatchNorm3d` of ``module`` takes its train-mode
+    statistics over ``group``'s global batch inside the context (``None``:
+    this process's batch)."""
+    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm3d)]
+    for m in norms:
+        m.process_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.process_group = None
 
 
 class ConvBN3d(nn.Sequential):
@@ -276,17 +323,29 @@ def evidential_apply(head: EvidentialHead, cost_volume: torch.Tensor,
 
 
 def loss_emvsnet(gamma, nu, alpha, beta, depth_gt, mask,
-                 weight_reg: float = 0.1) -> torch.Tensor:
+                 weight_reg: float = 0.1, group=None) -> torch.Tensor:
     """The fork's production loss (``evidential.py:263``): the masked mean
     of ``log(var) + (1 + weight_reg * nu) * err^2 / var`` with ``var = beta /
     nu``.  Masked pixels are selected away, not multiplied by 0, as JAX's
     ``where`` does: where ``beta / nu`` underflows their term is infinite,
-    and a product would make the loss NaN."""
+    and a product would make the loss NaN.
+
+    With a process ``group`` (data-parallel training) the mean is over the
+    global batch: one sum divided by the valid pixels of every rank, so
+    ranks whose masks differ are weighted as one batch would weight them.
+    The returned value is this rank's term times the world size, so that
+    the ranks' mean, and the mean of their gradients, are the global
+    loss's."""
     valid = mask > 0.5
     err = gamma - depth_gt
     var = beta / nu
     per_px = torch.log(var) + (1.0 + weight_reg * nu) * err**2 / var
-    return torch.where(valid, per_px, 0.0).sum() / valid.sum().clamp(min=1)
+    total = torch.where(valid, per_px, 0.0).sum()
+    if group is None:
+        return total / valid.sum().clamp(min=1)
+    count = valid.sum().to(total.dtype)
+    dist.all_reduce(count, group=group)
+    return total * dist.get_world_size(group) / count.clamp(min=1)
 
 
 def nig_nll_loss(gamma, nu, alpha, beta, depth_gt, mask,

@@ -30,10 +30,13 @@ Four cost-block builders, chosen by ``SweepConfig`` as in the JAX package:
   residual straight from the blend (``fused_residual``);
 - with ``gather_pack`` > 1 one packed row serves ``gather_pack`` blocks.
 
-In bf16 (``feature_dtype``) the sweep runs on a bf16 copy of the model:
-features, convolutions, GroupNorm, omega and the ConvLSTM in bf16 (the
-gate kernel computes in fp32 and stores bf16); coordinates, depths, the
-view sum's accumulator, WTA and logsumexp stay fp32.
+In bf16 (``feature_dtype``) the sweep runs on the model's parameters cast
+to bf16: features, convolutions, GroupNorm, omega and the ConvLSTM in bf16
+(the gate kernels compute in fp32 and store bf16); coordinates, depths,
+the view sum's accumulator, WTA, logsumexp and the collected cost volume
+stay fp32.  Inference casts a copy of the model (:func:`cast_model`);
+training casts in the autograd graph (:func:`cast_in_graph`), so that the
+gradients reach the fp32 parameters in fp32.
 
 The quantized levers (``SweepConfig.table_dtype``, ``residual_dtype``) are
 approximate and opt-in: fp8 or int8 warp tables with per-channel scales,
@@ -102,11 +105,11 @@ class SweepConfig:
 
     depth_block: hypotheses per block (the largest divisor of D that is at
       most this).
-    remat: recompute each block in the backward pass (training, fp32).
+    remat: recompute each block in the backward pass (training).
     collect_volume: also return the ``(B, D, H, W)`` regularized cost
       volume (the training loss needs it).
     feature_dtype: ``torch.float32`` (exact) or ``torch.bfloat16`` for
-      features, convolutions, omega and the ConvLSTM; inference only.
+      features, convolutions, omega and the ConvLSTM.
     fold_omega: ``False``, ``"hybrid"`` (the 2x2 gather, omega folded) or
       ``True`` (pixel-major gather, folded cost layout); all three compute
       the same costs.  Ignored with ``packed_rows``.
@@ -160,15 +163,54 @@ def pick_depth_block(num_depth: int, target: int) -> int:
     return 1
 
 
+def _dtype_of(model: AARMVSNetCore) -> torch.dtype:
+    """The dtype a model's convolutions run in: that of its parameters, or
+    the one :func:`cast_in_graph` cast them to."""
+    return getattr(model, "cast_dtype", None) or next(model.parameters()).dtype
+
+
 def cast_model(model: AARMVSNetCore, dtype: torch.dtype) -> AARMVSNetCore:
     """``model`` itself when its parameters are in ``dtype``, else a copy
     in ``dtype``: the caller's model is never cast in place (the JAX
     package casts a copy of the parameter tree the same way).  No gradient
-    reaches the caller's parameters through the copy: :func:`sweep` runs
-    one only under ``torch.no_grad()`` or ``inference_mode()``."""
-    if next(model.parameters()).dtype == dtype:
+    reaches the caller's parameters through the copy; the inference path
+    takes it, under ``torch.no_grad()`` or ``inference_mode()``."""
+    if _dtype_of(model) == dtype:
         return model
     return copy.deepcopy(model).to(dtype)
+
+
+def cast_in_graph(model: AARMVSNetCore, dtype: torch.dtype) -> AARMVSNetCore:
+    """``model`` itself when its parameters are in ``dtype``, else a shell
+    of its module tree whose parameters are ``p.to(dtype)`` of the
+    caller's: plain tensors in the autograd graph, whose backward returns
+    fp32 gradients to the fp32 parameters (the JAX package's ``astype`` of
+    the parameter tree inside the traced function, and its transpose).
+
+    The shell is made once per forward and reaches every use of a weight
+    as an attribute of its module, so a ``torch.utils.checkpoint``
+    recompute of a depth block, which runs outside any context that the
+    forward entered, reads the same cast tensors."""
+    if _dtype_of(model) == dtype:
+        return model
+    params = dict(model.named_parameters())
+    # The parameters are not copied: the shell's slots are refilled below.
+    shell = copy.deepcopy(model, memo={id(p): None for p in params.values()})
+    for name, p in params.items():
+        owner, _, attr = name.rpartition(".")
+        module = shell.get_submodule(owner)
+        del module._parameters[attr]
+        setattr(module, attr, p.to(dtype))
+    shell.cast_dtype = dtype
+    return shell
+
+
+def _cast(model: AARMVSNetCore, dtype: torch.dtype) -> AARMVSNetCore:
+    """The model in ``dtype`` for one forward: cast in the graph where one
+    is recorded (training), else :func:`cast_model`'s copy."""
+    if torch.is_grad_enabled():
+        return cast_in_graph(model, dtype)
+    return cast_model(model, dtype)
 
 
 def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
@@ -190,7 +232,7 @@ def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
       ``(V, B, H, W, 32)`` features in ``dtype`` (view-major for the sweep).
     """
     B, V, H, W, _ = imgs.shape
-    model = cast_model(model, dtype)
+    model = _cast(model, dtype)
     k = view_chunk if 0 < view_chunk < V else V
 
     def run(chunk):  # (B, k, H, W, 3) -> (B, k, H, W, 32)
@@ -492,11 +534,7 @@ def sweep(
     if residual_dtype is not None and not (config.packed_rows or config.fold_omega is True):
         raise ValueError("residual_dtype requires packed_rows or fold_omega=True "
                          "(the folded cost layouts)")
-    if dtype != torch.float32 and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"a {dtype} sweep runs on a copy of the model, which no gradient "
-            "reaches; run it under torch.no_grad() or inference_mode()")
-    model = cast_model(model, dtype)
+    model = _cast(model, dtype)
     dev = features.device
 
     with record_function("sweep.setup"):
@@ -629,7 +667,7 @@ def forward(
     5 x D forward launches, and under ``remat`` 5 x D more when the
     backward recomputes each block, plus 5 x D backward-kernel launches.
     """
-    model = cast_model(model, config.feature_dtype)
+    model = _cast(model, config.feature_dtype)
     return sweep(model, extract_features(model, imgs, config.feature_dtype,
                                          config.feature_view_chunk),
                  proj_matrices, depth_values, config)

@@ -16,8 +16,11 @@ second kernel (the port of ``_gate_bwd_kernel``), or they raise; on CPU
 tensors they run :func:`lstm_gates_reference` and
 :func:`lstm_gates_backward_reference`.  ``launches`` and
 ``backward_launches`` count kernel launches so a run can show that its
-main path went through the kernels.  ``lstm_gates_backward`` is the
-backward kernel's own wrapper, for callers that time or check it alone.
+main path went through the kernels (``bf16_launches`` and
+``bf16_backward_launches`` those of the bf16 instantiations; a bf16
+training step is the path that launches the bf16 backward).
+``lstm_gates_backward`` is the backward kernel's own wrapper, for callers
+that time or check it alone.
 Where there is no graph to record (inference), the forward skips the
 ``Function``, whose host cost is a large share of a small cell's call.
 
@@ -43,6 +46,9 @@ from . import _build
 launches = 0
 #: Backward-kernel launches since the last reset (CPU calls are not counted).
 backward_launches = 0
+#: The launches of each kernel's bf16 instantiation among those above.
+bf16_launches = 0
+bf16_backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Both kernels index inside a plane (hidden * H * W) with 32-bit offsets.
@@ -168,8 +174,9 @@ def _forward(z: torch.Tensor, c: torch.Tensor):
     _check_launch(_kernel("lstm_gates_forward", 4)(
         z.data_ptr(), c.data_ptr(), h_next.data_ptr(), c_next.data_ptr(), cs[0],
         cs[1] * cs[2] * cs[3], _DTYPE_CODES[dtype], torch._C._cuda_getCurrentRawStream(index)))
-    global launches
+    global launches, bf16_launches
     launches += 1
+    bf16_launches += dtype == torch.bfloat16
     return h_next, c_next
 
 
@@ -199,8 +206,9 @@ def lstm_gates_backward(z: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
         z.data_ptr(), c.data_ptr(), dh.data_ptr(), dc_next.data_ptr(), dz.data_ptr(),
         dc.data_ptr(), cs[0], cs[1] * cs[2] * cs[3], _DTYPE_CODES[dtype],
         torch._C._cuda_getCurrentRawStream(index)))
-    global backward_launches
+    global backward_launches, bf16_backward_launches
     backward_launches += 1
+    bf16_backward_launches += dtype == torch.bfloat16
     return dz, dc
 
 

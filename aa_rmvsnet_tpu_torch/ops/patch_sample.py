@@ -128,6 +128,32 @@ def _copy_rows(table: torch.Tensor, take) -> torch.Tensor:
     return take(table)
 
 
+class _GatherRowsFp32Sum(torch.autograd.Function):
+    """``torch.gather`` of whole table rows, ``(B, N)`` row indices into a
+    ``(B, R, K)`` bf16 table, whose backward sums the rows' cotangents in
+    fp32 and rounds the sum once to bf16.  A bf16 ``scatter_add`` (the
+    gather's own backward) adds every cotangent into a bf16 sum, rounding
+    at each of the many samples that share a row (on CUDA with bf16
+    atomics): the training sweep gathers each row of a table for every
+    depth hypothesis that lands near it."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        B, N = idx.shape
+        return torch.gather(table, 1, idx[..., None].expand(B, N, table.shape[2]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        B, R, K = ctx.table_shape
+        flat = (idx + torch.arange(B, device=idx.device)[:, None] * R).reshape(-1)
+        acc = torch.zeros(B * R, K, dtype=torch.float32, device=grad.device)
+        acc.index_add_(0, flat, grad.reshape(-1, K).float())
+        return acc.view(B, R, K).to(grad.dtype), None
+
+
 def int8_blend(weights: torch.Tensor, rows: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """``bmm`` of integer tent weights ``(N, K, T^2)`` in [0, 127] and int8
     rows ``(N, T^2, C)`` as the JAX int8 blend's int32 product cast to
@@ -177,7 +203,10 @@ def patch_bilinear_sample(
     xb = torch.clamp(torch.floor(x), 0, width - 1)
     yb = torch.clamp(torch.floor(y), 0, height - 1)
     idx = (yb * width + xb).long()
-    rows = _copy_rows(table, lambda t: torch.gather(t, 1, idx[..., None].expand(B, N, C4)))
+    if table.dtype == torch.bfloat16 and table.requires_grad and torch.is_grad_enabled():
+        rows = _GatherRowsFp32Sum.apply(table, idx)
+    else:
+        rows = _copy_rows(table, lambda t: torch.gather(t, 1, idx[..., None].expand(B, N, C4)))
     rows = rows.to(out_dtype)
     if scale is not None:
         rows = rows * scale.to(out_dtype)

@@ -12,7 +12,10 @@ running statistics included) under the reference's ``evidential.`` prefix
 --evidential_ckpt F``: ``load_reference_checkpoint`` drops those keys and
 ``load_evidential_checkpoint`` keeps only them.  A save
 writes a temporary file and renames it, so a reader never sees half a
-checkpoint; resume takes the highest step.
+checkpoint; resume takes the highest step.  In data-parallel training
+(``pipeline/train.py:run_training`` under a mesh) only rank 0 calls
+:func:`save_state`, the other ranks wait at a barrier until it has
+renamed the file, and every rank restores from the same file.
 """
 
 from __future__ import annotations

@@ -19,6 +19,23 @@ flax's), ``loss_emvsnet`` on its NIG output, and one Adam over the core and
 the head together; the gradient reaches the core through the probability
 volume and BPTT through the sweep, so the gate launches per step are the
 same.
+
+``TrainConfig(feature_dtype=torch.bfloat16)`` runs the sweep in bf16 on the
+fp32 parameters cast in the autograd graph (``models/network.py:
+cast_in_graph``): Adam keeps fp32 master weights and moments, and the gate
+kernels run their bf16 instantiations.  ``fold_omega`` (``"hybrid"`` or
+``True``) takes the folded omega path of the JAX package's same lever.
+
+``TrainConfig(mesh=make_mesh(...))`` (``parallel/mesh.py``) trains data
+parallel across processes with the JAX package's global-batch semantics:
+``batch_size`` is per process, every rank takes ``(len // world) //
+batch_size`` steps an epoch from its shard (``dataset.shard(rank,
+world)``) in its own order, rank 0's weights are broadcast before the first
+step, the gradients averaged before the clip, the evidential loss divides
+by the global valid count and the head's BatchNorm takes the global
+batch's statistics, so each step is one step on the concatenated global
+batch; metrics are global-batch means, and only rank 0 writes checkpoints
+and logs.
 """
 
 from __future__ import annotations
@@ -34,9 +51,15 @@ import torch
 from torch.profiler import record_function
 
 from ..data.loader import batched, resilient_samples
-from ..models.evidential import EvidentialHead, loss_emvsnet, uncertainty_decompositions
+from ..models.evidential import (
+    EvidentialHead,
+    batch_statistics_over,
+    loss_emvsnet,
+    uncertainty_decompositions,
+)
 from ..models.losses import depth_classification_loss
 from ..models.network import AARMVSNetCore, SweepConfig, forward, probability_volume
+from ..parallel.mesh import Mesh, all_reduce_mean
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.metrics import MeterDict, abs_depth_error, threshold_error_rate
 from .checkpoint import restore_latest, save_state
@@ -52,8 +75,12 @@ class TrainConfig:
     steps per epoch.  ``logdir`` None writes no checkpoint.  ``max_steps``
     stops a run early (after a checkpoint).  ``evidential`` trains an
     evidential head with the core (``maxdisp`` hypotheses, ``loss_emvsnet``
-    with ``evidential_weight_reg``).  The JAX package's ``feature_dtype``
-    (bf16), ``fold_omega`` and ``mesh`` are refused: not ported yet.
+    with ``evidential_weight_reg``).  ``feature_dtype`` (``torch.float32``
+    or ``torch.bfloat16``) and ``fold_omega`` (``False``, ``"hybrid"``,
+    ``True``) go to the sweep, as the JAX package's do.  ``mesh``, a
+    :class:`..parallel.mesh.Mesh`, trains data parallel across its ranks
+    on its device (``device`` is then not read); ``batch_size`` is per
+    rank.
     """
 
     learning_rate: float = 1e-3
@@ -78,22 +105,19 @@ class TrainConfig:
     evidential_weight_reg: float = 0.1
 
     def __post_init__(self):
-        refused = [
-            name for name, value, default in (
-                ("feature_dtype", self.feature_dtype, torch.float32),
-                ("fold_omega", self.fold_omega, False),
-                ("mesh", self.mesh, None),
-            ) if value != default
-        ]
-        if refused:
-            raise NotImplementedError(
-                f"TrainConfig {', '.join(refused)}: not ported yet to "
-                "aa_rmvsnet_tpu_torch"
-            )
+        if self.feature_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"TrainConfig feature_dtype is torch.float32 or torch.bfloat16, "
+                             f"not {self.feature_dtype}")
+        if not any(self.fold_omega is v for v in (False, True)) and self.fold_omega != "hybrid":
+            raise ValueError(f"TrainConfig fold_omega is False, True or 'hybrid', "
+                             f"not {self.fold_omega!r}")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"TrainConfig mesh is a parallel.mesh.Mesh (make_mesh) or None, "
+                            f"not {type(self.mesh).__name__}")
 
     def sweep(self, remat: bool = True) -> SweepConfig:
-        return SweepConfig(depth_block=self.depth_block, remat=remat,
-                           collect_volume=True)
+        return SweepConfig(depth_block=self.depth_block, remat=remat, collect_volume=True,
+                           feature_dtype=self.feature_dtype, fold_omega=self.fold_omega)
 
 
 def cosine_decay(step: int, total_steps: int, alpha: float) -> float:
@@ -146,19 +170,38 @@ def loss_fn(model: AARMVSNetCore, batch: dict, sweep_config: SweepConfig):
     )
 
 
+def _group(config: TrainConfig):
+    return None if config.mesh is None else config.mesh.group
+
+
 def evidential_loss_fn(model: AARMVSNetCore, head: EvidentialHead, batch: dict,
                        config: TrainConfig, sweep_config: SweepConfig):
     """The core's probability volume through ``head`` (in the mode the
-    caller set), then ``loss_emvsnet``.  Returns ``(loss, head outputs)``."""
+    caller set), then ``loss_emvsnet``.  Returns ``(loss, head outputs)``.
+    Under a mesh the head's train-mode statistics and the loss's valid
+    count are the global batch's."""
     out = forward(model, batch["imgs"], batch["proj_matrices"],
                   batch["depth_values"], sweep_config)
-    ev = head(probability_volume(out.pop("cost_volume")), batch["depth_values"])
+    with batch_statistics_over(head, _group(config)):
+        ev = head(probability_volume(out.pop("cost_volume")), batch["depth_values"])
     loss = loss_emvsnet(ev["gamma"], ev["nu"], ev["alpha"], ev["beta"],
-                        batch["depth"], batch["mask"], config.evidential_weight_reg)
+                        batch["depth"], batch["mask"], config.evidential_weight_reg,
+                        group=_group(config))
     return loss, ev
 
 
-def _evidential_summaries(ev: dict, batch: dict) -> tuple[dict, dict]:
+def _mean_over_ranks(metrics: dict, keys, config: TrainConfig) -> None:
+    """Replace the plain batch means ``keys`` of ``metrics`` by their mean
+    over the mesh's ranks (the global batch's mean: every rank holds as
+    many samples), in one all-reduce."""
+    if _group(config) is None:
+        return
+    values = torch.stack([metrics[k].detach().float() for k in keys])
+    all_reduce_mean([values], config.mesh)
+    metrics.update(zip(keys, values))
+
+
+def _evidential_summaries(ev: dict, batch: dict, config: TrainConfig) -> tuple[dict, dict]:
     """Metrics and images of an evidential step (JAX
     ``_evidential_summaries``): the head's mean nu, alpha and beta, gamma's
     error, and both uncertainty decompositions."""
@@ -168,7 +211,7 @@ def _evidential_summaries(ev: dict, batch: dict) -> tuple[dict, dict]:
         "loss_components/nu": nu.mean(),
         "loss_components/alpha": alpha.mean(),
         "loss_components/beta": beta.mean(),
-        "abs_depth_error": abs_depth_error(gamma, depth, mask),
+        "abs_depth_error": abs_depth_error(gamma, depth, mask, group=_group(config)),
     }
     decomp = uncertainty_decompositions(nu, alpha, beta)
     images = {
@@ -187,6 +230,17 @@ def trainable_parameters(model, head=None) -> list:
     return list(model.parameters()) + ([] if head is None else list(head.parameters()))
 
 
+def average_gradients(params, mesh: Mesh) -> None:
+    """The mean of every parameter's gradient over the mesh's ranks, in
+    place (a parameter without one counts as zeros), in one all-reduce."""
+    if mesh.group is None:
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    all_reduce_mean([p.grad for p in params], mesh)
+
+
 def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
                head: EvidentialHead | None = None):
     """One update: zero grads, forward with remat, loss, backward (which
@@ -194,7 +248,9 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
     profiler ranges ``train.forward``, ``train.backward`` and
     ``train.optimizer``.  With ``head`` (``config.evidential``) both modules
     run in train mode and the loss is ``loss_emvsnet`` on the head's output.
-    Returns ``(metrics, images)`` of detached tensors."""
+    Under ``config.mesh`` the gradients are averaged over the ranks before
+    the clip (range ``train.all_reduce``), and the metrics are the global
+    batch's.  Returns ``(metrics, images)`` of detached tensors."""
     model.train()
     if head is not None:
         head.train()
@@ -206,18 +262,26 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
             loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=True))
     with record_function("train.backward"):
         loss.backward()
+    params = trainable_parameters(model, head)
+    if config.mesh is not None:
+        with record_function("train.all_reduce"):
+            average_gradients(params, config.mesh)
     with record_function("train.optimizer"):
         if config.grad_clip is not None:
-            clip_by_global_norm(trainable_parameters(model, head), config.grad_clip)
+            clip_by_global_norm(params, config.grad_clip)
         optimizer.step()
         scheduler.step()
     if head is not None:
-        metrics, images = _evidential_summaries(ev, batch)
+        metrics, images = _evidential_summaries(ev, batch, config)
         metrics["loss"] = loss.detach()
+        _mean_over_ranks(metrics, ["loss", "loss_components/nu", "loss_components/alpha",
+                                   "loss_components/beta"], config)
         return metrics, images
     depth, mask = batch["depth"], batch["mask"]
     metrics = {"loss": loss.detach(),
-               "abs_depth_error": abs_depth_error(wta_depth, depth, mask)}
+               "abs_depth_error": abs_depth_error(wta_depth, depth, mask,
+                                                  group=_group(config))}
+    _mean_over_ranks(metrics, ["loss"], config)
     images = {"depth_est": wta_depth * mask,
               "error_map": torch.abs(wta_depth - depth) * mask}
     return metrics, images
@@ -229,7 +293,8 @@ def eval_step(model, batch: dict, config: TrainConfig,
     """Loss and depth metrics without remat or gradients.  With ``head``
     (JAX ``make_evidential_eval_step``) the head runs in eval mode, the loss
     is ``loss_emvsnet`` and the metrics are of gamma; ``train_step`` puts
-    both modules back in train mode."""
+    both modules back in train mode.  Under ``config.mesh`` every metric is
+    the global batch's."""
     model.eval()
     if head is None:
         loss, depth_est = loss_fn(model, batch, config.sweep(remat=False))
@@ -237,10 +302,13 @@ def eval_step(model, batch: dict, config: TrainConfig,
         head.eval()
         loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=False))
         depth_est = ev["gamma"]
-    depth, mask = batch["depth"], batch["mask"]
-    metrics = {"loss": loss, "abs_depth_error": abs_depth_error(depth_est, depth, mask)}
+    depth, mask, group = batch["depth"], batch["mask"], _group(config)
+    metrics = {"loss": loss,
+               "abs_depth_error": abs_depth_error(depth_est, depth, mask, group=group)}
+    _mean_over_ranks(metrics, ["loss"], config)
     for tau in THRESHOLDS_MM:
-        metrics[f"thres{int(tau)}mm_error"] = threshold_error_rate(depth_est, depth, mask, tau)
+        metrics[f"thres{int(tau)}mm_error"] = threshold_error_rate(depth_est, depth, mask, tau,
+                                                                   group=group)
     return metrics
 
 
@@ -253,6 +321,41 @@ def _summarize(logger, mode: str, images: dict, batch: dict, step: int) -> None:
     arrays["ref_img"] = batch["imgs"][0, 0]
     logger.images(mode, arrays, step)
     logger.dump(mode, arrays, step)
+
+
+class _Shard:
+    """Every ``num``-th sample of a dataset from ``index`` (a dataset
+    without a ``shard`` method of its own)."""
+
+    def __init__(self, dataset, index: int, num: int):
+        self.dataset, self.indices = dataset, range(index, len(dataset), num)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]
+
+
+def shard_dataset(dataset, index: int, num: int):
+    """Rank ``index``'s shard of ``dataset`` among ``num`` ranks:
+    ``dataset.shard(index, num)`` where it has one (``DTUTrainDataset``: its
+    metas ``[index::num]``), else the same samples by index."""
+    if num == 1:
+        return dataset
+    if hasattr(dataset, "shard"):
+        return dataset.shard(index, num)
+    return _Shard(dataset, index, num)
+
+
+def broadcast_from_main(modules, mesh: Mesh) -> None:
+    """Rank 0's parameters and buffers into every rank's ``modules``, in
+    place, so that all ranks start from the same weights."""
+    if mesh.group is None:
+        return
+    for module in modules:
+        for tensor in module.state_dict().values():
+            torch.distributed.broadcast(tensor, src=0, group=mesh.group)
 
 
 def run_training(
@@ -269,17 +372,25 @@ def run_training(
     (one without the other raises).
 
     Moves the model and the head to ``config.device`` (raising without a
-    card for ``cuda``) and turns TF32 off.  Each epoch visits the dataset in a
-    permutation drawn from ``(seed, epoch)``, in batches of
-    ``batch_size`` (the last partial batch dropped); a failed load is
-    replaced by the last good sample.  With ``logdir``, a checkpoint is
-    written after every epoch and at ``max_steps``; with ``resume`` the
-    run restarts from the highest saved step, at the batch where that run
-    stopped.  After every epoch ``val_dataset``, if given, is evaluated.
+    card for ``cuda``), or to the mesh's device, and turns TF32 off.  Each
+    epoch visits the dataset in a permutation drawn from ``(seed, epoch)``,
+    in batches of ``batch_size`` (the last partial batch dropped); a failed
+    load is replaced by the last good sample, so no step is skipped.  With
+    ``logdir``, a checkpoint is written after every epoch and at
+    ``max_steps``; with ``resume`` the run restarts from the highest saved
+    step, at the batch where that run stopped.  After every epoch
+    ``val_dataset``, if given, is evaluated.
+
+    Under ``config.mesh`` every rank of the mesh calls this with the whole
+    dataset and takes its shard (:func:`shard_dataset`) in a permutation
+    drawn from ``(seed, epoch, rank)``, ``(len(dataset) // world) //
+    batch_size`` steps an epoch, from rank 0's weights (broadcast after any
+    resume, which every rank reads); only rank 0 writes checkpoints (the
+    others wait at a barrier), prints and calls ``logger``.
 
     Returns ``{start_step, step, losses, step_seconds, val}``: per-step
-    losses and seconds (host clock around the step, ending in a device
-    synchronise), and the last validation means.
+    losses (the global batch's) and seconds (host clock around the step,
+    ending in a device synchronise), and the last validation means.
     """
     if config.evidential != (head is not None):
         raise ValueError("run_training: config.evidential needs an evidential head, and a "
@@ -287,31 +398,50 @@ def run_training(
     if head is not None and head.maxdisp != config.maxdisp:
         raise ValueError(f"run_training: the head has maxdisp {head.maxdisp}, the config "
                          f"{config.maxdisp}")
-    if len(dataset) < config.batch_size:
-        raise ValueError(f"run_training: {len(dataset)} sample(s) make no batch of "
-                         f"{config.batch_size}")
-    device = resolve_device(config.device)
+    mesh = config.mesh
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    if len(dataset) // world < config.batch_size:
+        raise ValueError(f"run_training: {len(dataset)} sample(s) over {world} rank(s) make "
+                         f"no batch of {config.batch_size}")
+    device = resolve_device(config.device) if mesh is None else mesh.device
     disable_tf32()
     model.to(device)
     if head is not None:
         head.to(device)
-    steps_per_epoch = max(len(dataset) // config.batch_size, 1)
+    is_main = rank == 0
+    steps_per_epoch = max((len(dataset) // world) // config.batch_size, 1)
+    val_steps = 0 if val_dataset is None else (len(val_dataset) // world) // config.batch_size
+    dataset = shard_dataset(dataset, rank, world)
+    if val_dataset is not None:
+        val_dataset = shard_dataset(val_dataset, rank, world)
     total_steps = config.total_steps or config.epochs * steps_per_epoch
-    optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config, total_steps)
+    params = trainable_parameters(model, head)
+    optimizer, scheduler = make_optimizer(params, config, total_steps)
+    group = _group(config)
 
     start_step = 0
     if config.resume and config.logdir:
         restored = restore_latest(config.logdir, model, optimizer, scheduler, head=head)
         if restored is not None:
             start_step = restored
-            print(f"resumed from step {start_step}", flush=True)
+            if is_main:
+                print(f"resumed from step {start_step}", flush=True)
+    if mesh is not None:
+        broadcast_from_main([model] + ([] if head is None else [head]), mesh)
 
     def on_skip(exc):
-        print(f"SKIP (train load failure): {exc}", flush=True)
+        print(f"SKIP (train load failure{f', rank {rank}' if world > 1 else ''}): {exc}",
+              flush=True)
 
     def save(step):
-        if config.logdir:
+        if config.logdir and is_main:
             save_state(config.logdir, step, model, optimizer, scheduler, head=head)
+        if group is not None:
+            torch.distributed.barrier(group=group)
+
+    def result():
+        return {"start_step": start_step, "step": step, "losses": losses,
+                "step_seconds": step_seconds, "val": val_means}
 
     step = start_step
     losses: list[float] = []
@@ -320,7 +450,8 @@ def run_training(
     meter = MeterDict()
     for epoch in range(start_step // steps_per_epoch, config.epochs):
         done = step - epoch * steps_per_epoch  # batches of this epoch already taken
-        order = np.random.RandomState([config.seed, epoch]).permutation(len(dataset))
+        seed = [config.seed, epoch] if world == 1 else [config.seed, epoch, rank]
+        order = np.random.RandomState(seed).permutation(len(dataset))
         order = order[done * config.batch_size:]
         samples = resilient_samples(dataset, order, num_workers=config.num_workers,
                                     on_skip=on_skip)
@@ -337,31 +468,31 @@ def run_training(
             meter.update(metrics)
             step += 1
             if step % config.summary_freq == 0:
-                means = meter.mean()
-                print(f"epoch {epoch} step {step}: "
-                      + " ".join(f"{k}={v:.4f}" for k, v in means.items()), flush=True)
-                if logger is not None:
-                    logger.scalars("train", means, step)
-                    _summarize(logger, "train", images, host_batch, step)
+                means = meter.mean(group)
+                if is_main:
+                    print(f"epoch {epoch} step {step}: "
+                          + " ".join(f"{k}={v:.4f}" for k, v in means.items()), flush=True)
+                    if logger is not None:
+                        logger.scalars("train", means, step)
+                        _summarize(logger, "train", images, host_batch, step)
                 meter = MeterDict()
             if config.max_steps and step - start_step >= config.max_steps:
                 save(step)
-                return {"start_step": start_step, "step": step, "losses": losses,
-                        "step_seconds": step_seconds, "val": val_means}
+                return result()
         save(step)
 
-        if val_dataset is not None and len(val_dataset) >= config.batch_size:
+        if val_steps:
             vmeter = MeterDict()
-            for vbatch in batched(
+            for vbatch in itertools.islice(batched(
                 resilient_samples(val_dataset, num_workers=config.num_workers,
                                   on_skip=on_skip),
                 config.batch_size, drop_last=True,
-            ):
+            ), val_steps):
                 vmeter.update(eval_step(model, batch_to_device(vbatch, device), config, head))
-            val_means = vmeter.mean()
-            print(f"epoch {epoch} fulltest: "
-                  + " ".join(f"{k}={v:.4f}" for k, v in val_means.items()), flush=True)
-            if logger is not None:
-                logger.scalars("fulltest", val_means, step)
-    return {"start_step": start_step, "step": step, "losses": losses,
-            "step_seconds": step_seconds, "val": val_means}
+            val_means = vmeter.mean(group)
+            if is_main:
+                print(f"epoch {epoch} fulltest: "
+                      + " ".join(f"{k}={v:.4f}" for k, v in val_means.items()), flush=True)
+                if logger is not None:
+                    logger.scalars("fulltest", val_means, step)
+    return result()

@@ -1,13 +1,15 @@
 """Where the time of one training step goes on the card.
 
     python -m aa_rmvsnet_tpu_torch.tools.profile_train_step [--steps 3] [--evidential]
-        [--out DIR]
+        [--bf16] [--fold_omega {0,1,hybrid}] [--out DIR]
 
 Runs ``pipeline/train.py:train_step`` at the ``dtu_train`` geometry
 (128x160, V=5, D=128, depth_block 16, batch 1, Adam, fp32 without TF32)
 on the synthetic plane sample with seeded weights (``utils/synthetic.py``),
 on one CUDA device; with ``--evidential``, the step of ``cli train
---evidential`` (a fresh head from seed 1, maxdisp 32, ``loss_emvsnet``):
+--evidential`` (a fresh head from seed 1, maxdisp 32, ``loss_emvsnet``);
+``--bf16`` and ``--fold_omega`` set ``TrainConfig.feature_dtype`` and
+``fold_omega`` (the sweep in bf16 on fp32 master weights; folded omega):
 
 1. one warm-up step (with ``--evidential``, hooks on the head's 3D
    convolutions count the floating-point operations their shapes need);
@@ -92,8 +94,14 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=3, help="timed steps")
     parser.add_argument("--evidential", action="store_true",
                         help="train the evidential head with the core (cli train --evidential)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="TrainConfig(feature_dtype=torch.bfloat16)")
+    parser.add_argument("--fold_omega", default="0", choices=("0", "1", "hybrid"),
+                        help="TrainConfig.fold_omega: False, True or 'hybrid'")
     parser.add_argument("--out", help="directory for the Chrome trace")
     args = parser.parse_args(argv)
+    fold_omega = {"0": False, "1": True, "hybrid": "hybrid"}[args.fold_omega]
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     device = resolve_device("cuda")
     disable_tf32()
@@ -109,7 +117,8 @@ def main(argv=None) -> int:
     head = None
     if args.evidential:
         head = EvidentialHead(32, generator=torch.Generator().manual_seed(1)).to(device)
-    config = TrainConfig(depth_block=16, device="cuda", evidential=args.evidential)
+    config = TrainConfig(depth_block=16, device="cuda", evidential=args.evidential,
+                         feature_dtype=dtype, fold_omega=fold_omega)
     optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config,
                                           total_steps=10**6)
     groups = EVIDENTIAL_GROUPS if args.evidential else KERNEL_GROUPS
@@ -221,7 +230,8 @@ def main(argv=None) -> int:
         phase_ms[phase] += ms
 
     print(f"{smi}; train_step at {H}x{W}, V={V}, D={D}, depth_block 16, batch 1, "
-          f"fp32 (TF32 off){', evidential head, maxdisp 32' if head is not None else ''}")
+          f"{'bf16 sweep on fp32 weights' if args.bf16 else 'fp32'} (TF32 off), fold_omega "
+          f"{fold_omega!r}{', evidential head, maxdisp 32' if head is not None else ''}")
     print(f"seconds per step {', '.join(f'{s:.3f}' for s in step_s)} (unprofiled), "
           f"{prof_wall_s:.3f} profiled; peak memory {peak / 2**30:.2f} GiB")
     mean_s = sum(step_s) / len(step_s)
@@ -264,6 +274,7 @@ def main(argv=None) -> int:
         "phase_ms": dict(phase_ms), "phase_layer_ms": dict(cross_ms),
         "groups_ms": dict(groups_ms), "phase_groups_ms": dict(phase_groups_ms),
         "gate_launches": list(launches), "evidential": args.evidential,
+        "feature_dtype": str(dtype), "fold_omega": fold_omega,
         "head_conv_tflop": flops["conv"] / 1e12,
         "head_transposed_conv_tflop": flops["transposed"] / 1e12,
     }}))

@@ -6,24 +6,42 @@ The error metrics are masked means over the batch: the share of valid
 pixels whose error exceeds ``threshold`` (evaluated at 2/4/8/16/32 mm
 during validation) or ``k`` depth intervals, and the masked mean absolute
 error.  ``std_prob`` is the probability volume's spread over depth.
+
+In data-parallel training (``parallel/mesh.py``) a process ``group`` makes
+the masked means those of the global batch: the numerators and the valid
+counts are summed over the ranks before the one division, and
+:meth:`MeterDict.mean` weights each rank's running mean by its count.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+
+def _global_ratio(num: torch.Tensor, den: torch.Tensor, group) -> torch.Tensor:
+    """``num / max(den, 1)``, both summed over ``group``'s ranks first."""
+    both = torch.stack([num.float(), den.float()])
+    dist.all_reduce(both, group=group)
+    return both[0] / both[1].clamp(min=1)
 
 
 def threshold_error_rate(depth_est: torch.Tensor, depth_gt: torch.Tensor,
-                         mask: torch.Tensor, threshold: float) -> torch.Tensor:
+                         mask: torch.Tensor, threshold: float, group=None) -> torch.Tensor:
     valid = mask > 0.5
     bad = (torch.abs(depth_est - depth_gt) > threshold) & valid
+    if group is not None:
+        return _global_ratio(bad.sum(), valid.sum(), group)
     return bad.sum() / valid.sum().clamp(min=1)
 
 
 def abs_depth_error(depth_est: torch.Tensor, depth_gt: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, group=None) -> torch.Tensor:
     valid = mask > 0.5
-    return (torch.abs(depth_est - depth_gt) * valid).sum() / valid.sum().clamp(min=1)
+    total = (torch.abs(depth_est - depth_gt) * valid).sum()
+    if group is not None:
+        return _global_ratio(total, valid.sum(), group)
+    return total / valid.sum().clamp(min=1)
 
 
 def std_prob(prob_volume: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -57,9 +75,26 @@ class MeterDict:
         for k, v in scalars.items():
             self._sums[k] = self._sums.get(k, 0.0) + float(v)
 
-    def mean(self) -> dict:
-        return {k: v / max(self._count, 1) for k, v in self._sums.items()}
+    def mean(self, group=None) -> dict:
+        """The running means; with a process ``group`` the count-weighted
+        means over its ranks (every rank must hold the same keys)."""
+        if group is None:
+            return {k: v / max(self._count, 1) for k, v in self._sums.items()}
+        keys = list(self._sums)
+        totals = torch.tensor([self._sums[k] for k in keys] + [self._count],
+                              dtype=torch.float64, device=_collective_device(group))
+        dist.all_reduce(totals, group=group)
+        count = max(totals[-1].item(), 1)
+        return {k: totals[i].item() / count for i, k in enumerate(keys)}
 
     @property
     def count(self) -> int:
         return self._count
+
+
+def _collective_device(group) -> torch.device:
+    """Where a host value goes for a collective: the current card under
+    NCCL, which takes CUDA tensors only, else the CPU."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

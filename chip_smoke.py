@@ -25,7 +25,10 @@ Phases, each printing a line; any failure exits non-zero:
    with one launch; and the host's cost per call of the wrapper, of the
    custom op and of the library call;
 3b. backward kernel vs plain: the same for the ConvLSTM gate-backward
-   kernel, fp32 (atol 1e-5) and bf16 (atol 5e-2), its times in fp32;
+   kernel, fp32 (atol 1e-5) and bf16 (atol 5e-2), its times in fp32 and
+   in bf16 (the type of a bf16 training step) beside
+   ``_thnn_fused_lstm_cell_backward_impl`` in the same type and the byte
+   bound (bf16: half of fp32's bytes);
 4. CUDA vs CPU: the whole ``forward`` at 64x80, V=3, D=48 on both devices
    (depth equal on >= 99.9 % of pixels, confidence atol 1e-4);
 4b. CUDA vs CPU training gradients: one remat training forward and
@@ -40,6 +43,18 @@ Phases, each printing a line; any failure exits non-zero:
    kernels.  The deformable convs' offset kernels start at zero, the
    reference's init, so that no deform sample sits within an ulp of an
    integer coordinate, where the sampler's gradient jumps;
+4h. CUDA vs CPU training with the JAX package's levers: 4b's step with
+   ``TrainConfig(fold_omega=True)`` and ``"hybrid"`` at 4b's bars, and
+   with ``feature_dtype=torch.bfloat16`` (the sweep in bf16 on the fp32
+   weights cast in the graph), 2 x 5 x D forward and 5 x D backward
+   launches each, all of the bf16 instantiations in bf16.  A bf16 cast
+   absorbs 1e-7 weight noise (most draws change no bf16 weight), so the
+   bf16 step's bars come from the CPU's own move under noise of one bf16
+   rounding (2^-8), as the root mean square over 8 draws (one draw's loss
+   move varies tenfold, and the card's bf16 step is not deterministic):
+   the loss, the worst and the median gradient tensor of each of two runs
+   on the card within twice that move (the output conv's bias, whose exact
+   gradient is 0, printed apart);
 4e. CUDA vs CPU evidential training: one step of ``cli train
    --evidential``'s loss (``pipeline/train.py:evidential_loss_fn``: the
    remat sweep, the probability volume, the head in train mode,
@@ -130,6 +145,23 @@ Phases, each printing a line; any failure exits non-zero:
    running statistics that changed, and a checkpoint that restores core,
    head, statistics and Adam moments bit for bit and trains one more
    step; it prints the seconds of each step and the peak memory;
+6c. main path, bf16 training: ``run_training`` with
+   ``feature_dtype=torch.bfloat16`` at phase 6's geometry, 8 steps, with
+   2 x 5 x D forward and 5 x D backward launches a step, all bf16, a
+   falling finite loss and fp32 master weights that moved; seconds per
+   step and peak memory beside phase 6's; then one step with
+   ``fold_omega=True`` (fp32), its launches, seconds and peak memory;
+6d. main path, data-parallel training: two processes on ``torch.distributed``
+   (gloo, both ranks on cuda:0: NCCL refuses two ranks on one card) at
+   batch 1 each, rank 1 with half its pixels masked, against this process
+   at batch 2, for the core and for the evidential head (maxdisp 32): the
+   ranks' weights equal bit for bit, the loss rtol 1e-5, the worst
+   gradient within max(2e-4, 10 x the batch-2 step's own move under 1e-7
+   weight noise), the updated weights 1e-6 where the gradient's sign is
+   settled (twice the rate elsewhere: Adam's first step), the BatchNorm
+   statistics 1e-5 of their size; seconds per step and peak memory of a
+   rank; then a world-size-1 NCCL group's step against the step without a
+   mesh.  The ranks are subprocesses with a free port and a deadline;
 7. the fusion kernel (``ops/fusion.py:fuse_ref``) against its plain
    version, bit for bit on the card and on the CPU: one 864x1152 reference
    view of a noisy plane against 10 sources, with how many of its terms lie
@@ -159,9 +191,10 @@ Phases, each printing a line; any failure exits non-zero:
 The line before the last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
 ``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d, 6,
-6b, 7c and 8);
+6b, 6c (``training_bf16``, ``training_fold_omega``), 6d
+(``training_data_parallel``, the ranks' sum), 7c and 8);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
-depth step, and the forward kernel's ``*_bf16`` keys the same in bf16;
+depth step, and the gate kernels' ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
 ``dtu_train`` depth step, and ``host_us_per_call`` and
 ``library_host_us_per_call`` the host's cost of one call (the forward's
@@ -199,6 +232,8 @@ SMALL_H, SMALL_W, SMALL_V, SMALL_D = 64, 80, 3, 48
 GUARD_H, GUARD_W, GUARD_V, GUARD_D = 256, 320, 3, 128
 # Small training check, CUDA against CPU; the evidential one's maxdisp.
 GRAD_D, GRAD_BLOCK, GRAD_MAXDISP = 16, 8, 16
+# Draws of 2^-8 weight noise that calibrate the small bf16 training check.
+BF16_NOISE_DRAWS = 8
 # The evidential head alone, CUDA against CPU, and its bars (those of
 # tests/test_torch_evidential.py).
 EV_H, EV_W, EV_D = 32, 40, 32
@@ -566,7 +601,8 @@ def phase_backward_kernel() -> dict:
     cases.append(((2, 16, 9, 13), True))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     bars = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
-    fp32_inputs = []
+    step_inputs = {torch.float32: [], torch.bfloat16: []}  # the five cells' inputs
+    times = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             for shape, offset in cases:
@@ -598,41 +634,64 @@ def phase_backward_kernel() -> dict:
                     _fail(f"lstm_gates_backward disagrees with its plain version at "
                           f"{shape} {dtype}")
                 max_err[dtype] = max(max_err[dtype], err)
-                if dtype == torch.float32 and shape in cells and not offset:
-                    fp32_inputs.append((z, c, dh, dcn))
+                if shape in cells and not offset:
+                    step_inputs[dtype].append((z, c, dh, dcn))
 
-        # One depth step's five backward launches, 1.58 GB: every launch
-        # finds its inputs cold in the 50 MB L2.
-        def kernel_step():
-            for args in fp32_inputs:
-                gates.lstm_gates_backward(*args)
+        elems = sum(B * h * H * W for B, h, H, W in cells)
+        for dtype, inputs in step_inputs.items():
+            # One depth step's five backward launches, 1.58 GB in fp32 and
+            # 0.79 GB in bf16 (the type of a bf16 training step): every
+            # launch finds its inputs cold in the 50 MB L2.
+            def kernel_step():
+                for args in inputs:
+                    gates.lstm_gates_backward(*args)
 
-        def plain_step():
-            for args in fp32_inputs:
-                gates.lstm_gates_backward_reference(*args)
+            def plain_step():
+                for args in inputs:
+                    gates.lstm_gates_backward_reference(*args)
 
-        lib_inputs = []
-        lib_err = 0.0
-        for z, c, dh, dcn in fp32_inputs:
-            lib_inputs.append(_backward_library_inputs(z, c, dh, dcn))
-            dgates, dcx, _ = _library_gates_backward(*lib_inputs[-1])
-            h = c.shape[1]
-            dz_p, dc_p = gates.lstm_gates_backward_reference(z, c, dh, dcn)
-            dz_pl, _ = _to_library_layout(dz_p, dc_p)
-            lib_err = max(lib_err, (dgates - dz_pl).abs().max().item(),
-                          (dcx - dc_p.permute(0, 2, 3, 1).reshape(-1, h)).abs().max().item())
-        if lib_err > 1e-5:
-            _fail(f"backward library yardstick computes another function (err {lib_err:.3e})")
+            lib_inputs = []
+            lib_err = 0.0
+            for z, c, dh, dcn in inputs:
+                lib_inputs.append(_backward_library_inputs(z, c, dh, dcn))
+                dgates, dcx, _ = _library_gates_backward(*lib_inputs[-1])
+                h = c.shape[1]
+                dz_p, dc_p = gates.lstm_gates_backward_reference(z, c, dh, dcn)
+                dz_pl, _ = _to_library_layout(dz_p, dc_p)
+                dc_pl = dc_p.permute(0, 2, 3, 1).reshape(-1, h)
+                lib_err = max(lib_err, (dgates.float() - dz_pl.float()).abs().max().item(),
+                              (dcx.float() - dc_pl.float()).abs().max().item())
+            if lib_err > (1e-5 if dtype == torch.float32 else bars[dtype]):
+                _fail(f"backward library yardstick computes another function in {dtype} "
+                      f"(err {lib_err:.3e})")
 
-        def library_step():
-            for args in lib_inputs:
-                _library_gates_backward(*args)
+            def library_step():
+                for args in lib_inputs:
+                    _library_gates_backward(*args)
 
-        ms = _cuda_time_ms(kernel_step, reps=50)
-        plain_ms = _cuda_time_ms(plain_step, reps=10)
-        library_ms = _cuda_time_ms(library_step, reps=20)
-        ms_again = _cuda_time_ms(kernel_step, reps=50)
-        del fp32_inputs, lib_inputs
+            ms = _cuda_time_ms(kernel_step, reps=50)
+            plain_ms = _cuda_time_ms(plain_step, reps=10)
+            library_ms = _cuda_time_ms(library_step, reps=20)
+            ms_again = _cuda_time_ms(kernel_step, reps=50)
+            del lib_inputs
+            # Read i, f, o, g, c, dh, dc'; write di, df, do, dg, dc.
+            nbytes = elems * inputs[0][0].element_size() * (7 + 5)
+            bytes_ms = nbytes / memory_bytes_per_s() * 1e3
+            # ~50 fp32 operations per element (3 sigmoids, 2 tanh, ~20
+            # products and sums) at the card's 67 TFLOP/s non-tensor fp32
+            # peak, whatever the storage type.
+            ops_ms = elems * 50 / 67e12 * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            times[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound_ms,
+                                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"kernel: backward {str(dtype)[6:]}, one depth step = 5 launches, "
+                  f"{elems / 1e6:.2f} M elements, {nbytes / 1e9:.3f} GB: kernel {ms:.4f} ms "
+                  f"(again {ms_again:.4f}), plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms (_thnn_fused_lstm_cell_backward_impl, max_abs_err "
+                  f"vs plain {lib_err:.1e}), bound {bound_ms:.4f} ms by bytes "
+                  f"({bound_ms / ms:.0%} of it)", flush=True)
+        del step_inputs
 
         # The training main path's shapes: one depth step at dtu_train,
         # 0.68 M elements, 32 MB.  In a remat block the backward runs after
@@ -682,18 +741,7 @@ def phase_backward_kernel() -> dict:
           f"gates.lstm_gates_backward {host_us[0]:.2f}, {host_us[1]:.2f} us; library call "
           f"{library_host_us[0]:.2f}, {library_host_us[1]:.2f} us", flush=True)
 
-    elems = sum(B * h * H * W for B, h, H, W in cells)
-    nbytes = elems * 4 * (7 + 5)  # read i, f, o, g, c, dh, dc'; write di, df, do, dg, dc
-    bytes_ms = nbytes / memory_bytes_per_s() * 1e3
-    # ~50 fp32 operations per element (3 sigmoids, 2 tanh, ~20 products
-    # and sums) at the card's 67 TFLOP/s non-tensor fp32 peak.
-    ops_ms = elems * 50 / 67e12 * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"kernel: backward, one depth step = 5 launches, {elems / 1e6:.2f} M elements, "
-          f"{nbytes / 1e9:.3f} GB: kernel {ms:.4f} ms (again {ms_again:.4f}), "
-          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
-          f"(_thnn_fused_lstm_cell_backward_impl, max_abs_err vs plain {lib_err:.1e}), "
-          f"bound {bound_ms:.4f} ms by bytes ({bytes_ms / ms:.0%} of it)", flush=True)
+    fp32, bf16 = times[torch.float32], times[torch.bfloat16]
     return {
         "name": "lstm_gates_backward",
         "route": "cuda",
@@ -701,11 +749,9 @@ def phase_backward_kernel() -> dict:
         "replaces": "aa_rmvsnet_tpu/ops/pallas/gates.py:54",
         "launches": None,
         "max_abs_err": max_err[torch.float32],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        **fp32,
+        **{f"{k}_bf16": v for k, v in bf16.items()},
+        "max_abs_err_bf16": max_err[torch.bfloat16],
         "ms_train_shapes": train_ms,
         "library_ms_train_shapes": train_library_ms,
         "host_us_per_call": min(host_us),
@@ -763,43 +809,58 @@ def _worst(ref: dict, other: dict) -> tuple[str, float]:
     return name, rels[name]
 
 
-def phase_train_small() -> None:
+def _small_train_host_batch():
     from aa_rmvsnet_tpu_torch.data.loader import batch_samples
-    from aa_rmvsnet_tpu_torch.models import SweepConfig
-    from aa_rmvsnet_tpu_torch.ops import gates
-    from aa_rmvsnet_tpu_torch.pipeline.train import batch_to_device, loss_fn
-    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample, seeded_model
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample
 
-    host = batch_samples([plane_train_sample(
+    return batch_samples([plane_train_sample(
         SMALL_H, SMALL_W, SMALL_V, GRAD_D, seed=SEED + 4, focal=400.0, baseline=2.0,
         plane_depth=500.0, depth_min=425.0, depth_interval=7.5)])
+
+
+def _small_loss_and_grads(host: dict, config, dev: str, label: str, nudge: float = 0.0,
+                          noise: torch.Generator | None = None):
+    """One remat training forward and backward of the seeded model (zero
+    deform offsets, as the reference initialises them; every other weight
+    scaled by 1 + ``nudge`` N(0, 1)) on ``dev``: the loss, the gradients on
+    the CPU, and the gate-kernel launches (forward, backward, bf16 forward,
+    bf16 backward)."""
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.train import batch_to_device, loss_fn
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    model = seeded_model(SEED)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if ".p_conv." in name:
+                param.zero_()
+            elif nudge:
+                param.mul_(1 + nudge * torch.randn(param.shape, generator=noise))
+    model.to(dev)
+    counters = ("launches", "backward_launches", "bf16_launches", "bf16_backward_launches")
+    before = [getattr(gates, k) for k in counters]
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(model, batch_to_device(host, dev), config)
+    loss.backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    launched = tuple(getattr(gates, k) - b for k, b in zip(counters, before))
+    print(f"{label}: loss and gradients on {dev}{f' (weights x 1 + {nudge:g} noise)' if nudge else ''}"
+          f" in {time.perf_counter() - t0:.2f} s, gate kernel launches forward {launched[0]}, "
+          f"backward {launched[1]} (bf16 {launched[2]}, {launched[3]})", flush=True)
+    return loss.item(), grads, launched
+
+
+def phase_train_small() -> None:
+    from aa_rmvsnet_tpu_torch.models import SweepConfig
+
+    host = _small_train_host_batch()
     config = SweepConfig(depth_block=GRAD_BLOCK, remat=True)
     noise = torch.Generator().manual_seed(SEED + 6)
-
-    def loss_and_grads(dev: str, nudge: float = 0.0):
-        model = seeded_model(SEED)
-        with torch.no_grad():
-            for name, param in model.named_parameters():
-                if ".p_conv." in name:  # zero offsets, as the reference initialises them
-                    param.zero_()
-                elif nudge:
-                    param.mul_(1 + nudge * torch.randn(param.shape, generator=noise))
-        model.to(dev)
-        before = (gates.launches, gates.backward_launches)
-        t0 = time.perf_counter()
-        loss, _ = loss_fn(model, batch_to_device(host, dev), config)
-        loss.backward()
-        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
-        launched = (gates.launches - before[0], gates.backward_launches - before[1])
-        print(f"train-small: loss and gradients on {dev}{' (nudged weights)' if nudge else ''}"
-              f" in {time.perf_counter() - t0:.2f} s, gate kernel launches forward "
-              f"{launched[0]}, backward {launched[1]}", flush=True)
-        return loss.item(), grads, launched
-
-    loss_cpu, g_cpu, _ = loss_and_grads("cpu")
-    _, g_nudged, _ = loss_and_grads("cpu", nudge=1e-7)
-    loss_cuda, g_cuda, launched = loss_and_grads("cuda")
-    if launched != (2 * 5 * GRAD_D, 5 * GRAD_D):
+    label = "train-small"
+    loss_cpu, g_cpu, _ = _small_loss_and_grads(host, config, "cpu", label)
+    _, g_nudged, _ = _small_loss_and_grads(host, config, "cpu", label, 1e-7, noise)
+    loss_cuda, g_cuda, launched = _small_loss_and_grads(host, config, "cuda", label)
+    if launched != (2 * 5 * GRAD_D, 5 * GRAD_D, 0, 0):
         _fail(f"small CUDA training step launched the gate kernels {launched} times")
 
     loss_rel = abs(loss_cuda - loss_cpu) / abs(loss_cpu)
@@ -815,6 +876,102 @@ def phase_train_small() -> None:
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         _fail("CUDA training gradients disagree with the CPU ones")
+
+
+def _relative(ref: dict, other: dict, skip: str) -> dict:
+    """Per tensor but ``skip``, max_abs_err / max(max|ref|, 1e-3)."""
+    return {name: (other[name] - g).abs().max().item() / max(g.abs().max().item(), 1e-3)
+            for name, g in ref.items() if name != skip}
+
+
+def phase_train_levers_small() -> None:
+    """``TrainConfig(fold_omega=True | "hybrid")`` in fp32 and
+    ``feature_dtype=torch.bfloat16``: one remat step CUDA against CPU."""
+    from aa_rmvsnet_tpu_torch.pipeline.train import TrainConfig
+
+    host = _small_train_host_batch()
+    for name, levers in (("fold_omega=True", dict(fold_omega=True)),
+                         ("fold_omega='hybrid'", dict(fold_omega="hybrid")),
+                         ("bf16", dict(feature_dtype=torch.bfloat16))):
+        config = TrainConfig(depth_block=GRAD_BLOCK, **levers).sweep(remat=True)
+        bf16 = config.feature_dtype == torch.bfloat16
+        label = f"train-small {name}"
+        noise = torch.Generator().manual_seed(SEED + 6)
+        loss_cpu, g_cpu, _ = _small_loss_and_grads(host, config, "cpu", label)
+        loss_n7, g_n7, _ = _small_loss_and_grads(host, config, "cpu", label, 1e-7, noise)
+        loss_cuda, g_cuda, launched = _small_loss_and_grads(host, config, "cuda", label)
+        want = (2 * 5 * GRAD_D, 5 * GRAD_D) * 2 if bf16 else (2 * 5 * GRAD_D, 5 * GRAD_D, 0, 0)
+        if launched != want:
+            _fail(f"small CUDA {name} training step launched the gate kernels {launched} "
+                  f"times, not {want}")
+        loss_rel = abs(loss_cuda - loss_cpu) / abs(loss_cpu)
+        if not bf16:  # phase 4b's bars
+            dev_name, dev_err = _worst(g_cpu, g_cuda)
+            ref_name, ref_err = _worst(g_cpu, g_n7)
+            bar = max(1e-3, 10 * ref_err)
+            ok = loss_rel <= 1e-5 and dev_err <= bar
+            print(f"{label}: CUDA vs CPU at {SMALL_H}x{SMALL_W}, V={SMALL_V}, D={GRAD_D}, "
+                  f"depth_block {GRAD_BLOCK}, remat: loss {loss_cuda:.6f} vs {loss_cpu:.6f} "
+                  f"(rel {loss_rel:.2e}, bar 1e-5); gradients of {len(g_cpu)} tensors, worst "
+                  f"{dev_err:.2e} ({dev_name}); the CPU's own move under 1e-7 weight noise "
+                  f"{ref_err:.2e} ({ref_name}); bar {bar:.2e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+        else:
+            # A bf16 cast absorbs 1e-7 weight noise (most draws move no bf16
+            # weight, and so no gradient), so the CPU's own move is taken
+            # under noise of one bf16 rounding, 2^-8; that move is itself the
+            # size of bf16's error (~0.9 of the worst tensor, ~0.3 of the
+            # median one on the CPU).  One draw's loss move varies by an
+            # order of magnitude from draw to draw, and the card's bf16 step
+            # is not deterministic (its atomics sum in no fixed order), so
+            # the scale is the root mean square over BF16_NOISE_DRAWS draws,
+            # the bars are 2x it (on the loss, the worst and the median
+            # tensor), and two runs on the card must each meet them.  The
+            # output conv's bias, whose exact gradient is 0, holds bf16
+            # rounding noise on both sides and is printed apart.
+            skip = "cost_regularization.conv_0.bias"
+            moves = {"loss": [], "worst": [], "median": []}
+            for _ in range(BF16_NOISE_DRAWS):
+                loss_n8, g_n8, _ = _small_loss_and_grads(host, config, "cpu", label,
+                                                         2.0**-8, noise)
+                move = list(_relative(g_cpu, g_n8, skip).values())
+                moves["loss"].append(abs(loss_n8 - loss_cpu) / abs(loss_cpu))
+                moves["worst"].append(max(move))
+                moves["median"].append(float(np.median(move)))
+            rms = {k: float(np.sqrt(np.mean(np.square(v)))) for k, v in moves.items()}
+            loss_bar = max(1e-5, 2 * rms["loss"])
+            worst_bar = max(1e-3, 2 * rms["worst"])
+            median_bar = 2 * rms["median"]
+            loss_cuda2, g_cuda2, launched = _small_loss_and_grads(host, config, "cuda", label)
+            if launched != want:
+                _fail(f"small CUDA {name} training step launched the gate kernels "
+                      f"{launched} times, not {want}")
+            runs = []
+            for loss_c, g_c in ((loss_cuda, g_cuda), (loss_cuda2, g_cuda2)):
+                dev = _relative(g_cpu, g_c, skip)
+                dev_name = max(dev, key=dev.get)
+                runs.append((abs(loss_c - loss_cpu) / abs(loss_cpu), dev[dev_name], dev_name,
+                             float(np.median(list(dev.values()))),
+                             (g_c[skip] - g_cpu[skip]).abs().max().item()))
+            ok = all(r[0] <= loss_bar and r[1] <= worst_bar and r[3] <= median_bar
+                     for r in runs)
+            move7 = _relative(g_cpu, g_n7, skip)
+            span = {k: f"{min(v):.2e}-{max(v):.2e}" for k, v in moves.items()}
+            print(f"{label}: CUDA (two runs) vs CPU at {SMALL_H}x{SMALL_W}, V={SMALL_V}, "
+                  f"D={GRAD_D}, depth_block {GRAD_BLOCK}, remat: loss {loss_cuda:.6f}, "
+                  f"{loss_cuda2:.6f} vs {loss_cpu:.6f} (rel {runs[0][0]:.2e}, {runs[1][0]:.2e}; "
+                  f"the two runs {abs(loss_cuda2 - loss_cuda) / abs(loss_cpu):.2e} apart; bar "
+                  f"{loss_bar:.2e} = 2 x the root mean square of the moves under "
+                  f"{BF16_NOISE_DRAWS} draws of 2^-8 noise, {span['loss']}; 1e-7 noise moved "
+                  f"it {abs(loss_n7 - loss_cpu) / abs(loss_cpu):.2e}); gradients of "
+                  f"{len(dev)} tensors, worst {runs[0][1]:.3e} ({runs[0][2]}), {runs[1][1]:.3e} "
+                  f"({runs[1][2]}), bar {worst_bar:.3e} (moves {span['worst']}); median "
+                  f"{runs[0][3]:.3e}, {runs[1][3]:.3e}, bar {median_bar:.3e} (moves "
+                  f"{span['median']}); the CPU's own worst move under 1e-7 noise "
+                  f"{max(move7.values()):.3e}; {skip} max_abs_err {runs[0][4]:.2e}, "
+                  f"{runs[1][4]:.2e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            _fail(f"CUDA {name} training gradients disagree with the CPU ones")
 
 
 def phase_train_evidential_small() -> None:
@@ -1389,18 +1546,23 @@ def phase_main_levers(samples, packed_depth0: np.ndarray, phase5: dict) -> int:
     return launches
 
 
-def phase_train() -> tuple[int, int]:
+def _dtu_train_sample():
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample
+
+    # DTU training cameras at 160x128 have a focal length of ~361 px.
+    return plane_train_sample(TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, seed=SEED + 5,
+                              focal=361.54, baseline=20.0, plane_depth=600.0,
+                              depth_min=425.0, depth_interval=2.65)
+
+
+def phase_train() -> dict:
     from aa_rmvsnet_tpu_torch.models import AARMVSNetCore
     from aa_rmvsnet_tpu_torch.ops import gates
     from aa_rmvsnet_tpu_torch.pipeline.checkpoint import restore_latest
     from aa_rmvsnet_tpu_torch.pipeline.train import TrainConfig, make_optimizer, run_training
-    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample, seeded_model
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
 
-    # DTU training cameras at 160x128 have a focal length of ~361 px.
-    sample = plane_train_sample(TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, seed=SEED + 5,
-                                focal=361.54, baseline=20.0, plane_depth=600.0,
-                                depth_min=425.0, depth_interval=2.65)
-    dataset = [sample] * TRAIN_STEPS
+    dataset = [_dtu_train_sample()] * TRAIN_STEPS
     model = seeded_model(SEED)
     with tempfile.TemporaryDirectory() as logdir:
         config = TrainConfig(
@@ -1446,7 +1608,8 @@ def phase_train() -> tuple[int, int]:
           f"(= 5 x {TRAIN_D} x {TRAIN_STEPS}); checkpoint of step {restored} restored "
           f"bit for bit, resumed step {resumed['step']} loss "
           f"{resumed['losses'][0]:.4f}", flush=True)
-    return launches, backward
+    return {"launches": launches, "backward": backward, "step_seconds": stats["step_seconds"],
+            "peak": peak}
 
 
 def phase_train_evidential() -> tuple[int, int]:
@@ -1459,12 +1622,9 @@ def phase_train_evidential() -> tuple[int, int]:
         run_training,
         trainable_parameters,
     )
-    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample, seeded_model
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
 
-    sample = plane_train_sample(TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, seed=SEED + 5,
-                                focal=361.54, baseline=20.0, plane_depth=600.0,
-                                depth_min=425.0, depth_interval=2.65)
-    dataset = [sample] * TRAIN_STEPS
+    dataset = [_dtu_train_sample()] * TRAIN_STEPS
     model = seeded_model(SEED)
     # cli train --evidential's fresh head: the JAX init, from seed 1.
     head = EvidentialHead(TRAIN_MAXDISP, generator=torch.Generator().manual_seed(1))
@@ -1530,6 +1690,326 @@ def phase_train_evidential() -> tuple[int, int]:
           f"{restored} restored bit for bit (core, head, statistics, Adam moments), resumed "
           f"step {resumed['step']} loss {resumed['losses'][0]:.4f}", flush=True)
     return launches, backward
+
+
+def phase_train_bf16(phase6: dict) -> dict:
+    """Phase 6c: ``run_training`` in bf16 at ``dtu_train``, then one step
+    with ``fold_omega=True``; returns the launches of both paths."""
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.pipeline.train import TrainConfig, run_training
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    counters = ("launches", "backward_launches", "bf16_launches", "bf16_backward_launches")
+    sample = _dtu_train_sample()
+    config = TrainConfig(
+        learning_rate=1e-3, lr_min=2e-6, total_steps=DTU_TRAIN_TOTAL_STEPS,
+        depth_block=TRAIN_BLOCK, epochs=1, batch_size=1, num_workers=2,
+        summary_freq=TRAIN_STEPS, device="cuda", feature_dtype=torch.bfloat16,
+    )
+    model = seeded_model(SEED)
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        setattr(gates, k, 0)
+    stats = run_training(model, [sample] * TRAIN_STEPS, config)
+    launched = tuple(getattr(gates, k) for k in counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = stats["losses"]
+    expect = (2 * 5 * TRAIN_D * TRAIN_STEPS, 5 * TRAIN_D * TRAIN_STEPS) * 2
+    if stats["step"] != TRAIN_STEPS or launched != expect:
+        _fail(f"bf16 training ran {stats['step']} steps with gate-kernel launches {launched} "
+              f"(forward, backward, bf16 forward, bf16 backward); expected {TRAIN_STEPS}, "
+              f"{expect}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        _fail(f"bf16 training losses not finite and falling: {losses}")
+    moved = sum(not torch.equal(p.detach().cpu(), b) for p, b in zip(model.parameters(), before))
+    if any(p.dtype != torch.float32 for p in model.parameters()) or moved == 0:
+        _fail(f"bf16 training: master weights not fp32 or unchanged ({moved} moved)")
+
+    # One step with folded omega (fp32), JAX's other training lever.
+    fold = TrainConfig(**{**config.__dict__, "feature_dtype": torch.float32,
+                          "fold_omega": True, "summary_freq": 1})
+    model = seeded_model(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        setattr(gates, k, 0)
+    fold_stats = run_training(model, [sample], fold)
+    fold_launched = tuple(getattr(gates, k) for k in counters)
+    fold_peak = torch.cuda.max_memory_allocated()
+    if fold_launched != (2 * 5 * TRAIN_D, 5 * TRAIN_D, 0, 0) \
+            or not np.isfinite(fold_stats["losses"]).all():
+        _fail(f"fold_omega=True step: launches {fold_launched}, losses {fold_stats['losses']}")
+
+    def mean_after_first(secs):
+        return float(np.mean(secs[1:])) if len(secs) > 1 else float(secs[0])
+
+    secs = ", ".join(f"{x:.3f}" for x in stats["step_seconds"])
+    print(f"train-bf16: run_training, feature_dtype=torch.bfloat16, at {TRAIN_H}x{TRAIN_W}, "
+          f"V={TRAIN_V}, D={TRAIN_D}, depth_block {TRAIN_BLOCK}, batch 1, fp32 master weights "
+          f"and Adam: {TRAIN_STEPS} steps, seconds per step [{secs}], mean of steps 2-"
+          f"{TRAIN_STEPS} {mean_after_first(stats['step_seconds']):.3f} s against phase 6's "
+          f"fp32 {mean_after_first(phase6['step_seconds']):.3f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB against {phase6['peak'] / 2**30:.2f}; losses "
+          f"[{', '.join(f'{x:.4f}' for x in losses)}]; gate kernel launches forward "
+          f"{launched[0]} (= 2 x 5 x {TRAIN_D} x {TRAIN_STEPS}, all bf16), backward "
+          f"{launched[1]} (= 5 x {TRAIN_D} x {TRAIN_STEPS}, all bf16); {moved} parameter "
+          f"tensors moved, all fp32", flush=True)
+    print(f"train-fold: one run_training step with fold_omega=True, fp32, at the same "
+          f"geometry: {fold_stats['step_seconds'][0]:.3f} s (the first step of a process "
+          f"section, against phase 6's first {phase6['step_seconds'][0]:.3f} s), peak memory "
+          f"{fold_peak / 2**30:.2f} GiB, loss {fold_stats['losses'][0]:.4f}, gate kernel "
+          f"launches forward {fold_launched[0]}, backward {fold_launched[1]}", flush=True)
+    return {"training_bf16": launched[:2], "training_fold_omega": fold_launched[:2]}
+
+
+# One rank of phase 6d: a train_step of the seeded core (and head) on its
+# row of the global batch, under a gloo mesh on cuda:0 (mode "rank"), or a
+# world-size-1 NCCL group's step against the step without a mesh (mode
+# "nccl"); the results go to a torch.save file.  A warm-up step on a copy
+# of the weights comes first, so that the compared step does not pay the
+# process's first calls; two more steps after it are timed.
+DP_WORKER = """
+import json, sys, time
+import numpy as np, torch
+from aa_rmvsnet_tpu_torch.models import AARMVSNetCore, EvidentialHead
+from aa_rmvsnet_tpu_torch.ops import gates
+from aa_rmvsnet_tpu_torch.parallel import initialize_distributed, make_mesh
+from aa_rmvsnet_tpu_torch.pipeline.train import (
+    TrainConfig, make_optimizer, train_step, trainable_parameters)
+from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
+
+a = json.loads(sys.argv[1])
+disable_tf32()
+if a["mode"] == "rank":
+    initialize_distributed(f"localhost:{a['port']}", 2, a["rank"], backend="gloo")
+else:
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{a['port']}",
+                                         world_size=1, rank=0)
+mesh = make_mesh(device="cuda")
+weights = torch.load(a["weights"], weights_only=True)
+data = np.load(a["batch"])
+rows = slice(a["rank"], a["rank"] + 1)
+batch = {k: torch.from_numpy(np.ascontiguousarray(data[k][rows])).cuda() for k in data.files}
+
+
+def step(with_mesh, timed_after=0):
+    model = AARMVSNetCore()
+    model.load_state_dict(weights["core"])
+    head = None
+    if a["evidential"]:
+        head = EvidentialHead(a["maxdisp"])
+        head.load_state_dict(weights["head"])
+        head.cuda()
+    model.cuda()
+    config = TrainConfig(depth_block=a["block"], device="cuda", evidential=a["evidential"],
+                         maxdisp=a["maxdisp"], mesh=mesh if with_mesh else None)
+    optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config,
+                                          a["total_steps"])
+    gates.launches = gates.backward_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, _ = train_step(model, optimizer, scheduler, batch, config, head)
+    torch.cuda.synchronize()
+    seconds = [time.perf_counter() - t0]
+    out = {"peak": torch.cuda.max_memory_allocated(),
+           "launches": (gates.launches, gates.backward_launches),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+           "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    if head is not None:
+        out["grads"].update({"evidential." + n: p.grad.cpu() for n, p in head.named_parameters()})
+        out["state"].update({"evidential." + k: v.cpu() for k, v in head.state_dict().items()})
+    for _ in range(timed_after):
+        t0 = time.perf_counter()
+        train_step(model, optimizer, scheduler, batch, config, head)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    out["seconds"] = seconds
+    return out
+
+
+step(a["mode"] == "rank")  # warm-up
+out = step(True, timed_after=2)
+if a["mode"] == "nccl":
+    out = {"mesh": out, "plain": step(False), "backend": torch.distributed.get_backend()}
+torch.save(out, a["out"])
+torch.distributed.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _run_workers(argss: list[dict], workdir: str, timeout: float = 600) -> list[dict]:
+    """Run DP_WORKER once per argument dict, all at once, under one
+    deadline; a hang or a failed process fails the phase."""
+    procs = []
+    for i, args in enumerate(argss):
+        args = {**args, "out": os.path.join(workdir, f"out{i}.pt")}
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", DP_WORKER, json.dumps(args)], cwd=os.getcwd(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), args["out"]))
+    try:
+        results = [proc.communicate(timeout=timeout) for proc, _ in procs]
+    except subprocess.TimeoutExpired:
+        _fail(f"data-parallel workers did not finish in {timeout} s")
+    finally:
+        for proc, _ in procs:
+            proc.kill()
+    for (proc, _), (_, err) in zip(procs, results):
+        if proc.returncode != 0:
+            _fail(f"a data-parallel worker exited with {proc.returncode}: {err[-2000:]}")
+    return [torch.load(out, weights_only=False) for _, out in procs]
+
+
+def _single_step(weights: dict, batch: dict, evidential: bool, nudge: float = 0.0) -> dict:
+    """The same step in this process on the whole global batch, no mesh."""
+    from aa_rmvsnet_tpu_torch.models import AARMVSNetCore, EvidentialHead
+    from aa_rmvsnet_tpu_torch.pipeline.train import (
+        TrainConfig,
+        make_optimizer,
+        train_step,
+        trainable_parameters,
+    )
+
+    model = AARMVSNetCore()
+    model.load_state_dict(weights["core"])
+    head = None
+    if evidential:
+        head = EvidentialHead(TRAIN_MAXDISP)
+        head.load_state_dict(weights["head"])
+    if nudge:
+        noise = torch.Generator().manual_seed(SEED + 12)
+        with torch.no_grad():
+            for p in trainable_parameters(model, head):
+                p.mul_(1 + nudge * torch.randn(p.shape, generator=noise))
+    model.cuda()
+    if head is not None:
+        head.cuda()
+    config = TrainConfig(depth_block=TRAIN_BLOCK, device="cuda", evidential=evidential,
+                         maxdisp=TRAIN_MAXDISP)
+    optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config,
+                                          DTU_TRAIN_TOTAL_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, _ = train_step(model, optimizer, scheduler,
+                            {k: torch.from_numpy(v).cuda() for k, v in batch.items()},
+                            config, head)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+           "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    if head is not None:
+        out["grads"].update({"evidential." + n: p.grad.cpu() for n, p in head.named_parameters()})
+        out["state"].update({"evidential." + k: v.cpu() for k, v in head.state_dict().items()})
+    return out
+
+
+def phase_data_parallel(phase6: dict) -> tuple[int, int]:
+    """Phase 6d: two gloo ranks on cuda:0 at batch 1 each against this
+    process at batch 2, for the core and the evidential head; then a
+    world-size-1 NCCL group's step.  Returns the ranks' gate launches."""
+    from aa_rmvsnet_tpu_torch.models import EvidentialHead
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_train_sample, seeded_model
+
+    rows = [_dtu_train_sample(), plane_train_sample(
+        TRAIN_H, TRAIN_W, TRAIN_V, TRAIN_D, seed=SEED + 7, focal=361.54, baseline=20.0,
+        plane_depth=620.0, depth_min=425.0, depth_interval=2.65)]
+    keys = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
+    batch = {k: np.stack([r[k] for r in rows]) for k in keys}
+    batch["mask"][1, : TRAIN_H // 2] = 0.0  # the ranks' valid counts differ
+    weights = {"core": seeded_model(SEED).state_dict(),
+               "head": EvidentialHead(TRAIN_MAXDISP,
+                                      generator=torch.Generator().manual_seed(1)).state_dict()}
+    launched = [0, 0]
+    with tempfile.TemporaryDirectory() as workdir:
+        np.savez(os.path.join(workdir, "batch.npz"), **batch)
+        torch.save(weights, os.path.join(workdir, "weights.pt"))
+        common = dict(weights=os.path.join(workdir, "weights.pt"),
+                      batch=os.path.join(workdir, "batch.npz"), block=TRAIN_BLOCK,
+                      maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
+        for evidential in (False, True):
+            name = "evidential" if evidential else "core"
+            port = _free_port()
+            t0 = time.perf_counter()
+            ranks = _run_workers([dict(common, mode="rank", rank=r, port=port,
+                                       evidential=evidential) for r in range(2)], workdir)
+            wall = time.perf_counter() - t0
+            single = _single_step(weights, batch, evidential)
+            nudged = _single_step(weights, batch, evidential, nudge=1e-7)
+            for r in ranks:
+                if r["launches"] != (2 * 5 * TRAIN_D, 5 * TRAIN_D):
+                    _fail(f"a {name} rank launched the gate kernels {r['launches']} times")
+                launched[0] += r["launches"][0]
+                launched[1] += r["launches"][1]
+            same = all(torch.equal(t, ranks[1]["state"][k]) for k, t in ranks[0]["state"].items())
+            loss, want = ranks[0]["metrics"]["loss"], single["metrics"]["loss"]
+            loss_rel = abs(loss - want) / abs(want)
+            grad_name, grad_err = _worst(single["grads"], ranks[0]["grads"])
+            move_name, move = _worst(single["grads"], nudged["grads"])
+            bar = max(2e-4, 10 * move)
+            # Adam's first step moves a weight by ~lr times its gradient's
+            # sign: where the gradient is inside its bar of 0 the sign, and
+            # the move, are rounding (within 2 lr); elsewhere 1e-6.
+            weight_err = 0.0
+            for k, g in single["grads"].items():
+                settled = g.abs() > 2 * bar * max(g.abs().max().item(), 1e-3)
+                err = (ranks[0]["state"][k] - single["state"][k]).abs()
+                if err.max().item() > 2e-3:
+                    _fail(f"{name}: weight {k} moved {err.max().item():.3e} from the "
+                          "single-process step, more than 2 x the rate")
+                weight_err = max(weight_err, err[settled].max().item() if settled.any() else 0)
+            stats = {k: v for k, v in single["state"].items()
+                     if k.endswith(("running_mean", "running_var"))}
+            stat_err = max((((ranks[0]["state"][k] - v).abs().max().item()
+                             / max(v.abs().max().item(), 1e-3)) for k, v in stats.items()),
+                           default=0.0)
+            ok = (same and loss_rel <= 1e-5 and grad_err <= bar and weight_err <= 1e-6
+                  and stat_err <= 1e-5)
+            print(f"data-parallel {name}: two gloo ranks on cuda:0 at batch 1 (rank 1 with half "
+                  f"its pixels masked) against one process at batch 2, {TRAIN_H}x{TRAIN_W}, "
+                  f"V={TRAIN_V}, D={TRAIN_D}{f', maxdisp {TRAIN_MAXDISP}' if evidential else ''}"
+                  f": ranks equal bit for bit {same}; loss {loss:.6f} vs {want:.6f} (rel "
+                  f"{loss_rel:.2e}, bar 1e-5); gradients worst {grad_err:.2e} ({grad_name}), "
+                  f"bar {bar:.2e} (the single step's move under 1e-7 weight noise {move:.2e}, "
+                  f"{move_name}); updated weights {weight_err:.2e} where the gradient is "
+                  f"settled (bar 1e-6); {len(stats)} BatchNorm statistics worst "
+                  f"{stat_err:.2e} (bar 1e-5); seconds a step after a warm-up one: ranks "
+                  f"[{', '.join(f'{x:.3f}' for x in ranks[0]['seconds'])}], "
+                  f"[{', '.join(f'{x:.3f}' for x in ranks[1]['seconds'])}] (two processes "
+                  f"sharing the card, {wall:.1f} s from spawn to exit), one process at batch 2 "
+                  f"{single['seconds']:.3f}, phase 6's fp32 batch 1 "
+                  f"{float(np.mean(phase6['step_seconds'][1:])):.3f}; peak memory a rank "
+                  f"{ranks[0]['peak'] / 2**30:.2f} GiB, batch 2 {single['peak'] / 2**30:.2f} "
+                  f"GiB {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                _fail(f"the {name} data-parallel step disagrees with the global-batch step")
+
+        (nccl,) = _run_workers([dict(common, mode="nccl", rank=0, port=_free_port(),
+                                     evidential=False)], workdir)
+        mesh, plain = nccl["mesh"], nccl["plain"]
+        loss_rel = abs(mesh["metrics"]["loss"] - plain["metrics"]["loss"]) \
+            / abs(plain["metrics"]["loss"])
+        grad_name, grad_err = _worst(plain["grads"], mesh["grads"])
+        ok = nccl["backend"] == "nccl" and loss_rel <= 1e-5 and grad_err <= 2e-4 \
+            and mesh["launches"] == (2 * 5 * TRAIN_D, 5 * TRAIN_D)
+        print(f"data-parallel nccl: a world-size-1 {nccl['backend']} group's step on cuda:0 "
+              f"against the step without a mesh: loss rel {loss_rel:.2e} (bar 1e-5), "
+              f"gradients worst {grad_err:.2e} ({grad_name}, bar 2e-4), seconds a step "
+              f"[{', '.join(f'{x:.3f}' for x in mesh['seconds'])}] against "
+              f"{plain['seconds'][0]:.3f} s; gate kernel launches {mesh['launches']} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            _fail("the world-size-1 NCCL step disagrees with the step without a mesh")
+    return tuple(launched)
 
 
 def phase_feat_chunk(samples, phase5: dict) -> None:
@@ -1951,6 +2431,7 @@ def main() -> int:
     backward = phase_backward_kernel()
     phase_small()
     phase_train_small()
+    phase_train_levers_small()
     phase_train_evidential_small()
     phase_packed_small()
     phase_bf16_guardrail()
@@ -1962,8 +2443,11 @@ def main() -> int:
     fp32_launches = phase_main_exact(samples, packed_depth0)
     evidential_launches, evidential_backward = phase_evidential(samples)
     levers_launches = phase_main_levers(samples, packed_depth0, phase5)
-    forward["launches"], backward["launches"] = phase_train()
+    phase6 = phase_train()
+    forward["launches"], backward["launches"] = phase6["launches"], phase6["backward"]
     train_ev_launches, train_ev_backward = phase_train_evidential()
+    levers = phase_train_bf16(phase6)
+    levers["training_data_parallel"] = phase_data_parallel(phase6)
     fusion = phase_fusion_kernel()
     fusion["launches"] = phase_fusion_scan()
     chain_launches, chain_fused = phase_chain()
@@ -1975,6 +2459,7 @@ def main() -> int:
                                    "inference_levers": levers_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches,
+                                   **{k: v[0] for k, v in levers.items()},
                                    "chain": chain_launches,
                                    "export": export_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
@@ -1982,6 +2467,7 @@ def main() -> int:
                                     "inference_levers": 0,
                                     "training": backward["launches"],
                                     "training_evidential": train_ev_backward,
+                                    **{k: v[1] for k, v in levers.items()},
                                     "chain": 0, "export": 0}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [forward, backward, fusion]}), flush=True)

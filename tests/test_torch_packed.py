@@ -311,9 +311,25 @@ def test_invalid_sweep_configs_raise(model, config, error):
 
 
 def test_bf16_sweep_refuses_gradients(model):
-    args = map(torch.from_numpy, _random_scene(seed=9, D=4))
-    with pytest.raises(NotImplementedError, match="no_grad"):
-        forward(model, *args, SweepConfig(depth_block=4, feature_dtype=torch.bfloat16))
+    """A bf16 sweep under autograd no longer refuses: it used to run on a
+    copy of the model, which no gradient reached.  It now casts the
+    parameters in the graph, so the gradients reach the caller's fp32
+    parameters, in fp32, and the caller's model stays fp32; without a graph
+    it still runs on ``cast_model``'s copy."""
+    net = AARMVSNetCore()
+    net.load_state_dict(model.state_dict())
+    args = list(map(torch.from_numpy, _random_scene(seed=9, D=4)))
+    out = forward(net, *args, SweepConfig(depth_block=4, feature_dtype=torch.bfloat16))
+    assert out["cost_volume"].dtype == torch.float32
+    out["cost_volume"].sum().backward()
+    for name, p in net.named_parameters():
+        assert p.dtype == torch.float32 and p.grad is not None, name
+        assert p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all(), name
+    assert net.feature.conv2[0].weight.grad.abs().max() > 0
+    with torch.no_grad():
+        again = forward(net, *args, SweepConfig(depth_block=4, feature_dtype=torch.bfloat16))
+    torch.testing.assert_close(again["cost_volume"], out["cost_volume"].detach(), atol=0,
+                               rtol=0)
 
 
 # (h) ------------------------------------------------------------------------

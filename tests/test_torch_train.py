@@ -237,9 +237,18 @@ def test_resume_continues_the_uninterrupted_run_exactly(tmp_path):
 
 
 def test_unported_train_options_are_refused():
-    for option in ({"fold_omega": "hybrid"}, {"feature_dtype": torch.bfloat16},
-                   {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    """bf16 and folded omega are ported and reach the sweep; what neither
+    the JAX package nor the port takes is refused: another feature dtype,
+    another fold, a mesh that is no ``parallel.mesh.Mesh``."""
+    sweep = TrainConfig(feature_dtype=torch.bfloat16, fold_omega="hybrid").sweep()
+    assert (sweep.feature_dtype, sweep.fold_omega, sweep.remat) == (torch.bfloat16, "hybrid",
+                                                                    True)
+    assert TrainConfig(fold_omega=True).sweep(remat=False).fold_omega is True
+    for option, error in (({"feature_dtype": torch.float16}, ValueError),
+                          ({"fold_omega": "folded"}, ValueError),
+                          ({"fold_omega": 1}, ValueError),
+                          ({"mesh": object()}, TypeError)):
+        with pytest.raises(error, match="TrainConfig"):
             TrainConfig(**option)
 
 
