@@ -39,8 +39,13 @@ JAX package's production stack is ``--int8_tables --dual_residual
 parallel across N processes on ``torch.distributed`` (one card each, NCCL;
 gloo with ``--device cpu``), ``--batch_size`` per process, as the JAX CLI
 does, and ``--single_device`` makes each process step alone on its shard.
-The JAX CLI's other multi-device flags (``eval --fanout --spatial
---depth_stages --pipeline_maps``, ``train --spatial``) are accepted by the
+``eval --fanout N`` (the samples spread over N ranks) and ``eval
+--depth_stages P [--pipeline_maps M]`` (the depth-block pipeline over P
+ranks) start their ranks themselves, on a free port of localhost: rank
+``k`` on ``cuda:{k % device_count}``, NCCL where every rank has a card of
+its own and gloo otherwise (so that ranks can share one card), gloo ranks
+on the CPU with ``--device cpu``; a rank that fails fails the command.
+The JAX CLI's ``--spatial`` (``eval`` and ``train``) is accepted by the
 parser only to fail with "not ported yet".
 """
 
@@ -48,14 +53,9 @@ from __future__ import annotations
 
 import argparse
 
-#: JAX ``eval`` flags the port does not implement yet (multi-device
-#: layouts).
-NOT_PORTED = ("fanout", "spatial", "depth_stages", "pipeline_maps")
-
-
-#: JAX ``train`` flags the port does not implement yet (the spatial mesh
-#: axis).
-NOT_PORTED_TRAIN = ("spatial",)
+#: JAX ``eval`` and ``train`` flags the port does not implement yet (the
+#: spatial mesh axis).
+NOT_PORTED = ("spatial",)
 
 
 def _fold_omega_arg(s: str):
@@ -176,6 +176,15 @@ def _add_eval(sub):
                         "always runs its ConvLSTM gate kernel on the card")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) fails where there is no card")
+    p.add_argument("--fanout", type=int, default=1,
+                   help="spread the samples over N ranks, each writing its own maps "
+                        "(the JAX CLI's data mesh axis)")
+    p.add_argument("--depth_stages", type=int, default=1,
+                   help="pipeline depth chunks across N ranks (ConvLSTM carry handed "
+                        "over between them; exclusive with --fanout/--spatial and "
+                        "--evidential_ckpt)")
+    p.add_argument("--pipeline_maps", type=int, default=None,
+                   help="maps per depth-pipeline launch (default 2x stages)")
     _add_not_ported(p, NOT_PORTED)
     return p
 
@@ -221,7 +230,7 @@ def _add_train(sub):
     p.add_argument("--process_id", type=int, default=0)
     p.add_argument("--single_device", action="store_true",
                    help="no mesh: each process steps alone on its data shard")
-    _add_not_ported(p, NOT_PORTED_TRAIN)
+    _add_not_ported(p, NOT_PORTED)
     return p
 
 
@@ -313,9 +322,89 @@ def _load(flag: str, loader, module, path):
         raise SystemExit(f"{flag} {exc}") from exc
 
 
+def _check_eval_ranks(args) -> None:
+    """The multi-rank flags of ``eval``, refused by name where they cannot
+    work."""
+    for flag in ("fanout", "depth_stages", "pipeline_maps"):
+        value = getattr(args, flag)
+        if value is not None and value < 1:
+            raise SystemExit(f"--{flag} {value}: must be at least 1")
+    if args.depth_stages > 1 and args.fanout > 1:
+        raise SystemExit("--depth_stages is exclusive with --fanout/--spatial")
+
+
 def cmd_eval(args):
     _refuse_not_ported(args, NOT_PORTED)
+    _check_eval_ranks(args)
+    cfg = _eval_preset(args)
+    if args.dry_check:
+        from .data.validate import check_dataset_root
 
+        with open(args.testlist) as f:
+            scans = [line.strip() for line in f if line.strip()]
+        report = check_dataset_root(args.testpath, scans, padded=cfg.pad_vertical)
+        print(report.summary())
+        if not report.ok:
+            raise SystemExit(1)
+        return
+    if not args.loadckpt:
+        raise SystemExit("--loadckpt is required (or use --dry_check)")
+    ranks = args.fanout * args.depth_stages
+    if ranks == 1:
+        _eval(args, cfg)
+    else:
+        _spawn_eval(args, ranks)
+
+
+def _spawn_eval(args, ranks: int) -> None:
+    """Start ``ranks`` processes of ``eval`` on a free port of localhost and
+    wait for them; a rank that fails ends the others and the command."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from .cli import _eval_rank  # by the package's name, which the ranks import
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = "nccl" if cards >= ranks else "gloo"
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    axis = (f"--fanout {args.fanout}" if args.fanout > 1
+            else f"--depth_stages {args.depth_stages}")
+    where = ("the CPU" if device.type == "cpu"
+             else ", ".join(f"cuda:{k % cards}" for k in range(ranks)))
+    print(f"eval: {ranks} ranks ({axis}) on torch.distributed, backend {backend}, "
+          f"ranks on {where}", flush=True)
+    try:
+        mp.start_processes(_eval_rank, args=(args, ranks, port, backend), nprocs=ranks,
+                           start_method="spawn")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        raise SystemExit(f"eval: a rank failed: {exc}") from exc
+
+
+def _eval_rank(rank: int, args, ranks: int, port: int, backend: str) -> None:
+    """One rank of a multi-rank ``eval``: joins the process group, takes its
+    card and runs ``eval`` under the mesh of ``--fanout`` or
+    ``--depth_stages``."""
+    import torch
+
+    from .parallel.mesh import initialize_distributed, make_mesh
+
+    initialize_distributed(f"localhost:{port}", ranks, rank, backend=backend)
+    try:
+        mesh = make_mesh(data=args.fanout, depth=args.depth_stages, device=args.device)
+        if mesh.device.type == "cuda":
+            torch.cuda.set_device(mesh.device)
+        _eval(args, _eval_preset(args), mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _eval_preset(args):
     from .utils.config import eval_preset
 
     overrides = {
@@ -329,20 +418,12 @@ def cmd_eval(args):
         )
         if v is not None
     }
-    cfg = eval_preset(args.preset, **overrides)
-    if args.dry_check:
-        from .data.validate import check_dataset_root
+    return eval_preset(args.preset, **overrides)
 
-        with open(args.testlist) as f:
-            scans = [line.strip() for line in f if line.strip()]
-        report = check_dataset_root(args.testpath, scans, padded=cfg.pad_vertical)
-        print(report.summary())
-        if not report.ok:
-            raise SystemExit(1)
-        return
-    if not args.loadckpt:
-        raise SystemExit("--loadckpt is required (or use --dry_check)")
 
+def _eval(args, cfg, mesh=None) -> None:
+    """``eval`` past its checks: the model, the dataset and
+    ``run_inference``, in this process or as one rank of ``mesh``."""
     import torch
 
     from .data.eval_dataset import EvalDataset
@@ -398,9 +479,12 @@ def cmd_eval(args):
             evidential=head, depth_source=depth_source,
             table_dtype=table_dtype, residual_dtype=residual_dtype,
             feature_view_chunk=args.feat_chunk, save_png_previews=args.save_png,
+            mesh=mesh, pipeline_maps=args.pipeline_maps,
         ),
     )
-    print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s")
+    if mesh is None or mesh.is_main:
+        print(f"eval done: {stats['count']} maps, {stats['maps_per_s']:.3f} maps/s",
+              flush=True)
 
 
 def cmd_fuse(args):
@@ -495,7 +579,7 @@ def _check_processes(args) -> None:
 
 
 def cmd_train(args):
-    _refuse_not_ported(args, NOT_PORTED_TRAIN)
+    _refuse_not_ported(args, NOT_PORTED)
     if not args.evidential:
         given = [f"--{n}" for n in ("head_ckpt", "maxdisp") if getattr(args, n) is not None]
         if given:

@@ -71,6 +71,7 @@ from .aggregation import InterViewAA, omega_folded
 from .feature import FeatNet
 from .init import init_like_jax
 from .regularizer import UNetConvLSTM, init_states
+from ..parallel.mesh import view_merge
 from ..ops.homography import homography_terms, max_depth_step_displacement, plane_sweep_xy
 from ..ops.patch_sample import (
     F8_MAX,
@@ -139,6 +140,14 @@ class SweepConfig:
     feature_view_chunk: FeatNet views per batch, 0 for all ``B*V`` at
       once (:func:`extract_features`); a chunk bounds FeatNet's peak
       memory and gives the same features.
+    mesh: a :class:`..parallel.mesh.Mesh` or ``None``.  With a view axis
+      that divides the source views the sweep is view-parallel
+      (:func:`view_shard`): each view rank runs FeatNet on the reference
+      view and its own source views, builds their tables and homography
+      terms, and merges its partial view mean over the view group once per
+      depth block; every rank then regularizes the same costs.  Other axes
+      do not change the sweep.  ``gather_pack > 1`` and ``residual_dtype``
+      raise on a view-parallel sweep, as in the JAX package.
     """
 
     depth_block: int = 16
@@ -153,6 +162,7 @@ class SweepConfig:
     table_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8
     residual_dtype: Any = None  # None | torch.float8_e4m3fn | torch.int8 | "dual"
     feature_view_chunk: int = 0
+    mesh: Any = None
 
 
 def pick_depth_block(num_depth: int, target: int) -> int:
@@ -493,27 +503,46 @@ def pick_packed_rows(proj_matrices, depth_values, height: int, width: int,
     return True
 
 
-def sweep(
-    model: AARMVSNetCore,
-    features: torch.Tensor,
-    proj_matrices: torch.Tensor,
-    depth_values: torch.Tensor,
-    config: SweepConfig = SweepConfig(),
-) -> dict:
-    """Plane sweep + recurrent regularization.
+def view_shard(mesh, num_views: int) -> range | None:
+    """This rank's source views when the sweep is view-parallel, else None.
 
-    Args:
-      features: ``(V, B, H, W, C)`` per-view features (view 0 = reference).
-      proj_matrices: ``(B, V, 4, 4)``.
-      depth_values: ``(B, D)`` hypothesis depths in sweep order (fp32).
+    The sweep is view-parallel when ``mesh`` has a view axis above 1 that
+    divides the ``num_views - 1`` source views; otherwise it runs
+    unsharded on every rank, without a word, as the JAX package's does.
+    View rank ``v`` takes the ``v``-th run of ``(num_views - 1) / view``
+    consecutive source views (1-based view indices)."""
+    if mesh is None:
+        return None
+    k = mesh.shape["view"]
+    if k <= 1 or (num_views - 1) % k:
+        return None
+    per = (num_views - 1) // k
+    first = 1 + mesh.coord("view") * per
+    return range(first, first + per)
 
-    Returns dict with ``depth`` ``(B, H, W)`` winner-take-all depth,
-    ``photometric_confidence`` ``(B, H, W)`` softmax probability of the
-    winner, and, if ``config.collect_volume``, ``cost_volume``
-    ``(B, D, H, W)`` (its softmax over D is the probability volume), all
-    fp32.
+
+def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: torch.Tensor,
+                 depth_values: torch.Tensor, states, config: SweepConfig) -> tuple:
+    """The sweep of the hypotheses ``depth_values`` from the ConvLSTM
+    carry ``states``: the tables and homography terms, then block by block
+    the cost, the regularizer and the online WTA + logsumexp.  :func:`sweep`
+    runs it over all D hypotheses from zero states; the depth pipeline
+    (``parallel/depth_pipeline.py``) over its stage's chunk from the carry
+    it receives.  ``model`` is already in the sweep's dtype.
+
+    Under a view mesh (:func:`view_shard`) the tables and terms are built
+    for this rank's source views only, and each block's partial view mean
+    is merged over the view group (``parallel.mesh.view_merge``);
+    ``features`` may then hold all views or the reference view and this
+    rank's source views only.
+
+    Returns ``(states, depth_img, max_cost, lse, volume)``: the carry
+    after the last hypothesis, the chunk's WTA depth, its maximum cost and
+    its logsumexp (fp32, ``(B, H, W)``), and the per-block fp32 costs
+    when ``config.collect_volume`` (else an empty list).
     """
-    V, B, H, W, C = features.shape
+    B, H, W, C = features.shape[1:]
+    V = proj_matrices.shape[1]
     D = depth_values.shape[1]
     block = pick_depth_block(D, config.depth_block)
     dtype = config.feature_dtype
@@ -522,6 +551,9 @@ def sweep(
         raise ValueError("gather_pack > 1 requires packed_rows")
     if config.fused_residual and not config.packed_rows:
         raise ValueError("fused_residual requires packed_rows")
+    shard = view_shard(config.mesh, V)
+    if pack > 1 and shard is not None:
+        raise ValueError("gather_pack > 1 is not supported on a view-sharded mesh")
     if D % (block * pack):
         raise ValueError(
             f"num_depth {D} not divisible by depth_block*gather_pack {block}*{pack}")
@@ -534,20 +566,29 @@ def sweep(
     if residual_dtype is not None and not (config.packed_rows or config.fold_omega is True):
         raise ValueError("residual_dtype requires packed_rows or fold_omega=True "
                          "(the folded cost layouts)")
-    model = _cast(model, dtype)
-    dev = features.device
+    if shard is not None and residual_dtype is not None:
+        raise ValueError(
+            "residual_dtype is not supported on a view-sharded mesh (the "
+            "shared residual scale would be closed over by shard_map)")
+    src_views = range(1, V) if shard is None else shard
+    if features.shape[0] == V:
+        src_index = list(src_views)
+    elif shard is not None and features.shape[0] == 1 + len(shard):
+        src_index = list(range(1, 1 + len(shard)))
+    else:
+        raise ValueError(f"sweep: {features.shape[0]} feature views for {V} cameras")
 
     with record_function("sweep.setup"):
         features = features.to(dtype)
         ref_feat = features[0]  # (B, H, W, C)
         taps = config.table_taps if config.packed_rows else 2
         if table_dtype is None:
-            src_tables = [build_patch_table_packed(features[v], taps) for v in range(1, V)]
-            table_scales = [None] * (V - 1)
+            src_tables = [build_patch_table_packed(features[i], taps) for i in src_index]
+            table_scales = [None] * len(src_index)
         else:
             with record_function("quant.tables"):
-                quantized = [build_patch_table_packed_quant(features[v], table_dtype, taps)
-                             for v in range(1, V)]
+                quantized = [build_patch_table_packed_quant(features[i], table_dtype, taps)
+                             for i in src_index]
             src_tables = [t for t, _ in quantized]
             table_scales = [s for _, s in quantized]
         residual_scale = None
@@ -560,12 +601,11 @@ def sweep(
             qmax = 127.0 if residual_dtype == torch.int8 else F8_MAX
             residual_scale = torch.clamp_min(true_div((2.0 * a) ** 2, qmax), 1e-12)
         ref_proj = proj_matrices[:, 0]
-        terms = [homography_terms(proj_matrices[:, v], ref_proj, H, W)
-                 for v in range(1, V)]
+        terms = [homography_terms(proj_matrices[:, v], ref_proj, H, W) for v in src_views]
         rot_grids = [t[0] for t in terms]
         transes = [t[1] for t in terms]
 
-        states = init_states(B, H, W, dtype=dtype, device=dev)
+        dev = features.device
         depth_img = torch.zeros(B, H, W, dtype=torch.float32, device=dev)
         max_cost = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
         lse = torch.full((B, H, W), -torch.inf, dtype=torch.float32, device=dev)
@@ -586,8 +626,8 @@ def sweep(
         one packed gather serves them all, and each sub-block takes its
         k-major columns of the folded result."""
         if pack == 1:
-            return [build(model, ref_feat, src_tables, rot_grids, transes, dsuper,
-                          table_scales)]
+            cost = build(model, ref_feat, src_tables, rot_grids, transes, dsuper, table_scales)
+            return [cost if shard is None else view_merge(cost, config.mesh)]
         ref_flat = ref_feat.reshape(B, H * W, C) if config.fused_residual else None
         warped = [_warp_packed(t, r, tr, dsuper, H, W, config.table_taps, ref_flat, s,
                                dtype, **levers)
@@ -645,7 +685,37 @@ def sweep(
                 lse = torch.logaddexp(lse, torch.logsumexp(sub, dim=0))
         if config.collect_volume:
             volume.append(costs)
+    return states, depth_img, max_cost, lse, volume
 
+
+def sweep(
+    model: AARMVSNetCore,
+    features: torch.Tensor,
+    proj_matrices: torch.Tensor,
+    depth_values: torch.Tensor,
+    config: SweepConfig = SweepConfig(),
+) -> dict:
+    """Plane sweep + recurrent regularization.
+
+    Args:
+      features: ``(V, B, H, W, C)`` per-view features (view 0 = reference);
+        under a view mesh also ``(1 + S/k, B, H, W, C)``, the reference
+        view and this rank's ``S/k`` source views (:func:`view_shard`).
+      proj_matrices: ``(B, V, 4, 4)``.
+      depth_values: ``(B, D)`` hypothesis depths in sweep order (fp32).
+
+    Returns dict with ``depth`` ``(B, H, W)`` winner-take-all depth,
+    ``photometric_confidence`` ``(B, H, W)`` softmax probability of the
+    winner, and, if ``config.collect_volume``, ``cost_volume``
+    ``(B, D, H, W)`` (its softmax over D is the probability volume), all
+    fp32.  Under a view mesh every view rank returns the same result.
+    """
+    _, B, H, W, _ = features.shape
+    model = _cast(model, config.feature_dtype)
+    with record_function("sweep.setup"):
+        states = init_states(B, H, W, dtype=config.feature_dtype, device=features.device)
+    _, depth_img, max_cost, lse, volume = _sweep_chunk(
+        model, features, proj_matrices, depth_values, states, config)
     out = {"depth": depth_img, "photometric_confidence": torch.exp(max_cost - lse)}
     if config.collect_volume:
         out["cost_volume"] = torch.cat(volume).permute(1, 0, 2, 3)
@@ -668,6 +738,10 @@ def forward(
     backward recomputes each block, plus 5 x D backward-kernel launches.
     """
     model = _cast(model, config.feature_dtype)
+    shard = view_shard(config.mesh, imgs.shape[1])
+    if shard is not None:
+        # FeatNet on the reference view and this rank's source views only.
+        imgs = imgs[:, [0, *shard]]
     return sweep(model, extract_features(model, imgs, config.feature_dtype,
                                          config.feature_view_chunk),
                  proj_matrices, depth_values, config)

@@ -1,29 +1,44 @@
-"""Process groups and the mesh of the data-parallel trainer (port of
+"""Process groups and the mesh over ranks (port of
 ``aa_rmvsnet_tpu/parallel/mesh.py``).
 
 The JAX package lays one program over a ``(data, view, spatial, depth)``
 mesh of devices, and GSPMD inserts its collectives.  The port runs one
-process per card on ``torch.distributed``: the ``data`` axis is the
-process group's ranks, rank ``k`` on ``cuda:{k % device_count}`` (or on
-the CPU), and the trainer issues the collectives itself
-(``pipeline/train.py``): rank 0's weights are broadcast before the first
-step, the gradients averaged before the global-norm clip, and the
-evidential loss's valid count and the head's BatchNorm statistics summed
-over the global batch.  Each process holds ``batch_size`` consecutive rows
-of the global batch, as ``form_global_batch`` lays them out in the JAX
-package, so the step equals one step on the concatenated global batch.
-The view, spatial and depth axes are not ported yet.
+process per rank on ``torch.distributed``, rank ``k`` on ``cuda:{k %
+device_count}`` (or on the CPU), lays the ranks out as the JAX package lays
+out its devices (``reshape(data, view, spatial, depth)``, depth fastest),
+gives every axis above 1 a process group, and calls the collectives
+itself:
+
+- ``data``: data-parallel training (``pipeline/train.py``: rank 0's
+  weights broadcast before the first step, the gradients averaged over the
+  data group before the global-norm clip, the evidential loss's valid count
+  and the head's BatchNorm statistics summed over the global batch; each
+  data rank holds ``batch_size`` consecutive rows of the global batch, as
+  ``form_global_batch`` lays them out) and the eval fan-out
+  (``pipeline/infer.py``: each data rank takes every ``data``-th sample);
+- ``view``: the sweep's source views split over the view ranks
+  (``models/network.py:sweep``), the view mean merged once per depth block
+  by :func:`view_merge`;
+- ``depth``: the depth-block pipeline (``parallel/depth_pipeline.py``),
+  whose stages hand the ConvLSTM carry on with :func:`send_carry` and
+  :func:`recv_carry`.
+
+The spatial axis (the row split with its halo exchanges) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import warnings
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+
+AXES = ("data", "view", "spatial", "depth")
 
 
 def initialize_distributed(coordinator: str | None = None, num_processes: int | None = None,
@@ -56,50 +71,123 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The port's mesh: this process's rank on the data axis, the world
-    size, the process group (None outside a process group: one process,
-    no collectives) and this rank's device."""
+    """The port's mesh: this process's rank, the world size, the world's
+    process group (None outside a process group: one process, no
+    collectives), this rank's device, the axis sizes ``(data, view,
+    spatial, depth)`` and one process group per axis: the world's where the
+    axis spans the world, None where it holds one rank of a larger world
+    (or there is no process group)."""
 
     rank: int
     world_size: int
     group: Any
     device: torch.device
+    sizes: tuple[int, int, int, int]
+    data_group: Any = None
+    view_group: Any = None
+    depth_group: Any = None
 
     @property
     def shape(self) -> dict:
-        return {"data": self.world_size, "view": 1, "spatial": 1, "depth": 1}
+        return dict(zip(AXES, self.sizes))
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (depth varies fastest)."""
+        i = AXES.index(axis)
+        inner = 1
+        for size in self.sizes[i + 1:]:
+            inner *= size
+        return (self.rank // inner) % self.sizes[i]
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
 
+def _rank_of(coords, sizes) -> int:
+    rank = 0
+    for c, size in zip(coords, sizes):
+        rank = rank * size + c
+    return rank
+
+
+def _axis_groups(rank: int, sizes: tuple) -> dict:
+    """One group per axis and setting of the other coordinates; this rank
+    keeps the one it is in.  An axis that spans the whole world is the
+    world's group, even at one rank (a world of one still runs its
+    collectives through the backend); any other axis of one rank has no
+    group.  ``dist.new_group`` is collective over the world, so every rank
+    creates every group in the same order, including the groups it is not
+    in."""
+    world = 1
+    for size in sizes:
+        world *= size
+    groups = {}
+    for axis in ("data", "view", "depth"):
+        i = AXES.index(axis)
+        if sizes[i] == world:
+            groups[axis] = dist.group.WORLD
+            continue
+        if sizes[i] == 1:
+            groups[axis] = None
+            continue
+        others = [range(s) for j, s in enumerate(sizes) if j != i]
+        for rest in itertools.product(*others):
+            ranks = [_rank_of(rest[:i] + (c,) + rest[i:], sizes) for c in range(sizes[i])]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    return groups
+
+
 def make_mesh(data: int | None = None, view: int = 1, spatial: int = 1, depth: int = 1,
               device: str = "cuda") -> Mesh:
-    """The data-parallel mesh over the process group's ranks (over this
-    process alone outside one).
+    """The ``(data, view, spatial, depth)`` mesh over the process group's
+    ranks (over this process alone outside one), laid out as the JAX
+    package lays out its devices: ``rank = ((d * view + v) * spatial + s)
+    * depth + p``.
 
     Args:
-      data: the data axis, the world size by default (anything else raises).
-      view, spatial, depth: the JAX package's other axes; above 1 they
-        raise ``NotImplementedError`` (not ported yet).
+      data: the data axis; ``world // (view * spatial * depth)`` by default.
+        Sizes whose product is not the world size raise the JAX package's
+        ``ValueError``.
+      view, depth: the view and depth axes.
+      spatial: above 1 it raises ``NotImplementedError`` (not ported yet).
       device: ``"cuda"`` (rank ``k`` takes ``cuda:{k % device_count}``;
         raises without a card) or ``"cpu"``.
     """
-    for name, size in (("view", view), ("spatial", spatial), ("depth", depth)):
-        if size != 1:
-            raise NotImplementedError(f"make_mesh: a {name} axis of {size}: not ported yet to "
-                                      "aa_rmvsnet_tpu_torch (only the data axis is)")
+    if spatial != 1:
+        raise NotImplementedError(f"make_mesh: a spatial axis of {spatial}: not ported yet "
+                                  "to aa_rmvsnet_tpu_torch (the data, view and depth axes "
+                                  "are)")
+    if view > 1 and spatial > 1:
+        warnings.warn(
+            "view > 1 combined with spatial > 1: fine for inference, but "
+            "GRADIENTS under this mesh are double-counted by the view-axis "
+            "size (upstream XLA SPMD partitioner bug — minimal repro in "
+            "tests/test_train.py:TestViewAxisSharding).  For training use "
+            "(data, view) or (data, spatial).",
+            UserWarning,
+            stacklevel=2,
+        )
     if dist.is_initialized():
         rank, world, group = dist.get_rank(), dist.get_world_size(), dist.group.WORLD
     else:
         rank, world, group = 0, 1, None
-    if data is not None and data != world:
-        raise ValueError(f"make_mesh: a data axis of {data} over {world} process(es)")
+    inner = view * spatial * depth
+    if data is None:
+        if world % inner:
+            raise ValueError(f"{world} devices not divisible by view*spatial*depth={inner}")
+        data = world // inner
+    if data * inner != world:
+        raise ValueError(f"mesh {data}x{view}x{spatial}x{depth} != {world} devices")
+    sizes = (data, view, spatial, depth)
+    groups = _axis_groups(rank, sizes) if group is not None else {}
     dev = resolve_device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-    return Mesh(rank, world, group, dev)
+    return Mesh(rank, world, group, dev, sizes, data_group=groups.get("data"),
+                view_group=groups.get("view"), depth_group=groups.get("depth"))
 
 
 def local_mesh(device: str = "cuda") -> Mesh:
@@ -108,17 +196,55 @@ def local_mesh(device: str = "cuda") -> Mesh:
     that writes, and no process group is given, so no collective runs and
     each process steps on its own batch."""
     mesh = make_mesh(device=device)
-    return dataclasses.replace(mesh, group=None)
+    return dataclasses.replace(mesh, group=None, data_group=None, view_group=None,
+                               depth_group=None)
 
 
-def all_reduce_mean(tensors: list[torch.Tensor], mesh: Mesh) -> None:
-    """Average ``tensors`` over the mesh's ranks in place: one all-reduce
-    of their concatenation (fp32 tensors of any shapes)."""
-    if mesh.group is None or not tensors:
+class _Shard:
+    """Every ``num``-th sample of a dataset from ``index`` (a dataset
+    without a ``shard`` method of its own)."""
+
+    def __init__(self, dataset, index: int, num: int):
+        self.dataset, self.indices = dataset, range(index, len(dataset), num)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]
+
+
+def shard_dataset(dataset, index: int, num: int):
+    """Rank ``index``'s shard of ``dataset`` among ``num`` ranks:
+    ``dataset.shard(index, num)`` where it has one (``DTUTrainDataset``: its
+    metas ``[index::num]``), else the same samples by index."""
+    if num == 1:
+        return dataset
+    if hasattr(dataset, "shard"):
+        return dataset.shard(index, num)
+    return _Shard(dataset, index, num)
+
+
+def all_reduce_mean(tensors: list[torch.Tensor], group) -> None:
+    """Average ``tensors`` over ``group``'s ranks in place (nothing without
+    a group): one all-reduce of their concatenation (fp32 tensors of any
+    shapes)."""
+    _all_reduce_flat(tensors, group, mean=True)
+
+
+def all_reduce_sum_(tensors: list[torch.Tensor], group) -> None:
+    """Sum ``tensors`` over ``group``'s ranks in place (nothing without a
+    group), in one all-reduce; not differentiable."""
+    _all_reduce_flat(tensors, group, mean=False)
+
+
+def _all_reduce_flat(tensors: list[torch.Tensor], group, mean: bool) -> None:
+    if group is None or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.world_size)
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat.div_(dist.get_world_size(group))
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -146,3 +272,77 @@ def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
     ``torch.distributed.nn.functional.all_reduce`` computes, which newer
     torch deprecates)."""
     return _AllReduceSum.apply(tensor, group)
+
+
+class _ViewMerge(torch.autograd.Function):
+    """The mean over the view group of each rank's partial view mean."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.size = size
+        # All-reduce the storage in its own order (the cost block is a
+        # permuted view of a pixel-major tensor), summed in fp32.
+        order = sorted(range(x.dim()), key=lambda i: -x.stride(i))
+        total = x.permute(order).to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(total, group=group)
+        inverse = sorted(range(x.dim()), key=order.__getitem__)
+        return total.div_(size).to(x.dtype).permute(inverse)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Every view rank computes the same loss from the merged value, so
+        # its cotangent is already the whole one: the sum passes it through
+        # and only the division applies.
+        return grad / ctx.size, None, None
+
+
+def view_merge(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over the mesh's view group divided by its size (the
+    JAX package's ``psum(local, "view") / k`` inside ``shard_map``),
+    differentiable: the backward divides the cotangent by the view size and
+    does not sum it, the opposite of :func:`all_reduce_sum`'s, because every
+    view rank's loss reads the same merged value.  The sum runs in fp32 and
+    rounds once to ``x``'s dtype."""
+    return _ViewMerge.apply(x, mesh.view_group, mesh.shape["view"])
+
+
+def _flat_carry(states) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for pair in states for t in pair])
+
+
+def send_carry(states, dst: int, group) -> tuple[Any, torch.Tensor]:
+    """Start sending the ConvLSTM carry ``states`` (5 ``(h, c)`` pairs) to
+    global rank ``dst``, as one flat message of its bytes.
+
+    gloo's point-to-point calls take host tensors only, so under gloo a
+    carry on the card is first copied, explicitly, to pinned host memory;
+    under NCCL the card's tensor is sent as it is.  The compute stays on
+    the card either way.  Returns ``(work, buffer)``: the send's handle and
+    the buffer it reads (keep it until ``work.wait()``)."""
+    flat = _flat_carry(states).view(torch.uint8)
+    if flat.is_cuda and dist.get_backend(group) == "gloo":
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(flat)
+        flat = host
+    return dist.isend(flat, dst=dst, group=group), flat
+
+
+def recv_carry(like, src: int, group) -> tuple:
+    """Receive from global rank ``src`` a carry shaped, typed and placed as
+    ``like`` (5 ``(h, c)`` pairs), sent by :func:`send_carry`.  Under gloo
+    the bytes arrive in pinned host memory and are copied to the card."""
+    ref = like[0][0]
+    nbytes = sum(t.numel() for pair in like for t in pair) * ref.element_size()
+    via_host = ref.is_cuda and dist.get_backend(group) == "gloo"
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=via_host,
+                      device="cpu" if via_host else ref.device)
+    dist.recv(buf, src=src, group=group)
+    flat = buf.to(ref.device).view(ref.dtype)
+    states, offset = [], 0
+    for h, c in like:
+        pair = []
+        for t in (h, c):
+            pair.append(flat[offset:offset + t.numel()].view(t.shape))
+            offset += t.numel()
+        states.append(tuple(pair))
+    return tuple(states)

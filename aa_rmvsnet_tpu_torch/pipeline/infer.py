@@ -24,6 +24,19 @@ collects the ``(B, D, H, W)`` cost volume, the head reads its softmax in
 fp32, and the aleatoric and epistemic maps are written beside depth and
 confidence; ``depth_source="evidential"`` writes the head's gamma as the
 depth map.
+
+Across ranks (``InferConfig.mesh``, ``parallel/mesh.py``), as the JAX
+package's ``--fanout`` and ``--depth_stages``:
+
+- a data axis above 1 fans the samples out: data rank ``r`` of ``N`` takes
+  the samples whose index is ``r`` modulo ``N`` and runs them one at a time
+  on its card, writing their PFMs.  The JAX package instead stacks N
+  same-shape samples into one batch sharded over its devices and pads a
+  ragged tail with repeats; its batch per device is 1 as well, so the PFMs
+  are the same files with the same bytes per map;
+- a depth axis above 1 streams groups of M same-shape maps through the
+  depth-block pipeline (``parallel/depth_pipeline.py``), exclusive with
+  data and view axes above 1 and with an evidential head.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.pfm import save_pfm
 from ..data.loader import prefetch_samples
@@ -47,6 +61,8 @@ from ..models.network import (
     pick_depth_block,
     pick_packed_rows,
 )
+from ..parallel.depth_pipeline import pipeline_forward
+from ..parallel.mesh import shard_dataset
 from ..utils.device import disable_tf32, resolve_device
 
 
@@ -69,7 +85,13 @@ class InferConfig:
     ``feature_view_chunk``: FeatNet views per batch, 0 for all at once
     (:class:`..models.network.SweepConfig`).
     ``save_png_previews``: a colour-mapped PNG beside every PFM
-    (:func:`save_outputs`; matplotlib on the host)."""
+    (:func:`save_outputs`; matplotlib on the host).
+    ``mesh``: a :class:`..parallel.mesh.Mesh` (``make_mesh``) or ``None``;
+    every rank calls :func:`run_inference` with it and the whole dataset,
+    and the mesh's device replaces ``device``.  A data axis above 1 fans
+    the samples out over the data ranks; a depth axis above 1 runs the
+    depth-block pipeline on groups of ``pipeline_maps`` maps (``2 *
+    depth`` by default)."""
 
     out_root: str
     depth_block: int = 8
@@ -88,6 +110,8 @@ class InferConfig:
     depth_source: str = "wta"  # "wta" | "evidential"
     feature_view_chunk: int = 0
     save_png_previews: bool = False
+    mesh: Any = None
+    pipeline_maps: int | None = None
 
 
 def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
@@ -197,6 +221,16 @@ def run_inference(
     packed mode ``(packed, gather_pack, taps)``, the host seconds of its
     gate and, with a head, the head's seconds (from the cost volume to its
     maps on the host, synchronised).
+
+    Under ``config.mesh`` every rank calls this with the whole dataset.
+    With a data axis above 1 each data rank runs its shard
+    (:func:`..parallel.mesh.shard_dataset`) and every rank returns the
+    stats gathered over the data group: ``count`` summed, ``total_s`` the
+    largest of the ranks' summed map seconds, ``map_seconds``, ``modes``,
+    ``gate_seconds`` and ``head_seconds`` one list per data rank, and the
+    failures of all.  View ranks above 0 compute as replicas and write
+    nothing (the JAX package replicates over its view axis in inference).
+    With a depth axis above 1: :func:`_run_inference_depth_pipeline`.
     """
     head = config.evidential
     if config.depth_source not in ("wta", "evidential"):
@@ -204,7 +238,24 @@ def run_inference(
                          f"not {config.depth_source!r}")
     if config.depth_source == "evidential" and head is None:
         raise ValueError("depth_source='evidential' requires an evidential head")
-    device = resolve_device(config.device)
+    mesh = config.mesh
+    if mesh is not None and mesh.shape["depth"] > 1:
+        if head is not None:
+            raise ValueError(
+                "the depth-block pipeline cannot collect the cost volume; "
+                "run evidential inference on a data/spatial mesh"
+            )
+        if any(mesh.shape[axis] > 1 for axis in ("data", "view", "spatial")):
+            raise ValueError(
+                "depth-pipelined inference uses the depth axis exclusively; "
+                "build the mesh with data=1, spatial=1"
+            )
+        return _run_inference_depth_pipeline(model, dataset, config, progress)
+    device = resolve_device(config.device) if mesh is None else mesh.device
+    rank, ranks = (0, 1) if mesh is None else (mesh.coord("data"), mesh.shape["data"])
+    dataset = shard_dataset(dataset, rank, ranks)
+    writes = mesh is None or mesh.coord("view") == 0
+    who = f"rank {rank}: " if ranks > 1 else ""
     disable_tf32()
     model = cast_model(model.to(device).eval(), config.feature_dtype)
     if head is not None:
@@ -264,27 +315,128 @@ def run_inference(
                 if config.depth_source == "evidential":
                     depth = gamma
 
-            save_outputs(os.path.join(config.out_root, sample["scan"]),
-                         sample["ref_view"], depth, conf, uncertainty,
-                         config.save_png_previews)
+            if writes:
+                save_outputs(os.path.join(config.out_root, sample["scan"]),
+                             sample["ref_view"], depth, conf, uncertainty,
+                             config.save_png_previews)
             map_seconds.append(dt)
             modes.append(mode)
             if progress:
-                print(f"[{len(map_seconds)}/{len(dataset)}] {sample['scan']}/"
+                print(f"{who}[{len(map_seconds)}/{len(dataset)}] {sample['scan']}/"
                       f"{sample['ref_view']:08d}  {dt:.3f}s  packed mode {mode}"
                       + (f"  head {head_seconds[-1]:.3f}s" if head is not None else ""),
                       flush=True)
 
     if failures:
+        print(f"{who}run_inference: {len(failures)} sample(s) skipped due to load failures")
+    stats = {"count": len(map_seconds), "total_s": sum(map_seconds),
+             "map_seconds": map_seconds, "modes": modes, "gate_seconds": gate_seconds,
+             "head_seconds": head_seconds, "failures": failures}
+    if ranks > 1:
+        every = [None] * ranks
+        dist.all_gather_object(every, stats, group=mesh.data_group)
+        stats = {"count": sum(s["count"] for s in every),
+                 "total_s": max(s["total_s"] for s in every),
+                 **{k: [s[k] for s in every]
+                    for k in ("map_seconds", "modes", "gate_seconds", "head_seconds")},
+                 "failures": [f for s in every for f in s["failures"]]}
+    stats["maps_per_s"] = stats["count"] / max(stats["total_s"], 1e-9)
+    return stats
+
+
+def _run_inference_depth_pipeline(model: AARMVSNetCore, dataset, config: InferConfig,
+                                  progress: bool) -> dict:
+    """Depth-pipelined inference (the JAX package's
+    ``_run_inference_depth_pipeline``): every stage reads every sample;
+    samples of one shape and one packed gate go in groups of ``M =
+    pipeline_maps or 2 * P`` maps through
+    :func:`..parallel.depth_pipeline.pipeline_forward`, a ragged group
+    padded with repeats of its last sample, and rank 0 writes the PFMs.
+    The packed gate runs at ``depth_block`` with ``table_taps`` (the
+    pipeline does not super-pack); ``gather_pack`` and ``residual_dtype``
+    are dropped with the JAX package's warning.  A group's time runs from
+    the launch to its maps on the host, synchronised.
+
+    Returns ``{count, total_s, maps_per_s, group_seconds, modes,
+    failures}``: per group its seconds and per map its packed mode."""
+    mesh = config.mesh
+    stages = mesh.shape["depth"]
+    maps = config.pipeline_maps or 2 * stages
+    if config.gather_pack > 1 or config.residual_dtype is not None:
+        print("WARNING: --depth_stages pipelining ignores gather_pack / "
+              "fp8-residual (single-mesh sweep levers); running without them", flush=True)
+    device = mesh.device
+    disable_tf32()
+    model = cast_model(model.to(device).eval(), config.feature_dtype)
+
+    def sweep_settings(packed: bool) -> SweepConfig:
+        return SweepConfig(
+            depth_block=config.depth_block, collect_volume=False,
+            feature_dtype=config.feature_dtype, fold_omega=config.fold_omega,
+            packed_rows=packed, table_taps=config.table_taps if packed else 4,
+            fused_residual=config.fused_residual and packed, table_dtype=config.table_dtype,
+            feature_view_chunk=config.feature_view_chunk)
+
+    def resolve_packed(sample) -> bool:
+        if config.packed_rows != "auto":
+            return bool(config.packed_rows)
+        H, W = sample["imgs"].shape[1:3]
+        return pick_packed_rows(sample["proj_matrices"], sample["depth_values"], H, W,
+                                config.depth_block, margin=config.pack_margin,
+                                taps=config.table_taps)
+
+    group_seconds: list[float] = []
+    modes: list[tuple[bool, int, int]] = []
+    failures: list[str] = []
+
+    def stack(group, key):
+        arr = np.stack([np.asarray(s[key], np.float32) for s in group])[:, None]
+        return torch.from_numpy(arr).to(device)
+
+    def flush(group: list, packed: bool) -> None:
+        padded = group + [group[-1]] * (maps - len(group))
+        imgs, proj, depths = (stack(padded, k)
+                              for k in ("imgs", "proj_matrices", "depth_values"))
+        t0 = time.perf_counter()
+        out = pipeline_forward(model, imgs, proj, depths, mesh, sweep_settings(packed))
+        depth_b = out["depth"].cpu().numpy()
+        conf_b = out["photometric_confidence"].cpu().numpy()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        group_seconds.append(dt)
+        for i, sample in enumerate(group):
+            modes.append((packed, 1, config.table_taps if packed else 4))
+            if mesh.is_main:
+                save_outputs(os.path.join(config.out_root, sample["scan"]),
+                             sample["ref_view"], depth_b[i, 0], conf_b[i, 0], None,
+                             config.save_png_previews)
+                if progress:
+                    print(f"[{len(modes)}/{len(dataset)}] {sample['scan']}/"
+                          f"{sample['ref_view']:08d}  {dt / len(group):.3f}s "
+                          f"(pipeline x{stages})", flush=True)
+
+    buckets: dict = {}
+    with torch.inference_mode():
+        for sample in prefetch_samples(dataset, num_workers=config.num_workers):
+            if isinstance(sample, Exception):
+                failures.append(str(sample))
+                print(f"SKIP (load failure): {sample}", flush=True)
+                continue
+            key = (sample["imgs"].shape, np.shape(sample["depth_values"]),
+                   resolve_packed(sample))
+            bucket = buckets.setdefault(key, [])
+            bucket.append(sample)
+            if len(bucket) == maps:
+                flush(bucket, key[2])
+                buckets[key] = []
+        for key, bucket in buckets.items():  # ragged groups
+            if bucket:
+                flush(bucket, key[2])
+
+    if failures:
         print(f"run_inference: {len(failures)} sample(s) skipped due to load failures")
-    total = sum(map_seconds)
-    return {
-        "count": len(map_seconds),
-        "total_s": total,
-        "maps_per_s": len(map_seconds) / max(total, 1e-9),
-        "map_seconds": map_seconds,
-        "modes": modes,
-        "gate_seconds": gate_seconds,
-        "head_seconds": head_seconds,
-        "failures": failures,
-    }
+    total = sum(group_seconds)
+    return {"count": len(modes), "total_s": total,
+            "maps_per_s": len(modes) / max(total, 1e-9), "group_seconds": group_seconds,
+            "modes": modes, "failures": failures}

@@ -26,16 +26,23 @@ cast_in_graph``): Adam keeps fp32 master weights and moments, and the gate
 kernels run their bf16 instantiations.  ``fold_omega`` (``"hybrid"`` or
 ``True``) takes the folded omega path of the JAX package's same lever.
 
-``TrainConfig(mesh=make_mesh(...))`` (``parallel/mesh.py``) trains data
-parallel across processes with the JAX package's global-batch semantics:
-``batch_size`` is per process, every rank takes ``(len // world) //
-batch_size`` steps an epoch from its shard (``dataset.shard(rank,
-world)``) in its own order, rank 0's weights are broadcast before the first
-step, the gradients averaged before the clip, the evidential loss divides
-by the global valid count and the head's BatchNorm takes the global
-batch's statistics, so each step is one step on the concatenated global
-batch; metrics are global-batch means, and only rank 0 writes checkpoints
-and logs.
+``TrainConfig(mesh=make_mesh(...))`` (``parallel/mesh.py``) trains across
+processes with the JAX package's global-batch semantics.  On the data
+axis: ``batch_size`` is per data rank, every data rank takes ``(len //
+data) // batch_size`` steps an epoch from its shard
+(``dataset.shard(data_rank, data)``) in its own order, rank 0's weights are
+broadcast before the first step, the gradients averaged over the data
+group before the clip, the evidential loss divides by the global valid
+count and the head's BatchNorm takes the global batch's statistics, so
+each step is one step on the concatenated global batch; metrics are
+global-batch means, and only rank 0 writes checkpoints and logs.  On the
+view axis (the JAX package's ``(data, view)`` training mesh) the view
+ranks of one data rank hold the same rows and split the sweep's source
+views (``models/network.py:view_shard``): FeatNet's and omega's gradients
+are each view rank's share and are summed over the view group, while the
+regularizer's and the head's, computed whole on every view rank, are
+averaged over it (the same value, made bit for bit the same on every
+rank); the data group's collectives then run as above.
 """
 
 from __future__ import annotations
@@ -58,8 +65,14 @@ from ..models.evidential import (
     uncertainty_decompositions,
 )
 from ..models.losses import depth_classification_loss
-from ..models.network import AARMVSNetCore, SweepConfig, forward, probability_volume
-from ..parallel.mesh import Mesh, all_reduce_mean
+from ..models.network import (
+    AARMVSNetCore,
+    SweepConfig,
+    forward,
+    probability_volume,
+    view_shard,
+)
+from ..parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum_, shard_dataset
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.metrics import MeterDict, abs_depth_error, threshold_error_rate
 from .checkpoint import restore_latest, save_state
@@ -78,9 +91,10 @@ class TrainConfig:
     with ``evidential_weight_reg``).  ``feature_dtype`` (``torch.float32``
     or ``torch.bfloat16``) and ``fold_omega`` (``False``, ``"hybrid"``,
     ``True``) go to the sweep, as the JAX package's do.  ``mesh``, a
-    :class:`..parallel.mesh.Mesh`, trains data parallel across its ranks
-    on its device (``device`` is then not read); ``batch_size`` is per
-    rank.
+    :class:`..parallel.mesh.Mesh` with data and view axes, trains across its
+    ranks on its device (``device`` is then not read); ``batch_size`` is
+    per data rank.  A mesh with view and spatial axes above 1 is refused,
+    as the JAX package refuses it.
     """
 
     learning_rate: float = 1e-3
@@ -114,10 +128,24 @@ class TrainConfig:
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise TypeError(f"TrainConfig mesh is a parallel.mesh.Mesh (make_mesh) or None, "
                             f"not {type(self.mesh).__name__}")
+        check_train_mesh(self.mesh)
 
     def sweep(self, remat: bool = True) -> SweepConfig:
         return SweepConfig(depth_block=self.depth_block, remat=remat, collect_volume=True,
-                           feature_dtype=self.feature_dtype, fold_omega=self.fold_omega)
+                           feature_dtype=self.feature_dtype, fold_omega=self.fold_omega,
+                           mesh=self.mesh)
+
+
+def check_train_mesh(mesh) -> None:
+    """The JAX package's refusal of a training mesh with view and spatial
+    axes above 1, whose gradients its XLA partitioner double-counts by the
+    view size (``aa_rmvsnet_tpu/pipeline/train.py:_check_train_mesh``)."""
+    if mesh is not None and mesh.shape["view"] > 1 and mesh.shape["spatial"] > 1:
+        raise ValueError(
+            "training with view > 1 AND spatial > 1 produces wrong gradients "
+            "(XLA SPMD double-counts the view psum across the spatial axis); "
+            "use (data, view) or (data, spatial) for training"
+        )
 
 
 def cosine_decay(step: int, total_steps: int, alpha: float) -> float:
@@ -171,7 +199,9 @@ def loss_fn(model: AARMVSNetCore, batch: dict, sweep_config: SweepConfig):
 
 
 def _group(config: TrainConfig):
-    return None if config.mesh is None else config.mesh.group
+    """The data group: the ranks whose rows make up the global batch (view
+    ranks hold replicas of their data rank's rows)."""
+    return None if config.mesh is None else config.mesh.data_group
 
 
 def evidential_loss_fn(model: AARMVSNetCore, head: EvidentialHead, batch: dict,
@@ -192,12 +222,12 @@ def evidential_loss_fn(model: AARMVSNetCore, head: EvidentialHead, batch: dict,
 
 def _mean_over_ranks(metrics: dict, keys, config: TrainConfig) -> None:
     """Replace the plain batch means ``keys`` of ``metrics`` by their mean
-    over the mesh's ranks (the global batch's mean: every rank holds as
+    over the data ranks (the global batch's mean: every data rank holds as
     many samples), in one all-reduce."""
     if _group(config) is None:
         return
     values = torch.stack([metrics[k].detach().float() for k in keys])
-    all_reduce_mean([values], config.mesh)
+    all_reduce_mean([values], _group(config))
     metrics.update(zip(keys, values))
 
 
@@ -230,15 +260,29 @@ def trainable_parameters(model, head=None) -> list:
     return list(model.parameters()) + ([] if head is None else list(head.parameters()))
 
 
-def average_gradients(params, mesh: Mesh) -> None:
-    """The mean of every parameter's gradient over the mesh's ranks, in
-    place (a parameter without one counts as zeros), in one all-reduce."""
-    if mesh.group is None:
+def average_gradients(params, mesh: Mesh, view_partial=()) -> None:
+    """The global batch's gradient of every parameter, in place (a
+    parameter without one counts as zeros), the same on every rank.  Over
+    the view group the gradients of ``view_partial``, of which each view
+    rank holds its source views' share, are summed, and the others, which
+    every view rank computes whole, averaged (on the card their backward is
+    not bit for bit deterministic, so the view ranks' copies would drift
+    apart); then every gradient is averaged over the data group.  One
+    all-reduce per group."""
+    views = mesh.shape["view"] > 1
+    if mesh.data_group is None and not views:
         return
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    all_reduce_mean([p.grad for p in params], mesh)
+    grads = [p.grad for p in params]
+    if views:
+        all_reduce_sum_(grads, mesh.view_group)
+        partial = {id(p) for p in view_partial}
+        for p in params:
+            if id(p) not in partial:
+                p.grad.div_(mesh.shape["view"])
+    all_reduce_mean(grads, mesh.data_group)
 
 
 def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
@@ -248,9 +292,10 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
     profiler ranges ``train.forward``, ``train.backward`` and
     ``train.optimizer``.  With ``head`` (``config.evidential``) both modules
     run in train mode and the loss is ``loss_emvsnet`` on the head's output.
-    Under ``config.mesh`` the gradients are averaged over the ranks before
-    the clip (range ``train.all_reduce``), and the metrics are the global
-    batch's.  Returns ``(metrics, images)`` of detached tensors."""
+    Under ``config.mesh`` the gradients are those of the global batch
+    before the clip (range ``train.all_reduce``; :func:`average_gradients`),
+    and the metrics are the global batch's.  Returns ``(metrics, images)``
+    of detached tensors."""
     model.train()
     if head is not None:
         head.train()
@@ -264,13 +309,23 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
         loss.backward()
     params = trainable_parameters(model, head)
     if config.mesh is not None:
+        partial = ()
+        if view_shard(config.mesh, batch["imgs"].shape[1]) is not None:
+            partial = list(model.feature.parameters()) + list(model.omega.parameters())
         with record_function("train.all_reduce"):
-            average_gradients(params, config.mesh)
+            average_gradients(params, config.mesh, partial)
     with record_function("train.optimizer"):
         if config.grad_clip is not None:
             clip_by_global_norm(params, config.grad_clip)
         optimizer.step()
         scheduler.step()
+    if head is not None and config.mesh is not None and config.mesh.shape["view"] > 1:
+        # The view ranks' BatchNorm statistics come from the same rows, but
+        # the card's 3D convolutions are not bit for bit deterministic, so
+        # the replicas' running statistics are averaged to stay equal.
+        with record_function("train.all_reduce"):
+            all_reduce_mean([b for b in head.buffers() if b.is_floating_point()],
+                            config.mesh.view_group)
     if head is not None:
         metrics, images = _evidential_summaries(ev, batch, config)
         metrics["loss"] = loss.detach()
@@ -323,31 +378,6 @@ def _summarize(logger, mode: str, images: dict, batch: dict, step: int) -> None:
     logger.dump(mode, arrays, step)
 
 
-class _Shard:
-    """Every ``num``-th sample of a dataset from ``index`` (a dataset
-    without a ``shard`` method of its own)."""
-
-    def __init__(self, dataset, index: int, num: int):
-        self.dataset, self.indices = dataset, range(index, len(dataset), num)
-
-    def __len__(self):
-        return len(self.indices)
-
-    def __getitem__(self, i):
-        return self.dataset[self.indices[i]]
-
-
-def shard_dataset(dataset, index: int, num: int):
-    """Rank ``index``'s shard of ``dataset`` among ``num`` ranks:
-    ``dataset.shard(index, num)`` where it has one (``DTUTrainDataset``: its
-    metas ``[index::num]``), else the same samples by index."""
-    if num == 1:
-        return dataset
-    if hasattr(dataset, "shard"):
-        return dataset.shard(index, num)
-    return _Shard(dataset, index, num)
-
-
 def broadcast_from_main(modules, mesh: Mesh) -> None:
     """Rank 0's parameters and buffers into every rank's ``modules``, in
     place, so that all ranks start from the same weights."""
@@ -382,11 +412,12 @@ def run_training(
     ``val_dataset``, if given, is evaluated.
 
     Under ``config.mesh`` every rank of the mesh calls this with the whole
-    dataset and takes its shard (:func:`shard_dataset`) in a permutation
-    drawn from ``(seed, epoch, rank)``, ``(len(dataset) // world) //
-    batch_size`` steps an epoch, from rank 0's weights (broadcast after any
-    resume, which every rank reads); only rank 0 writes checkpoints (the
-    others wait at a barrier), prints and calls ``logger``.
+    dataset and takes its data rank's shard (:func:`shard_dataset`) in a
+    permutation drawn from ``(seed, epoch, data_rank)`` (``(seed, epoch)``
+    with one data rank), ``(len(dataset) // data) // batch_size`` steps an
+    epoch, from rank 0's weights (broadcast after any resume, which every
+    rank reads); only rank 0 writes checkpoints (the others wait at a
+    barrier), prints and calls ``logger``.
 
     Returns ``{start_step, step, losses, step_seconds, val}``: per-step
     losses (the global batch's) and seconds (host clock around the step,
@@ -399,21 +430,21 @@ def run_training(
         raise ValueError(f"run_training: the head has maxdisp {head.maxdisp}, the config "
                          f"{config.maxdisp}")
     mesh = config.mesh
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
-    if len(dataset) // world < config.batch_size:
-        raise ValueError(f"run_training: {len(dataset)} sample(s) over {world} rank(s) make "
-                         f"no batch of {config.batch_size}")
+    data_rank, data_size = (0, 1) if mesh is None else (mesh.coord("data"), mesh.shape["data"])
+    if len(dataset) // data_size < config.batch_size:
+        raise ValueError(f"run_training: {len(dataset)} sample(s) over {data_size} rank(s) "
+                         f"make no batch of {config.batch_size}")
     device = resolve_device(config.device) if mesh is None else mesh.device
     disable_tf32()
     model.to(device)
     if head is not None:
         head.to(device)
-    is_main = rank == 0
-    steps_per_epoch = max((len(dataset) // world) // config.batch_size, 1)
-    val_steps = 0 if val_dataset is None else (len(val_dataset) // world) // config.batch_size
-    dataset = shard_dataset(dataset, rank, world)
+    is_main = mesh is None or mesh.is_main
+    steps_per_epoch = max((len(dataset) // data_size) // config.batch_size, 1)
+    val_steps = 0 if val_dataset is None else (len(val_dataset) // data_size) // config.batch_size
+    dataset = shard_dataset(dataset, data_rank, data_size)
     if val_dataset is not None:
-        val_dataset = shard_dataset(val_dataset, rank, world)
+        val_dataset = shard_dataset(val_dataset, data_rank, data_size)
     total_steps = config.total_steps or config.epochs * steps_per_epoch
     params = trainable_parameters(model, head)
     optimizer, scheduler = make_optimizer(params, config, total_steps)
@@ -430,14 +461,14 @@ def run_training(
         broadcast_from_main([model] + ([] if head is None else [head]), mesh)
 
     def on_skip(exc):
-        print(f"SKIP (train load failure{f', rank {rank}' if world > 1 else ''}): {exc}",
-              flush=True)
+        where = f", rank {mesh.rank}" if mesh is not None and mesh.world_size > 1 else ""
+        print(f"SKIP (train load failure{where}): {exc}", flush=True)
 
     def save(step):
         if config.logdir and is_main:
             save_state(config.logdir, step, model, optimizer, scheduler, head=head)
-        if group is not None:
-            torch.distributed.barrier(group=group)
+        if mesh is not None and mesh.group is not None:
+            torch.distributed.barrier(group=mesh.group)
 
     def result():
         return {"start_step": start_step, "step": step, "losses": losses,
@@ -450,7 +481,7 @@ def run_training(
     meter = MeterDict()
     for epoch in range(start_step // steps_per_epoch, config.epochs):
         done = step - epoch * steps_per_epoch  # batches of this epoch already taken
-        seed = [config.seed, epoch] if world == 1 else [config.seed, epoch, rank]
+        seed = [config.seed, epoch] if data_size == 1 else [config.seed, epoch, data_rank]
         order = np.random.RandomState(seed).permutation(len(dataset))
         order = order[done * config.batch_size:]
         samples = resilient_samples(dataset, order, num_workers=config.num_workers,

@@ -4,7 +4,8 @@
 dicts that ``EvalDataset.__getitem__`` returns for a textured
 fronto-parallel plane seen by cameras translating along x (the geometry of
 ``tests/scenefix.py:make_plane_scene``, without cv2 or files; the
-cameras are :func:`plane_cameras`), and
+cameras are :func:`plane_cameras`, the images :func:`plane_views` and the
+sources :func:`plane_sources`), and
 :func:`plane_train_sample` the ``DTUTrainDataset`` sample of that plane,
 its ground truth the plane's depth.
 :func:`seeded_model` gives the full-width core random weights from a seed,
@@ -245,31 +246,47 @@ def fusion_edge_case(height: int, width: int, num_src: int, seed: int):
     return depths, 0, srcs, mats
 
 
-def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,
-                seed: int, focal: float, baseline: float, plane_depth: float,
-                depth_min: float, depth_interval: float) -> list[dict]:
-    """``maps`` eval samples of a textured fronto-parallel plane at
-    ``plane_depth``, seen by ``maps + views - 1`` cameras translating along
-    x by ``baseline``; sample ``r`` has reference camera ``r`` and the
-    ``views - 1`` nearest others as sources.  Depth hypotheses are
-    ``depth_min + depth_interval * arange(num_depth)``.
-    """
+def plane_views(height: int, width: int, n_cams: int, seed: int, focal: float,
+                baseline: float, plane_depth: float) -> list[np.ndarray]:
+    """The ``(height, width, 3)`` float32 RGB images, in [0, 255], of a
+    textured fronto-parallel plane at ``plane_depth`` seen by
+    :func:`plane_cameras`' ``n_cams`` cameras."""
     from scipy.ndimage import gaussian_filter, map_coordinates
 
-    n_cams = maps + views - 1
     rng = np.random.RandomState(seed)
     max_shift = focal * baseline * n_cams / plane_depth
     tex_w = width + int(np.ceil(max_shift)) + 8
     texture = gaussian_filter(
         rng.rand(height, tex_w, 3).astype(np.float32) * 255.0, sigma=(2.0, 2.0, 0.0))
     ys, xs = np.mgrid[0:height, 0:width].astype(np.float32)
-    imgs, projs = [], []
-    for v, (K, E) in enumerate(plane_cameras(height, width, n_cams, focal, baseline)):
+    imgs = []
+    for v in range(n_cams):
         shift = focal * baseline * v / plane_depth
-        img = np.stack([
+        imgs.append(np.stack([
             map_coordinates(texture[..., ch], [ys, xs + shift], order=1)
             for ch in range(3)
-        ], axis=-1)
+        ], axis=-1))
+    return imgs
+
+
+def plane_sources(ref: int, n_cams: int) -> list[int]:
+    """Every camera but ``ref``, nearest first (the lower one of a tie)."""
+    return sorted((v for v in range(n_cams) if v != ref), key=lambda v: abs(v - ref))
+
+
+def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,
+                seed: int, focal: float, baseline: float, plane_depth: float,
+                depth_min: float, depth_interval: float) -> list[dict]:
+    """``maps`` eval samples of :func:`plane_views`' plane, seen by ``maps +
+    views - 1`` cameras translating along x by ``baseline``; sample ``r``
+    has reference camera ``r`` and the ``views - 1`` nearest others as
+    sources.  Depth hypotheses are ``depth_min + depth_interval *
+    arange(num_depth)``.
+    """
+    n_cams = maps + views - 1
+    imgs, projs = [], []
+    raw = plane_views(height, width, n_cams, seed, focal, baseline, plane_depth)
+    for img, (K, E) in zip(raw, plane_cameras(height, width, n_cams, focal, baseline)):
         imgs.append(standardize_image(img, eps=0.0))
         P = E.copy()
         P[:3, :4] = K @ P[:3, :4]
@@ -277,8 +294,7 @@ def plane_scene(height: int, width: int, views: int, num_depth: int, maps: int,
     depths = (depth_min + depth_interval * np.arange(num_depth)).astype(np.float32)
     samples = []
     for ref in range(maps):
-        others = sorted((v for v in range(n_cams) if v != ref), key=lambda v: abs(v - ref))
-        chosen = [ref] + others[: views - 1]
+        chosen = [ref] + plane_sources(ref, n_cams)[: views - 1]
         samples.append({
             "imgs": np.stack([imgs[v] for v in chosen]).astype(np.float32),
             "proj_matrices": np.stack([projs[v] for v in chosen]),

@@ -131,6 +131,35 @@ Phases, each printing a line; any failure exits non-zero:
    (True, 2, 4) and 5 x D forward and no backward gate-kernel launches
    asserted, its seconds and peak memory printed beside phase 5's, and the
    share of its depths within one bin of phase 5's map;
+5f. the eval fan-out (``cli eval --fanout 2``): ``run_inference`` with
+   ``InferConfig()``'s defaults under ``make_mesh(data=2)``, two gloo ranks
+   on ``cuda:0`` (NCCL refuses two ranks on one card), each building phase
+   5's scene from its seed and taking one of its two maps; each map held
+   to phase 5's (depth equal on >= 99.9 % of pixels, confidence atol 1e-4,
+   and whether bit for bit), packed modes (True, 1, 4), 5 x D x maps
+   forward launches over the ranks, seconds per map and peak memory by
+   rank;
+5g. the depth pipeline (``cli eval --depth_stages 2 --pipeline_maps 2``):
+   the same under ``make_mesh(depth=2)``, two gloo stages on ``cuda:0``
+   sweeping 256 hypotheses each of both maps, the ConvLSTM carry handed on
+   through pinned host memory; held to phase 5's maps at 5f's bars, packed
+   modes (True, 1, 4), the same launch count, the seconds of the group
+   and the peak memory by stage; then the carry's handoff timed alone at
+   the map's shape (5 cells' (h, c) of seeded values in bf16), three
+   times from a barrier: stage 0's ``send_carry`` until its send
+   completes, stage 1's ``recv_carry`` until the carry is on its card,
+   with the bytes checked.  5f and 5g run in one pair of rank subprocesses
+   with a deadline;
+5h. the command a user runs, ``python -m aa_rmvsnet_tpu_torch.cli eval
+   --fanout 2`` with phase 5's flags (``--preset dtu_eval``, D=512, depth
+   block 8, bf16 and packed rows by default) on phase 5's scene written as
+   a scene directory: the command starts its two ranks on ``cuda:0`` over
+   gloo itself; its first line, its exit code and its maps, held to phase
+   5's at 5f's bars, are checked.  The card's machine has no cv2, so the
+   scene's images are written as ``.npy`` arrays under their ``.jpg``
+   names and decoded by a stand-in ``cv2`` module (``imread`` by
+   ``np.load``, ``cvtColor`` a channel flip) put first on the command's
+   ``PYTHONPATH``; all past the decode is the command's own;
 6. main path, training: ``run_training`` at the ``dtu_train`` geometry
    (128x160, V=5, D=128, depth_block 16, batch 1, Adam 1e-3 on the
    cosine schedule of a 10-epoch DTU run) for 8 steps on one synthetic
@@ -161,7 +190,14 @@ Phases, each printing a line; any failure exits non-zero:
    settled (twice the rate elsewhere: Adam's first step), the BatchNorm
    statistics 1e-5 of their size; seconds per step and peak memory of a
    rank; then a world-size-1 NCCL group's step against the step without a
-   mesh.  The ranks are subprocesses with a free port and a deadline;
+   mesh, with its all-reduces counted (at least one under the mesh, none
+   without).  The ranks are subprocesses with a free port and a deadline;
+6e. view-sharded training: ``TrainConfig(mesh=make_mesh(view=2))`` at
+   phase 6's geometry, two gloo ranks on ``cuda:0`` each sweeping 2 of the
+   4 source views of one sample, against this process's step on it, for
+   the core and the evidential head, at 6d's bars, with 2 x 5 x D forward
+   and 5 x D backward launches a rank (6d's and 6e's ranks take the core
+   and then the head in one launch);
 7. the fusion kernel (``ops/fusion.py:fuse_ref``) against its plain
    version, bit for bit on the card and on the CPU: one 864x1152 reference
    view of a noisy plane against 10 sources, with how many of its terms lie
@@ -188,11 +224,14 @@ Phases, each printing a line; any failure exits non-zero:
    (cuDNN's transposed 3D convolutions may sum in another order from one
    call to the next: eager run twice is printed beside them).
 
-The line before the last is ``{"kernels": [...]}``; each kernel's
+Before the total, a line gives each phase's seconds.  The line before the
+last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
-``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d, 6,
-6b, 6c (``training_bf16``, ``training_fold_omega``), 6d
-(``training_data_parallel``, the ranks' sum), 7c and 8);
+``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d,
+5f (``inference_fanout``) and 5g (``inference_depth_pipeline``), 6, 6b, 6c
+(``training_bf16``, ``training_fold_omega``), 6d
+(``training_data_parallel``) and 6e (``training_view_parallel``), the
+ranks' sums, 7c and 8);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the gate kernels' ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
@@ -226,6 +265,9 @@ SEED = 0
 # Main path: the dtu_eval preset geometry.
 MAIN_H, MAIN_W, MAIN_V, MAIN_D, MAIN_BLOCK, MAIN_MAPS = 864, 1152, 5, 512, 8, 2
 MAIN_DEPTH_MIN, MAIN_DEPTH_INTERVAL = 425.0, 1.0
+# Cameras 2 apart: the worst depth step moves a sample < 0.1 px, so 8
+# hypotheses span < 1 px and the 4x4 packed gate passes.
+MAIN_PLANE = dict(seed=SEED + 3, focal=2000.0, baseline=2.0, plane_depth=600.0)
 # Small whole-path check, CUDA against CPU, and packed against exact.
 SMALL_H, SMALL_W, SMALL_V, SMALL_D = 64, 80, 3, 48
 # The bf16 guardrail of the JAX package.
@@ -1341,14 +1383,10 @@ def _check_maps(out_root: str, maps: int, depth_min: float, depth_max: float) ->
     return first
 
 
-
 def _main_scene():
     from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene
 
-    # Cameras 2 apart: the worst depth step moves a sample < 0.1 px, so 8
-    # hypotheses span < 1 px and the 4x4 packed gate passes.
-    return plane_scene(MAIN_H, MAIN_W, MAIN_V, MAIN_D, maps=MAIN_MAPS, seed=SEED + 3,
-                       focal=2000.0, baseline=2.0, plane_depth=600.0,
+    return plane_scene(MAIN_H, MAIN_W, MAIN_V, MAIN_D, maps=MAIN_MAPS, **MAIN_PLANE,
                        depth_min=MAIN_DEPTH_MIN, depth_interval=MAIN_DEPTH_INTERVAL)
 
 
@@ -1378,6 +1416,7 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
             _fail(f"main path took packed modes {stats['modes']}, not (True, 1, 4)")
         depth0 = _check_maps(out_root, MAIN_MAPS, MAIN_DEPTH_MIN,
                              MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+        maps = [_read_maps(out_root, ref) for ref in range(MAIN_MAPS)]
     secs = ", ".join(f"{s:.3f}" for s in stats["map_seconds"])
     gate_secs = ", ".join(f"{s:.3f}" for s in stats["gate_seconds"])
     print(f"main: run_inference, InferConfig() defaults (bf16, packed rows, fused residual), "
@@ -1389,7 +1428,14 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
           f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16); PFMs finite, depth in the sweep, "
           "confidence in (0, 1]", flush=True)
     return launches, depth0, {"map_seconds": stats["map_seconds"], "peak": peak,
-                              "modes": stats["modes"]}
+                              "modes": stats["modes"], "maps": maps}
+
+
+def _read_maps(out_root: str, ref: int) -> tuple:
+    from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
+
+    return tuple(read_pfm(os.path.join(out_root, "scan1", family, f"{ref:08d}.pfm"))[0]
+                 for family in ("depth_est_0", "confidence_0"))
 
 
 def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
@@ -1762,12 +1808,15 @@ def phase_train_bf16(phase6: dict) -> dict:
     return {"training_bf16": launched[:2], "training_fold_omega": fold_launched[:2]}
 
 
-# One rank of phase 6d: a train_step of the seeded core (and head) on its
-# row of the global batch, under a gloo mesh on cuda:0 (mode "rank"), or a
-# world-size-1 NCCL group's step against the step without a mesh (mode
-# "nccl"); the results go to a torch.save file.  A warm-up step on a copy
-# of the weights comes first, so that the compared step does not pay the
-# process's first calls; two more steps after it are timed.
+# One rank of phases 6d and 6e: for each case (the core, then the core with
+# the head), a train_step of the seeded weights on its rows of the batch,
+# under a gloo mesh on cuda:0 with a data axis of 2 (6d) or a view axis of 2
+# (6e) (mode "rank"), or a world-size-1 NCCL group's step of the core
+# against the step without a mesh (mode "nccl"), with the step's calls of
+# torch.distributed.all_reduce counted; the results go to a torch.save
+# file.  A warm-up step on a copy of the weights comes first, so
+# that the compared step does not pay the first calls; two more steps after
+# it are timed.
 DP_WORKER = """
 import json, sys, time
 import numpy as np, torch
@@ -1785,27 +1834,37 @@ if a["mode"] == "rank":
 else:
     torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{a['port']}",
                                          world_size=1, rank=0)
-mesh = make_mesh(device="cuda")
+mesh = make_mesh(view=a["view"], device="cuda")
 weights = torch.load(a["weights"], weights_only=True)
 data = np.load(a["batch"])
-rows = slice(a["rank"], a["rank"] + 1)
+rows = slice(*a["rows"])
 batch = {k: torch.from_numpy(np.ascontiguousarray(data[k][rows])).cuda() for k in data.files}
+all_reduces = [0]
+all_reduce = torch.distributed.all_reduce
 
 
-def step(with_mesh, timed_after=0):
+def counted_all_reduce(*args, **kwargs):
+    all_reduces[0] += 1
+    return all_reduce(*args, **kwargs)
+
+
+torch.distributed.all_reduce = counted_all_reduce
+
+
+def step(with_mesh, evidential, timed_after=0):
     model = AARMVSNetCore()
     model.load_state_dict(weights["core"])
     head = None
-    if a["evidential"]:
+    if evidential:
         head = EvidentialHead(a["maxdisp"])
         head.load_state_dict(weights["head"])
         head.cuda()
     model.cuda()
-    config = TrainConfig(depth_block=a["block"], device="cuda", evidential=a["evidential"],
+    config = TrainConfig(depth_block=a["block"], device="cuda", evidential=evidential,
                          maxdisp=a["maxdisp"], mesh=mesh if with_mesh else None)
     optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config,
                                           a["total_steps"])
-    gates.launches = gates.backward_launches = 0
+    gates.launches = gates.backward_launches = all_reduces[0] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1814,6 +1873,7 @@ def step(with_mesh, timed_after=0):
     seconds = [time.perf_counter() - t0]
     out = {"peak": torch.cuda.max_memory_allocated(),
            "launches": (gates.launches, gates.backward_launches),
+           "all_reduces": all_reduces[0],
            "metrics": {k: float(v) for k, v in metrics.items()},
            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
@@ -1829,10 +1889,13 @@ def step(with_mesh, timed_after=0):
     return out
 
 
-step(a["mode"] == "rank")  # warm-up
-out = step(True, timed_after=2)
+out = {}
+for evidential in a["cases"]:
+    step(a["mode"] == "rank", evidential)  # warm-up
+    out[evidential] = step(True, evidential, timed_after=2)
 if a["mode"] == "nccl":
-    out = {"mesh": out, "plain": step(False), "backend": torch.distributed.get_backend()}
+    out = {"mesh": out[False], "plain": step(False, False),
+           "backend": torch.distributed.get_backend()}
 torch.save(out, a["out"])
 torch.distributed.destroy_process_group()
 """
@@ -1846,25 +1909,26 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_workers(argss: list[dict], workdir: str, timeout: float = 600) -> list[dict]:
-    """Run DP_WORKER once per argument dict, all at once, under one
+def _run_workers(argss: list[dict], workdir: str, timeout: float = 600,
+                 worker: str = DP_WORKER) -> list[dict]:
+    """Run ``worker`` once per argument dict, all at once, under one
     deadline; a hang or a failed process fails the phase."""
     procs = []
     for i, args in enumerate(argss):
         args = {**args, "out": os.path.join(workdir, f"out{i}.pt")}
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", DP_WORKER, json.dumps(args)], cwd=os.getcwd(),
+            [sys.executable, "-c", worker, json.dumps(args)], cwd=os.getcwd(),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), args["out"]))
     try:
         results = [proc.communicate(timeout=timeout) for proc, _ in procs]
     except subprocess.TimeoutExpired:
-        _fail(f"data-parallel workers did not finish in {timeout} s")
+        _fail(f"the ranks did not finish in {timeout} s")
     finally:
         for proc, _ in procs:
             proc.kill()
     for (proc, _), (_, err) in zip(procs, results):
         if proc.returncode != 0:
-            _fail(f"a data-parallel worker exited with {proc.returncode}: {err[-2000:]}")
+            _fail(f"a rank exited with {proc.returncode}: {err[-2000:]}")
     return [torch.load(out, weights_only=False) for _, out in procs]
 
 
@@ -1913,6 +1977,68 @@ def _single_step(weights: dict, batch: dict, evidential: bool, nudge: float = 0.
     return out
 
 
+def _hold_ranks_to_single(label: str, ranks: list, weights: dict, batch: dict,
+                          evidential: bool, wall: float, phase6: dict, launched: list,
+                          what: str) -> None:
+    """The ranks' step against this process's step on ``batch`` (the
+    global batch) at phase 6d's bars: the ranks' weights equal bit for bit,
+    the loss rtol 1e-5, the worst gradient within max(2e-4, 10 x the step's
+    own move under 1e-7 weight noise), the updated weights 1e-6 where the
+    gradient's sign is settled (2 x the rate elsewhere: Adam's first step),
+    the BatchNorm statistics 1e-5 of their size; each rank's gate launches
+    2 x 5 x D forward and 5 x D backward, added to ``launched``."""
+    single = _single_step(weights, batch, evidential)
+    nudged = _single_step(weights, batch, evidential, nudge=1e-7)
+    for r in ranks:
+        if r["launches"] != (2 * 5 * TRAIN_D, 5 * TRAIN_D):
+            _fail(f"{label}: a rank launched the gate kernels {r['launches']} times")
+        launched[0] += r["launches"][0]
+        launched[1] += r["launches"][1]
+    same = all(torch.equal(t, ranks[1]["state"][k]) for k, t in ranks[0]["state"].items())
+    loss, want = ranks[0]["metrics"]["loss"], single["metrics"]["loss"]
+    loss_rel = abs(loss - want) / abs(want)
+    grad_name, grad_err = _worst(single["grads"], ranks[0]["grads"])
+    move_name, move = _worst(single["grads"], nudged["grads"])
+    bar = max(2e-4, 10 * move)
+    # Adam's first step moves a weight by ~lr times its gradient's
+    # sign: where the gradient is inside its bar of 0 the sign, and
+    # the move, are rounding (within 2 lr); elsewhere 1e-6.
+    weight_err = 0.0
+    for k, g in single["grads"].items():
+        settled = g.abs() > 2 * bar * max(g.abs().max().item(), 1e-3)
+        err = (ranks[0]["state"][k] - single["state"][k]).abs()
+        if err.max().item() > 2e-3:
+            _fail(f"{label}: weight {k} moved {err.max().item():.3e} from the "
+                  "single-process step, more than 2 x the rate")
+        weight_err = max(weight_err, err[settled].max().item() if settled.any() else 0)
+    stats = {k: v for k, v in single["state"].items()
+             if k.endswith(("running_mean", "running_var"))}
+    stat_err = max((((ranks[0]["state"][k] - v).abs().max().item()
+                     / max(v.abs().max().item(), 1e-3)) for k, v in stats.items()),
+                   default=0.0)
+    ok = (same and loss_rel <= 1e-5 and grad_err <= bar and weight_err <= 1e-6
+          and stat_err <= 1e-5)
+    batch_size = len(batch["imgs"])
+    head = f", maxdisp {TRAIN_MAXDISP}" if evidential else ""
+    print(f"{label}: {what}, {TRAIN_H}x{TRAIN_W}, V={TRAIN_V}, D={TRAIN_D}{head}: ranks "
+          f"equal bit for bit {same}; loss {loss:.6f} vs {want:.6f} (rel "
+          f"{loss_rel:.2e}, bar 1e-5); gradients worst {grad_err:.2e} ({grad_name}), "
+          f"bar {bar:.2e} (the single step's move under 1e-7 weight noise {move:.2e}, "
+          f"{move_name}); updated weights {weight_err:.2e} where the gradient is "
+          f"settled (bar 1e-6); {len(stats)} BatchNorm statistics worst "
+          f"{stat_err:.2e} (bar 1e-5); seconds a step after a warm-up one: ranks "
+          f"[{', '.join(f'{x:.3f}' for x in ranks[0]['seconds'])}], "
+          f"[{', '.join(f'{x:.3f}' for x in ranks[1]['seconds'])}] (two processes "
+          f"sharing the card, {wall:.1f} s from spawn to exit for core and head), one "
+          f"process at batch "
+          f"{batch_size} {single['seconds']:.3f}, phase 6's fp32 batch 1 "
+          f"{float(np.mean(phase6['step_seconds'][1:])):.3f}; peak memory a rank "
+          f"{ranks[0]['peak'] / 2**30:.2f} GiB, one process {single['peak'] / 2**30:.2f} "
+          f"GiB {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"{label}: the ranks' step disagrees with one process's")
+
+
 def phase_data_parallel(phase6: dict) -> tuple[int, int]:
     """Phase 6d: two gloo ranks on cuda:0 at batch 1 each against this
     process at batch 2, for the core and the evidential head; then a
@@ -1936,72 +2062,31 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
         common = dict(weights=os.path.join(workdir, "weights.pt"),
                       batch=os.path.join(workdir, "batch.npz"), block=TRAIN_BLOCK,
                       maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=1,
+                                   rows=[r, r + 1], cases=[False, True]) for r in range(2)],
+                             workdir)
+        wall = time.perf_counter() - t0
         for evidential in (False, True):
-            name = "evidential" if evidential else "core"
-            port = _free_port()
-            t0 = time.perf_counter()
-            ranks = _run_workers([dict(common, mode="rank", rank=r, port=port,
-                                       evidential=evidential) for r in range(2)], workdir)
-            wall = time.perf_counter() - t0
-            single = _single_step(weights, batch, evidential)
-            nudged = _single_step(weights, batch, evidential, nudge=1e-7)
-            for r in ranks:
-                if r["launches"] != (2 * 5 * TRAIN_D, 5 * TRAIN_D):
-                    _fail(f"a {name} rank launched the gate kernels {r['launches']} times")
-                launched[0] += r["launches"][0]
-                launched[1] += r["launches"][1]
-            same = all(torch.equal(t, ranks[1]["state"][k]) for k, t in ranks[0]["state"].items())
-            loss, want = ranks[0]["metrics"]["loss"], single["metrics"]["loss"]
-            loss_rel = abs(loss - want) / abs(want)
-            grad_name, grad_err = _worst(single["grads"], ranks[0]["grads"])
-            move_name, move = _worst(single["grads"], nudged["grads"])
-            bar = max(2e-4, 10 * move)
-            # Adam's first step moves a weight by ~lr times its gradient's
-            # sign: where the gradient is inside its bar of 0 the sign, and
-            # the move, are rounding (within 2 lr); elsewhere 1e-6.
-            weight_err = 0.0
-            for k, g in single["grads"].items():
-                settled = g.abs() > 2 * bar * max(g.abs().max().item(), 1e-3)
-                err = (ranks[0]["state"][k] - single["state"][k]).abs()
-                if err.max().item() > 2e-3:
-                    _fail(f"{name}: weight {k} moved {err.max().item():.3e} from the "
-                          "single-process step, more than 2 x the rate")
-                weight_err = max(weight_err, err[settled].max().item() if settled.any() else 0)
-            stats = {k: v for k, v in single["state"].items()
-                     if k.endswith(("running_mean", "running_var"))}
-            stat_err = max((((ranks[0]["state"][k] - v).abs().max().item()
-                             / max(v.abs().max().item(), 1e-3)) for k, v in stats.items()),
-                           default=0.0)
-            ok = (same and loss_rel <= 1e-5 and grad_err <= bar and weight_err <= 1e-6
-                  and stat_err <= 1e-5)
-            print(f"data-parallel {name}: two gloo ranks on cuda:0 at batch 1 (rank 1 with half "
-                  f"its pixels masked) against one process at batch 2, {TRAIN_H}x{TRAIN_W}, "
-                  f"V={TRAIN_V}, D={TRAIN_D}{f', maxdisp {TRAIN_MAXDISP}' if evidential else ''}"
-                  f": ranks equal bit for bit {same}; loss {loss:.6f} vs {want:.6f} (rel "
-                  f"{loss_rel:.2e}, bar 1e-5); gradients worst {grad_err:.2e} ({grad_name}), "
-                  f"bar {bar:.2e} (the single step's move under 1e-7 weight noise {move:.2e}, "
-                  f"{move_name}); updated weights {weight_err:.2e} where the gradient is "
-                  f"settled (bar 1e-6); {len(stats)} BatchNorm statistics worst "
-                  f"{stat_err:.2e} (bar 1e-5); seconds a step after a warm-up one: ranks "
-                  f"[{', '.join(f'{x:.3f}' for x in ranks[0]['seconds'])}], "
-                  f"[{', '.join(f'{x:.3f}' for x in ranks[1]['seconds'])}] (two processes "
-                  f"sharing the card, {wall:.1f} s from spawn to exit), one process at batch 2 "
-                  f"{single['seconds']:.3f}, phase 6's fp32 batch 1 "
-                  f"{float(np.mean(phase6['step_seconds'][1:])):.3f}; peak memory a rank "
-                  f"{ranks[0]['peak'] / 2**30:.2f} GiB, batch 2 {single['peak'] / 2**30:.2f} "
-                  f"GiB {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                _fail(f"the {name} data-parallel step disagrees with the global-batch step")
+            _hold_ranks_to_single(f"data-parallel {'evidential' if evidential else 'core'}",
+                                  [r[evidential] for r in ranks], weights, batch, evidential,
+                                  wall, phase6, launched,
+                                  "two gloo ranks on cuda:0 at batch 1 (rank 1 with half its "
+                                  "pixels masked) against one process at batch 2")
 
-        (nccl,) = _run_workers([dict(common, mode="nccl", rank=0, port=_free_port(),
-                                     evidential=False)], workdir)
+        (nccl,) = _run_workers([dict(common, mode="nccl", rank=0, port=_free_port(), view=1,
+                                     rows=[0, 1], cases=[False])], workdir)
         mesh, plain = nccl["mesh"], nccl["plain"]
         loss_rel = abs(mesh["metrics"]["loss"] - plain["metrics"]["loss"]) \
             / abs(plain["metrics"]["loss"])
         grad_name, grad_err = _worst(plain["grads"], mesh["grads"])
         ok = nccl["backend"] == "nccl" and loss_rel <= 1e-5 and grad_err <= 2e-4 \
-            and mesh["launches"] == (2 * 5 * TRAIN_D, 5 * TRAIN_D)
+            and mesh["launches"] == (2 * 5 * TRAIN_D, 5 * TRAIN_D) \
+            and mesh["all_reduces"] >= 1 and plain["all_reduces"] == 0
         print(f"data-parallel nccl: a world-size-1 {nccl['backend']} group's step on cuda:0 "
+              f"({mesh['all_reduces']} all-reduces, none without the mesh: "
+              f"{plain['all_reduces']}) "
               f"against the step without a mesh: loss rel {loss_rel:.2e} (bar 1e-5), "
               f"gradients worst {grad_err:.2e} ({grad_name}, bar 2e-4), seconds a step "
               f"[{', '.join(f'{x:.3f}' for x in mesh['seconds'])}] against "
@@ -2009,6 +2094,300 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             _fail("the world-size-1 NCCL step disagrees with the step without a mesh")
+    return tuple(launched)
+
+
+# One rank of phases 5f and 5g: run_inference with InferConfig()'s defaults
+# under make_mesh(data=2), then under make_mesh(depth=2) with pipeline_maps 2,
+# both ranks on cuda:0 over gloo, on phase 5's scene built again from its
+# seed; per path the stats, the gate launches, the peak memory and the
+# seconds go to a torch.save file, and with them the seconds of three
+# handoffs of a seeded carry of the map's shape from stage 0 to stage 1.
+INFER_WORKER = """
+import json, sys, time
+import torch
+import chip_smoke
+from aa_rmvsnet_tpu_torch.models.regularizer import init_states
+from aa_rmvsnet_tpu_torch.ops import gates
+from aa_rmvsnet_tpu_torch.parallel import (
+    initialize_distributed, make_mesh, recv_carry, send_carry)
+from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
+from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+a = json.loads(sys.argv[1])
+disable_tf32()
+initialize_distributed(f"localhost:{a['port']}", 2, a["rank"], backend="gloo")
+samples = chip_smoke._main_scene()
+model = seeded_model(chip_smoke.SEED)
+out = {}
+for path, axes, maps in (("fanout", {"data": 2}, None), ("pipeline", {"depth": 2}, 2)):
+    mesh = make_mesh(**axes, device="cuda")
+    torch.cuda.set_device(mesh.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gates.launches = gates.backward_launches = 0
+    t0 = time.perf_counter()
+    stats = run_inference(model, samples, InferConfig(
+        out_root=a["out_root"] + "_" + path, num_workers=2, mesh=mesh, pipeline_maps=maps))
+    out[path] = {"stats": stats, "launches": (gates.launches, gates.backward_launches),
+                 "peak": torch.cuda.max_memory_allocated(),
+                 "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+noise = torch.Generator(device=mesh.device).manual_seed(chip_smoke.SEED)
+carry = tuple(tuple(torch.randn(t.shape, generator=noise, device=mesh.device).to(t.dtype)
+                    for t in pair)
+              for pair in init_states(1, chip_smoke.MAIN_H, chip_smoke.MAIN_W,
+                                      dtype=torch.bfloat16, device=mesh.device))
+handoff = []
+for _ in range(3):
+    torch.distributed.barrier(group=mesh.depth_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mesh.coord("depth") == 0:
+        work, _ = send_carry(carry, 1, mesh.depth_group)
+        work.wait()
+    else:
+        got = recv_carry(carry, 0, mesh.depth_group)
+        torch.cuda.synchronize()
+    handoff.append(time.perf_counter() - t0)
+    if mesh.coord("depth") == 1 and not all(
+            torch.equal(x, y) for pair, sent in zip(got, carry) for x, y in zip(pair, sent)):
+        raise SystemExit("the carry arrived changed")
+out["pipeline"]["handoff"] = handoff
+torch.save(out, a["out"])
+torch.distributed.destroy_process_group()
+"""
+
+
+def phase_inference_ranks(phase5: dict) -> tuple[int, int]:
+    """5f and 5g: two INFER_WORKER ranks, the fan-out and then the depth
+    pipeline, each path's maps checked as phase 5's and held to them.
+    Returns each path's gate launches over the ranks."""
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    launched = []
+    with tempfile.TemporaryDirectory() as workdir:
+        out_root = os.path.join(workdir, "maps")
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _run_workers([dict(rank=r, port=port, out_root=out_root) for r in range(2)],
+                             workdir, worker=INFER_WORKER)
+        wall = time.perf_counter() - t0
+        for path, report in (("fanout", _report_fanout), ("pipeline", _report_pipeline)):
+            _check_maps(f"{out_root}_{path}", MAIN_MAPS, MAIN_DEPTH_MIN,
+                        MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+            got = [_read_maps(f"{out_root}_{path}", ref) for ref in range(MAIN_MAPS)]
+            per_path = [r[path] for r in ranks]
+            launches = [sum(r["launches"][i] for r in per_path) for i in (0, 1)]
+            if launches != [5 * MAIN_D * MAIN_MAPS, 0]:
+                _fail(f"{path}: the ranks launched the gate kernels {launches} times; "
+                      f"expected {5 * MAIN_D * MAIN_MAPS} forward and no backward")
+            report(per_path, got, phase5, wall)
+            launched.append(launches[0])
+    return tuple(launched)
+
+
+def _held_to_phase5(label: str, got: list, phase5: dict) -> str:
+    """Each map against phase 5's: depth equal on >= 99.9 % of pixels,
+    confidence atol 1e-4; whether bit for bit."""
+    shares, errs, exact = [], [], True
+    for (depth, conf), (want_depth, want_conf) in zip(got, phase5["maps"]):
+        shares.append(float(np.mean(depth == want_depth)))
+        errs.append(float(np.abs(conf - want_conf).max()))
+        exact = exact and np.array_equal(depth, want_depth) and np.array_equal(conf, want_conf)
+    ok = min(shares) >= 0.999 and max(errs) <= 1e-4
+    if not ok:
+        _fail(f"{label}: maps off phase 5's: depth equal on {shares}, confidence {errs}")
+    return (f"against phase 5's maps: depth equal on [{', '.join(f'{x:.4%}' for x in shares)}] "
+            f"of pixels (bar 99.9 %), confidence max_abs_err "
+            f"[{', '.join(f'{x:.2e}' for x in errs)}] (bar 1e-4), bit for bit {exact}")
+
+
+def _report_fanout(ranks: list, got: list, phase5: dict, wall: float) -> None:
+    """5f: ``run_inference`` under ``make_mesh(data=2)``, two gloo ranks on
+    cuda:0, one of phase 5's two maps each."""
+    stats = ranks[0]["stats"]
+    modes = [m for per_rank in stats["modes"] for m in per_rank]
+    if stats["count"] != MAIN_MAPS or modes != [(True, 1, 4)] * MAIN_MAPS:
+        _fail(f"fan-out wrote {stats['count']} maps in packed modes {modes}")
+    held = _held_to_phase5("fan-out", got, phase5)
+    print(f"fan-out: run_inference, InferConfig() defaults, make_mesh(data=2), two gloo ranks "
+          f"on cuda:0 at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}: {stats['count']} maps, "
+          f"packed modes {modes}, seconds per map by rank "
+          f"{[[round(x, 3) for x in r] for r in stats['map_seconds']]} (two processes "
+          f"sharing the card; phase 5 alone "
+          f"[{', '.join(f'{x:.3f}' for x in phase5['map_seconds'])}]), total_s "
+          f"{stats['total_s']:.3f}, {ranks[0]['seconds']:.1f} s from the call to its return "
+          f"({wall:.1f} s from spawn to exit with 5g); peak memory by rank "
+          f"[{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)}] GiB (phase 5 "
+          f"{phase5['peak'] / 2**30:.2f}); {held}; gate kernel launches "
+          f"{sum(r['launches'][0] for r in ranks)} (= 5 x {MAIN_D} x {MAIN_MAPS}) ok",
+          flush=True)
+
+
+def _report_pipeline(ranks: list, got: list, phase5: dict, wall: float) -> None:
+    """5g: ``run_inference`` under ``make_mesh(depth=2)``, ``pipeline_maps=2``:
+    two gloo stages on cuda:0, each sweeping its 256 hypotheses of both of
+    phase 5's maps, the carry handed over through pinned host memory."""
+    stats = ranks[0]["stats"]
+    if stats["count"] != MAIN_MAPS or stats["modes"] != [(True, 1, 4)] * MAIN_MAPS:
+        _fail(f"the depth pipeline wrote {stats['count']} maps in packed modes "
+              f"{stats['modes']}")
+    held = _held_to_phase5("depth pipeline", got, phase5)
+    carry = 2 * 33 * MAIN_H * MAIN_W * 2  # 5 cells' (h, c) in bf16, bytes
+    print(f"depth-pipeline: run_inference, InferConfig() defaults, make_mesh(depth=2), "
+          f"pipeline_maps {MAIN_MAPS}, two gloo stages on cuda:0 at {MAIN_H}x{MAIN_W}, "
+          f"V={MAIN_V}, D={MAIN_D} ({MAIN_D // 2} a stage): {stats['count']} maps, packed "
+          f"modes {stats['modes']}, seconds per group "
+          f"[{', '.join(f'{x:.3f}' for x in stats['group_seconds'])}] (two processes "
+          f"sharing the card; phase 5 alone "
+          f"[{', '.join(f'{x:.3f}' for x in phase5['map_seconds'])}] a map), "
+          f"{ranks[0]['seconds']:.1f} s from the call to its return; the carry's handoff "
+          f"({carry / 1e6:.1f} MB in bf16) timed alone, seconds from a barrier: stage 0 "
+          f"to its send complete [{', '.join(f'{x:.4f}' for x in ranks[0]['handoff'])}], "
+          f"stage 1 to the carry on its card "
+          f"[{', '.join(f'{x:.4f}' for x in ranks[1]['handoff'])}]; peak memory by stage "
+          f"[{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)}] GiB (phase 5 "
+          f"{phase5['peak'] / 2**30:.2f}); {held}; gate kernel launches "
+          f"{sum(r['launches'][0] for r in ranks)} (= 5 x {MAIN_D} x {MAIN_MAPS}) ok",
+          flush=True)
+
+
+# The stand-in for cv2 of phase 5h: the scene's images are .npy arrays
+# (BGR, as cv2 decodes) under their .jpg names.
+CV2_STANDIN = '''
+import numpy as np
+
+IMREAD_COLOR, COLOR_BGR2RGB = 1, 4
+
+
+def imread(path, flags=IMREAD_COLOR):
+    try:
+        return np.load(path)
+    except FileNotFoundError:
+        return None
+
+
+def cvtColor(img, code):
+    return img[..., ::-1]
+'''
+
+
+def _write_main_scene(root: str) -> None:
+    """Phase 5's scene as a scene directory ``root/scan1`` (images, cams,
+    ``pair.txt`` listing phase 5's reference views and their sources
+    nearest first), its images written for :data:`CV2_STANDIN`."""
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras, plane_sources, plane_views
+
+    scan = os.path.join(root, "scan1")
+    os.makedirs(os.path.join(scan, "images"))
+    os.makedirs(os.path.join(scan, "cams"))
+    n_cams = MAIN_MAPS + MAIN_V - 1
+    cams = plane_cameras(MAIN_H, MAIN_W, n_cams, MAIN_PLANE["focal"], MAIN_PLANE["baseline"])
+    for v, (img, (K, E)) in enumerate(zip(plane_views(MAIN_H, MAIN_W, n_cams, **MAIN_PLANE),
+                                          cams)):
+        with open(os.path.join(scan, "images", f"{v:08d}.jpg"), "wb") as f:
+            np.save(f, img[..., ::-1])
+        rows = lambda m: [" ".join(repr(float(x)) for x in row) for row in m]  # noqa: E731
+        with open(os.path.join(scan, "cams", f"{v:08d}_cam.txt"), "w") as f:
+            f.write("\n".join(["extrinsic", *rows(E), "", "intrinsic", *rows(K), "",
+                               f"{MAIN_DEPTH_MIN!r} {MAIN_DEPTH_INTERVAL!r}", ""]))
+    with open(os.path.join(scan, "pair.txt"), "w") as f:
+        f.write(f"{MAIN_MAPS}\n")
+        for ref in range(MAIN_MAPS):
+            sources = plane_sources(ref, n_cams)
+            f.write(f"{ref}\n{len(sources)} "
+                    + " ".join(f"{v} {len(sources) - i}" for i, v in enumerate(sources)) + "\n")
+
+
+def phase_cli_fanout(phase5: dict) -> None:
+    """5h: ``python -m aa_rmvsnet_tpu_torch.cli eval --fanout 2`` with
+    phase 5's flags on phase 5's scene written to disk; its two ranks share
+    ``cuda:0`` over gloo.  Its first line, exit code and maps (held to
+    phase 5's) are checked."""
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    with tempfile.TemporaryDirectory() as workdir:
+        _write_main_scene(workdir)
+        listfile, ckpt = os.path.join(workdir, "list.txt"), os.path.join(workdir, "model.ckpt")
+        with open(listfile, "w") as f:
+            f.write("scan1\n")
+        torch.save({"model": seeded_model(SEED).state_dict()}, ckpt)
+        standin = os.path.join(workdir, "standin")
+        os.makedirs(standin)
+        with open(os.path.join(standin, "cv2.py"), "w") as f:
+            f.write(CV2_STANDIN)
+        out_root = os.path.join(workdir, "maps")
+        cmd = [sys.executable, "-m", "aa_rmvsnet_tpu_torch.cli", "eval", "--testpath", workdir,
+               "--testlist", listfile, "--preset", "dtu_eval", "--loadckpt", ckpt,
+               "--view_num", str(MAIN_V), "--numdepth", str(MAIN_D), "--max_h", str(MAIN_H),
+               "--max_w", str(MAIN_W), "--interval_scale", "1", "--depth_block",
+               str(MAIN_BLOCK), "--outdir", out_root, "--fanout", "2"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [standin, os.getcwd()] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=os.getcwd(), env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            _fail("cli eval --fanout 2 did not finish in 300 s")
+        finally:
+            try:
+                os.killpg(proc.pid, 9)  # the ranks too
+            except ProcessLookupError:
+                pass
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            _fail(f"cli eval --fanout 2 exited with {proc.returncode}: {err[-2000:]}")
+        lines = out.splitlines()
+        first = "eval: 2 ranks (--fanout 2) on torch.distributed, backend gloo, ranks on " \
+            "cuda:0, cuda:0"
+        if lines[0] != first:
+            _fail(f"cli eval --fanout 2 began {lines[0]!r}, not {first!r}")
+        _check_maps(out_root, MAIN_MAPS, MAIN_DEPTH_MIN,
+                    MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+        held = _held_to_phase5("cli eval --fanout 2",
+                               [_read_maps(out_root, ref) for ref in range(MAIN_MAPS)], phase5)
+    maps = [line for line in lines if "scan1/" in line]
+    print(f"cli eval --fanout 2: exit 0 in {wall:.1f} s (spawn, two ranks sharing cuda:0, "
+          f"{MAIN_MAPS} maps at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}); first line "
+          f"{lines[0]!r}; its map lines {maps}; {held}", flush=True)
+
+
+def phase_view_parallel(phase6: dict) -> tuple[int, int]:
+    """6e: ``TrainConfig(mesh=make_mesh(view=2))`` at ``dtu_train``: two gloo
+    ranks on cuda:0, each sweeping 2 of the 4 source views, against this
+    process's step on the same sample, for the core and the evidential
+    head, at phase 6d's bars.  Returns the ranks' gate launches."""
+    from aa_rmvsnet_tpu_torch.models import EvidentialHead
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    keys = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
+    sample = _dtu_train_sample()
+    batch = {k: np.stack([sample[k]]) for k in keys}
+    weights = {"core": seeded_model(SEED).state_dict(),
+               "head": EvidentialHead(TRAIN_MAXDISP,
+                                      generator=torch.Generator().manual_seed(1)).state_dict()}
+    launched = [0, 0]
+    with tempfile.TemporaryDirectory() as workdir:
+        np.savez(os.path.join(workdir, "batch.npz"), **batch)
+        torch.save(weights, os.path.join(workdir, "weights.pt"))
+        common = dict(weights=os.path.join(workdir, "weights.pt"),
+                      batch=os.path.join(workdir, "batch.npz"), block=TRAIN_BLOCK,
+                      maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=2, rows=[0, 1],
+                                   cases=[False, True]) for r in range(2)], workdir)
+        wall = time.perf_counter() - t0
+        for evidential in (False, True):
+            _hold_ranks_to_single(f"view-parallel {'evidential' if evidential else 'core'}",
+                                  [r[evidential] for r in ranks], weights, batch, evidential,
+                                  wall, phase6, launched,
+                                  "two gloo ranks on cuda:0 with a view axis of 2 (source "
+                                  "views 1-2 and 3-4) against one process on the sample")
     return tuple(launched)
 
 
@@ -2425,38 +2804,51 @@ def main() -> int:
 
     disable_tf32()
     t0 = time.perf_counter()
-    phase_device()
-    phase_build()
-    forward = phase_kernel()
-    backward = phase_backward_kernel()
-    phase_small()
-    phase_train_small()
-    phase_train_levers_small()
-    phase_train_evidential_small()
-    phase_packed_small()
-    phase_bf16_guardrail()
-    phase_levers_small()
-    phase_levers_guardrail()
-    samples = _main_scene()
-    bf16_launches, packed_depth0, phase5 = phase_main(samples)
-    phase_feat_chunk(samples, phase5)
-    fp32_launches = phase_main_exact(samples, packed_depth0)
-    evidential_launches, evidential_backward = phase_evidential(samples)
-    levers_launches = phase_main_levers(samples, packed_depth0, phase5)
-    phase6 = phase_train()
+    seconds = {}
+
+    def run(name, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return result
+
+    run("1", phase_device)
+    run("2", phase_build)
+    forward = run("3", phase_kernel)
+    backward = run("3b", phase_backward_kernel)
+    run("4", phase_small)
+    run("4b", phase_train_small)
+    run("4h", phase_train_levers_small)
+    run("4e", phase_train_evidential_small)
+    run("4c", phase_packed_small)
+    run("4d", phase_bf16_guardrail)
+    run("4f", phase_levers_small)
+    run("4g", phase_levers_guardrail)
+    samples = run("scene", _main_scene)
+    bf16_launches, packed_depth0, phase5 = run("5", phase_main, samples)
+    run("5e", phase_feat_chunk, samples, phase5)
+    fp32_launches = run("5b", phase_main_exact, samples, packed_depth0)
+    evidential_launches, evidential_backward = run("5c", phase_evidential, samples)
+    levers_launches = run("5d", phase_main_levers, samples, packed_depth0, phase5)
+    fanout_launches, pipeline_launches = run("5f+5g", phase_inference_ranks, phase5)
+    run("5h", phase_cli_fanout, phase5)
+    phase6 = run("6", phase_train)
     forward["launches"], backward["launches"] = phase6["launches"], phase6["backward"]
-    train_ev_launches, train_ev_backward = phase_train_evidential()
-    levers = phase_train_bf16(phase6)
-    levers["training_data_parallel"] = phase_data_parallel(phase6)
-    fusion = phase_fusion_kernel()
-    fusion["launches"] = phase_fusion_scan()
-    chain_launches, chain_fused = phase_chain()
-    export_launches = phase_export()
+    train_ev_launches, train_ev_backward = run("6b", phase_train_evidential)
+    levers = run("6c", phase_train_bf16, phase6)
+    levers["training_data_parallel"] = run("6d", phase_data_parallel, phase6)
+    levers["training_view_parallel"] = run("6e", phase_view_parallel, phase6)
+    fusion = run("7", phase_fusion_kernel)
+    fusion["launches"] = run("7b", phase_fusion_scan)
+    chain_launches, chain_fused = run("7c", phase_chain)
+    export_launches = run("8", phase_export)
     fusion["launches_by_path"] = {"fusion_scan": fusion["launches"], "chain": chain_fused}
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
                                    "inference_evidential": evidential_launches,
                                    "inference_levers": levers_launches,
+                                   "inference_fanout": fanout_launches,
+                                   "inference_depth_pipeline": pipeline_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches,
                                    **{k: v[0] for k, v in levers.items()},
@@ -2464,11 +2856,14 @@ def main() -> int:
                                    "export": export_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
-                                    "inference_levers": 0,
+                                    "inference_levers": 0, "inference_fanout": 0,
+                                    "inference_depth_pipeline": 0,
                                     "training": backward["launches"],
                                     "training_evidential": train_ev_backward,
                                     **{k: v[1] for k, v in levers.items()},
                                     "chain": 0, "export": 0}
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
+          flush=True)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [forward, backward, fusion]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -131,19 +131,30 @@ def _env() -> dict:
     return {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO_ROOT}
 
 
-def _run_ranks(argvs: list[list[str]], timeout: float = TIMEOUT_S) -> list[str]:
-    """Start one process per argv, wait for all under one deadline (killing
-    every one on a hang), and return their standard outputs."""
+def _start_ranks(argvs: list[list[str]], timeout: float = TIMEOUT_S):
+    """Start one process per argv; the returned function waits for all
+    under one deadline (killing every one on a hang), checks that each
+    exited 0 and returns their standard outputs.  Work done between the
+    two overlaps with the ranks'."""
     procs = [subprocess.Popen(argv, cwd=REPO_ROOT, env=_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for argv in argvs]
-    try:
-        outs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
-    return [out for out, _ in outs]
+
+    def wait() -> list[str]:
+        try:
+            outs = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, (_, err) in zip(procs, outs):
+            assert p.returncode == 0, err[-3000:]
+        return [out for out, _ in outs]
+
+    return wait
+
+
+def _run_ranks(argvs: list[list[str]], timeout: float = TIMEOUT_S) -> list[str]:
+    """Start one process per argv and wait for them (:func:`_start_ranks`)."""
+    return _start_ranks(argvs, timeout)()
 
 
 def _two_ranks(tmp_path, mode: str, weights: dict, batch: dict, evidential: bool = False,
@@ -412,10 +423,16 @@ def test_refusals(tmp_path):
                                          r"/ spatial 1\)"):
         cli.check_global_batch(1, 3, 2, 2)
     cli.check_global_batch(2, 3, 3, 3)  # the port's own case: data axis = processes
-    for axis in ("view", "spatial", "depth"):
-        with pytest.raises(NotImplementedError, match=f"a {axis} axis of 2: not ported yet"):
+    with pytest.raises(NotImplementedError, match="a spatial axis of 2: not ported yet"):
+        make_mesh(spatial=2, device="cpu")
+    for axis in ("view", "depth"):  # over one process: JAX's mesh-size refusal
+        with pytest.raises(ValueError, match=r"1 devices not divisible by "
+                                             r"view\*spatial\*depth=2"):
             make_mesh(**{axis: 2}, device="cpu")
-    with pytest.raises(ValueError, match="a data axis of 2 over 1 process"):
+        with pytest.raises(ValueError, match="mesh 1x2x1x1 != 1 devices" if axis == "view"
+                           else "mesh 1x1x1x2 != 1 devices"):
+            make_mesh(data=1, **{axis: 2}, device="cpu")
+    with pytest.raises(ValueError, match="mesh 2x1x1x1 != 1 devices"):
         make_mesh(data=2, device="cpu")
     mesh = make_mesh(device="cpu")
     assert (mesh.rank, mesh.world_size, mesh.group, mesh.device.type) == (0, 1, None, "cpu")
@@ -424,3 +441,36 @@ def test_refusals(tmp_path):
                            r"--process_id 2: must be in \[0, --num_processes 2\)")):
         with pytest.raises(SystemExit, match=message):
             cli.main(["train", "--trainpath", str(tmp_path), "--trainlist", "x", *argv])
+
+
+def test_world_of_one_keeps_its_collectives(monkeypatch):
+    """In a process group of one rank every axis spans the world, so every
+    axis group is the world's, and a data-parallel step still runs its
+    all-reduce through the backend (one, over the data group; the view
+    axis of one runs none)."""
+    from aa_rmvsnet_tpu_torch.parallel import mesh as mesh_module
+    from aa_rmvsnet_tpu_torch.pipeline.train import average_gradients
+
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cpu")
+        assert mesh.shape == {"data": 1, "view": 1, "spatial": 1, "depth": 1}
+        assert mesh.group is dist.group.WORLD
+        assert (mesh.data_group, mesh.view_group, mesh.depth_group) == (dist.group.WORLD,) * 3
+        groups = []
+        all_reduce = dist.all_reduce
+        monkeypatch.setattr(mesh_module.dist, "all_reduce",
+                            lambda t, group=None: groups.append(group) or all_reduce(t, group=group))
+        params = [torch.nn.Parameter(torch.ones(3)), torch.nn.Parameter(torch.ones(2, 2))]
+        params[0].grad = torch.full((3,), 2.0)
+        average_gradients(params, mesh)
+        assert groups == [dist.group.WORLD]
+        assert torch.equal(params[0].grad, torch.full((3,), 2.0))
+        assert torch.equal(params[1].grad, torch.zeros(2, 2))
+        local = mesh_module.local_mesh(device="cpu")
+        assert (local.group, local.data_group, local.view_group, local.depth_group) == \
+            (None,) * 4
+    finally:
+        dist.destroy_process_group()
