@@ -38,24 +38,22 @@ JAX package's production stack is ``--int8_tables --dual_residual
 ``--coordinator host:port --num_processes N --process_id k`` it trains data
 parallel across N processes on ``torch.distributed`` (one card each, NCCL;
 gloo with ``--device cpu``), ``--batch_size`` per process, as the JAX CLI
-does, and ``--single_device`` makes each process step alone on its shard.
-``eval --fanout N`` (the samples spread over N ranks) and ``eval
+does, and ``--single_device`` makes each process step alone on its shard;
+``--spatial S`` splits each batch's rows over S of the N processes (the
+data axis is N / S, the global batch still ``--batch_size`` x N; evidential
+training on it is not ported yet).
+``eval --fanout N`` (the samples spread over N ranks), ``eval --spatial S``
+(each map's rows split over S ranks, with ``--fanout`` too) and ``eval
 --depth_stages P [--pipeline_maps M]`` (the depth-block pipeline over P
 ranks) start their ranks themselves, on a free port of localhost: rank
 ``k`` on ``cuda:{k % device_count}``, NCCL where every rank has a card of
 its own and gloo otherwise (so that ranks can share one card), gloo ranks
 on the CPU with ``--device cpu``; a rank that fails fails the command.
-The JAX CLI's ``--spatial`` (``eval`` and ``train``) is accepted by the
-parser only to fail with "not ported yet".
 """
 
 from __future__ import annotations
 
 import argparse
-
-#: JAX ``eval`` and ``train`` flags the port does not implement yet (the
-#: spatial mesh axis).
-NOT_PORTED = ("spatial",)
 
 
 def _fold_omega_arg(s: str):
@@ -84,18 +82,6 @@ def _packed_rows_arg(s: str):
         raise argparse.ArgumentTypeError(
             f"--packed_rows must be 0, 1 or 'auto' (got {s!r})")
     return table[s]
-
-
-def _add_not_ported(p, names):
-    for name in names:
-        p.add_argument(f"--{name}", nargs="?", const=True, default=None,
-                       help="not ported yet")
-
-
-def _refuse_not_ported(args, names):
-    asked = [f"--{n}" for n in names if getattr(args, n) is not None]
-    if asked:
-        raise SystemExit(f"{', '.join(asked)}: not ported yet to aa_rmvsnet_tpu_torch")
 
 
 def _add_eval(sub):
@@ -179,13 +165,15 @@ def _add_eval(sub):
     p.add_argument("--fanout", type=int, default=1,
                    help="spread the samples over N ranks, each writing its own maps "
                         "(the JAX CLI's data mesh axis)")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="split each map's rows over N ranks, with halo exchanges (the "
+                        "JAX CLI's spatial mesh axis; with --fanout, fanout x N ranks)")
     p.add_argument("--depth_stages", type=int, default=1,
                    help="pipeline depth chunks across N ranks (ConvLSTM carry handed "
                         "over between them; exclusive with --fanout/--spatial and "
                         "--evidential_ckpt)")
     p.add_argument("--pipeline_maps", type=int, default=None,
                    help="maps per depth-pipeline launch (default 2x stages)")
-    _add_not_ported(p, NOT_PORTED)
     return p
 
 
@@ -198,7 +186,8 @@ def _add_train(sub):
     p.add_argument("--preset", default="dtu_train",
                    help="defaults of the flags below (utils/config.py)")
     p.add_argument("--epochs", type=int)
-    p.add_argument("--batch_size", type=int)
+    p.add_argument("--batch_size", type=int,
+                   help="PER-PROCESS batch size (global = this x num_processes)")
     p.add_argument("--view_num", type=int)
     p.add_argument("--numdepth", type=int)
     p.add_argument("--interval_scale", type=float)
@@ -230,7 +219,9 @@ def _add_train(sub):
     p.add_argument("--process_id", type=int, default=0)
     p.add_argument("--single_device", action="store_true",
                    help="no mesh: each process steps alone on its data shard")
-    _add_not_ported(p, NOT_PORTED)
+    p.add_argument("--spatial", type=int, default=1,
+                   help="spatial (height) mesh axis size; data axis = num_processes / "
+                        "spatial")
     return p
 
 
@@ -325,16 +316,15 @@ def _load(flag: str, loader, module, path):
 def _check_eval_ranks(args) -> None:
     """The multi-rank flags of ``eval``, refused by name where they cannot
     work."""
-    for flag in ("fanout", "depth_stages", "pipeline_maps"):
+    for flag in ("fanout", "spatial", "depth_stages", "pipeline_maps"):
         value = getattr(args, flag)
         if value is not None and value < 1:
             raise SystemExit(f"--{flag} {value}: must be at least 1")
-    if args.depth_stages > 1 and args.fanout > 1:
+    if args.depth_stages > 1 and (args.fanout > 1 or args.spatial > 1):
         raise SystemExit("--depth_stages is exclusive with --fanout/--spatial")
 
 
 def cmd_eval(args):
-    _refuse_not_ported(args, NOT_PORTED)
     _check_eval_ranks(args)
     cfg = _eval_preset(args)
     if args.dry_check:
@@ -349,7 +339,7 @@ def cmd_eval(args):
         return
     if not args.loadckpt:
         raise SystemExit("--loadckpt is required (or use --dry_check)")
-    ranks = args.fanout * args.depth_stages
+    ranks = args.fanout * args.spatial * args.depth_stages
     if ranks == 1:
         _eval(args, cfg)
     else:
@@ -373,8 +363,8 @@ def _spawn_eval(args, ranks: int) -> None:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    axis = (f"--fanout {args.fanout}" if args.fanout > 1
-            else f"--depth_stages {args.depth_stages}")
+    axis = " ".join(f"--{flag} {getattr(args, flag)}"
+                    for flag in ("fanout", "spatial", "depth_stages") if getattr(args, flag) > 1)
     where = ("the CPU" if device.type == "cpu"
              else ", ".join(f"cuda:{k % cards}" for k in range(ranks)))
     print(f"eval: {ranks} ranks ({axis}) on torch.distributed, backend {backend}, "
@@ -388,15 +378,16 @@ def _spawn_eval(args, ranks: int) -> None:
 
 def _eval_rank(rank: int, args, ranks: int, port: int, backend: str) -> None:
     """One rank of a multi-rank ``eval``: joins the process group, takes its
-    card and runs ``eval`` under the mesh of ``--fanout`` or
-    ``--depth_stages``."""
+    card and runs ``eval`` under the mesh of ``--fanout`` and ``--spatial``,
+    or of ``--depth_stages``."""
     import torch
 
     from .parallel.mesh import initialize_distributed, make_mesh
 
     initialize_distributed(f"localhost:{port}", ranks, rank, backend=backend)
     try:
-        mesh = make_mesh(data=args.fanout, depth=args.depth_stages, device=args.device)
+        mesh = make_mesh(data=args.fanout, spatial=args.spatial, depth=args.depth_stages,
+                         device=args.device)
         if mesh.device.type == "cuda":
             torch.cuda.set_device(mesh.device)
         _eval(args, _eval_preset(args), mesh)
@@ -553,9 +544,9 @@ def cmd_quality(args):
 def check_global_batch(batch_size: int, num_processes: int, data_size: int,
                        num_devices: int, spatial: int = 1) -> None:
     """The JAX CLI's refusal of a global batch (``batch_size`` per process
-    times the processes) that the mesh's data axis does not divide.  The
-    port runs one process per card, so its data axis is the process count
-    and divides every global batch; the check stays for the mesh's sake."""
+    times the processes) that the mesh's data axis (the devices over
+    ``spatial``) does not divide.  The port runs one process per card, so
+    this fails only where ``spatial`` does not divide the processes."""
     global_batch = batch_size * num_processes
     if global_batch % data_size:
         raise SystemExit(
@@ -578,13 +569,36 @@ def _check_processes(args) -> None:
         raise SystemExit(f"--coordinator {args.coordinator!r}: must be host:port")
 
 
+def _check_spatial(args) -> None:
+    """``train --spatial``, refused by name where it cannot work, before any
+    process joins the group: the JAX CLI's global-batch check on the data
+    axis ``num_processes / spatial``, one process a rank."""
+    from .utils.config import train_preset
+
+    if args.spatial < 1:
+        raise SystemExit(f"--spatial {args.spatial}: must be at least 1")
+    if args.spatial == 1 or args.single_device:
+        return
+    if args.evidential:
+        raise SystemExit("--evidential with --spatial: not ported yet to aa_rmvsnet_tpu_torch")
+    data = args.num_processes // args.spatial
+    if data == 0:
+        raise SystemExit(f"--spatial {args.spatial} needs as many processes, one a rank "
+                         f"(--num_processes {args.num_processes})")
+    batch_size = args.batch_size or train_preset(args.preset).batch_size
+    check_global_batch(batch_size, args.num_processes, data, args.num_processes, args.spatial)
+    if args.num_processes % args.spatial:
+        raise SystemExit(f"--num_processes {args.num_processes} is no multiple of --spatial "
+                         f"{args.spatial}")
+
+
 def cmd_train(args):
-    _refuse_not_ported(args, NOT_PORTED)
     if not args.evidential:
         given = [f"--{n}" for n in ("head_ckpt", "maxdisp") if getattr(args, n) is not None]
         if given:
             raise SystemExit(f"{', '.join(given)} needs --evidential")
     _check_processes(args)
+    _check_spatial(args)
 
     import torch
 
@@ -654,11 +668,15 @@ def _train(args):
         if nproc > 1:  # each process alone on its shard; rank 0 writes
             mesh = local_mesh(args.device)
     elif nproc > 1:
-        mesh = make_mesh(device=args.device)
-        check_global_batch(cfg.batch_size, nproc, mesh.shape["data"], nproc)
+        mesh = make_mesh(spatial=args.spatial, device=args.device)
         if mesh.is_main:
             print(f"mesh: {mesh.shape} over {nproc} processes ({dist.get_backend()}), "
                   f"global batch {cfg.batch_size * nproc}", flush=True)
+    # The S spatial ranks of a data rank step on the same samples, each on
+    # its rows, so the data rank's batch is their S per-process batches
+    # together: the global batch is --batch_size x processes, as in the JAX
+    # CLI, and so is the epoch's length in steps.
+    spatial = 1 if mesh is None else mesh.shape["spatial"]
     is_main = mesh is None or mesh.is_main
     logger = None
     if not args.no_tensorboard and is_main:
@@ -667,7 +685,7 @@ def _train(args):
         logger = TrainLogger(cfg.logdir)
     config = TrainConfig(
         learning_rate=cfg.learning_rate, lr_min=cfg.lr_min, depth_block=cfg.depth_block,
-        epochs=cfg.epochs, batch_size=cfg.batch_size, num_workers=args.num_workers,
+        epochs=cfg.epochs, batch_size=cfg.batch_size * spatial, num_workers=args.num_workers,
         summary_freq=cfg.summary_freq, max_steps=args.max_steps, logdir=cfg.logdir,
         resume=cfg.resume, seed=cfg.seed, device=args.device,
         evidential=args.evidential, maxdisp=maxdisp, mesh=mesh,

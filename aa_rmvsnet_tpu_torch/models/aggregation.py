@@ -14,6 +14,10 @@ Two forms of the same network:
   convolutions as dense ones with block-diagonal kernels, a workaround for
   the TPU's lane padding that spends G times the operations; the port does
   not.
+
+Both take a spatial ``mesh`` (``parallel/spatial.py``) on a rank's slab of
+rows: rw0's 3x3 convolution with its halo, every GroupNorm's statistics
+over every rank's rows, the 1x1 convolutions on the slab as it is.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..ops.patch_sample import true_div
+from ..parallel.spatial import conv2d_rows, conv_halo, halo_rows, spatial_mean
 from .blocks import ConvGNReLU, ResnetBlockGN
 
 
@@ -39,13 +44,16 @@ class InterViewAA(nn.Module):
             nn.Sigmoid(),
         )
 
-    def forward(self, x):
-        return self.reweight_network(x)
+    def forward(self, x, mesh=None):
+        rw0, rw1, rw2, sigmoid = self.reweight_network
+        return sigmoid(rw2(rw1(rw0(x, mesh), mesh)))
 
 
-def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int) -> torch.Tensor:
+def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int,
+                       mesh=None) -> torch.Tensor:
     """One-group GroupNorm per folded volume of an ``(N, G*c, H, W)``
-    tensor, with ``gn``'s affine tiled over the G volumes.
+    tensor, with ``gn``'s affine tiled over the G volumes; on a spatial
+    ``mesh`` every mean over (H, W) is over every rank's rows.
 
     The moments follow the JAX package's ``_group_norm_folded``: exact
     two-pass fp32 moments for fp32 input; for bf16 input one pass of fp32
@@ -56,13 +64,17 @@ def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int) -> torch.
     N, GC = x.shape[:2]
     c = GC // groups
     x32 = x.float()
-    mu_c = x32.mean(dim=(2, 3))  # (N, G*c)
+
+    def mean_hw(t):
+        return spatial_mean(t, (2, 3), mesh)
+
+    mu_c = mean_hw(x32)  # (N, G*c)
     mu_g = mu_c.view(N, groups, c).mean(dim=2)  # (N, G): equal counts, exact
     d = x32 - mu_g.repeat_interleave(c, dim=1)[:, :, None, None]
     if x.dtype == torch.float32:
-        var_g = d.square().mean(dim=(2, 3)).view(N, groups, c).mean(dim=2)
+        var_g = mean_hw(d.square()).view(N, groups, c).mean(dim=2)
     else:
-        m2_g = x32.square().mean(dim=(2, 3)).view(N, groups, c).mean(dim=2)
+        m2_g = mean_hw(x32.square()).view(N, groups, c).mean(dim=2)
         var_g = torch.clamp_min(m2_g - mu_g.square(), 0.0)
     inv = torch.rsqrt(var_g + gn.eps).repeat_interleave(c, dim=1)[:, :, None, None]
     norm = (d * inv).to(x.dtype)
@@ -72,14 +84,14 @@ def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int) -> torch.
 
 
 def _conv_folded(x: torch.Tensor, conv: nn.Conv2d, groups: int,
-                 weight: torch.Tensor | None = None) -> torch.Tensor:
+                 weight: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """``conv`` applied to each of the G folded volumes: a G-grouped
     convolution with the weights (``conv``'s, or ``weight`` in their
-    place) and bias tiled G times."""
-    weight = conv.weight if weight is None else weight
-    return F.conv2d(x, weight.to(x.dtype).repeat(groups, 1, 1, 1),
-                    conv.bias.to(x.dtype).repeat(groups), padding=conv.padding,
-                    groups=groups)
+    place) and bias tiled G times; on a spatial ``mesh``'s slab with the
+    halo it reads."""
+    weight = (conv.weight if weight is None else weight).to(x.dtype).repeat(groups, 1, 1, 1)
+    bias = conv.bias.to(x.dtype).repeat(groups)
+    return conv2d_rows(conv, x, mesh, weight=weight, bias=bias, groups=groups)
 
 
 def int8_conv(x: torch.Tensor, weight: torch.Tensor, padding: int, groups: int) -> torch.Tensor:
@@ -99,7 +111,7 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, padding: int, groups: int) 
 
 
 def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
-                 input_scale: torch.Tensor | None = None) -> torch.Tensor:
+                 input_scale: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """The omega network with ``groups`` volumes folded into channels.
 
     Computes what :class:`InterViewAA` computes on each of the G volumes
@@ -121,6 +133,7 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
         convolution (:func:`int8_conv`), then ``kmax / 127`` and the bias
         in bf16; the rest of the chain then runs in bf16 whatever the
         model's dtype, as in the JAX package.
+      mesh: a spatial mesh when ``x`` is a rank's slab of rows, else None.
 
     Returns:
       ``(N, H, W, groups)`` sigmoid weights, one channel per volume, in
@@ -138,13 +151,17 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
             k = kernel.float()
             kmax = torch.clamp_min(k.abs().amax(dim=(1, 2, 3)), 1e-12)  # per output channel
             kq = torch.clamp(torch.round(k / kmax[:, None, None, None] * 127.0), -127, 127)
-            y = int8_conv(y, kq.repeat(groups, 1, 1, 1), conv0.padding, groups)
+            padding = conv0.padding
+            if mesh is not None:
+                y = halo_rows(y, *conv_halo(3, 1, padding[0]), mesh)
+                padding = (0, padding[1])
+            y = int8_conv(y, kq.repeat(groups, 1, 1, 1), padding, groups)
             y = y * true_div(kmax, 127.0).to(torch.bfloat16).repeat(groups)[:, None, None]
             y = y + conv0.bias.to(torch.bfloat16).repeat(groups)[:, None, None]
     else:
-        y = _conv_folded(y, conv0, groups, kernel)
-    y = torch.relu(_group_norm_folded(y, rw0[1], groups))
-    z = torch.relu(_group_norm_folded(_conv_folded(y, stem0[0], groups), stem0[1], groups))
-    z = _group_norm_folded(_conv_folded(z, stem1, groups), stem_gn, groups)
+        y = _conv_folded(y, conv0, groups, kernel, mesh)
+    y = torch.relu(_group_norm_folded(y, rw0[1], groups, mesh))
+    z = torch.relu(_group_norm_folded(_conv_folded(y, stem0[0], groups), stem0[1], groups, mesh))
+    z = _group_norm_folded(_conv_folded(z, stem1, groups), stem_gn, groups, mesh)
     y = torch.relu(z + y)
     return torch.sigmoid(_conv_folded(y, rw2, groups)).permute(0, 2, 3, 1)

@@ -8,6 +8,11 @@ ConvLSTM gate conv over ``cat(x, h)`` producing channels (i, f, o, g).
 Submodule names are the reference torch names, so ``state_dict`` keys match
 the shipped checkpoints (``ConvGNReLU`` is a ``Sequential`` whose ``0`` is
 the conv and ``1`` the GroupNorm, and so on).
+
+Each block's ``forward(x, ..., mesh=None)`` takes a spatial mesh for a
+slab of rows of the map (``parallel/spatial.py``), with the same
+parameters: the convolutions with their halos, GroupNorm with statistics
+over every rank's rows.  Without one it is the plain module call.
 """
 
 from __future__ import annotations
@@ -17,6 +22,13 @@ from torch import nn
 
 from ..ops.deform import deform_conv
 from ..ops.gates import lstm_gates
+from ..parallel.spatial import (
+    conv2d_rows,
+    conv_transpose_rows,
+    gather_rows,
+    group_norm_rows,
+    slab_row0,
+)
 
 
 def group_norm(channels: int) -> nn.GroupNorm:
@@ -36,6 +48,9 @@ class ConvGNReLU(nn.Sequential):
             nn.ReLU(),
         )
 
+    def forward(self, x, mesh=None):
+        return torch.relu(group_norm_rows(conv2d_rows(self[0], x, mesh), self[1], mesh))
+
 
 class ResnetBlockGN(nn.Module):
     """conv-gn-relu -> conv-gn, plus the input, then relu."""
@@ -49,8 +64,10 @@ class ResnetBlockGN(nn.Module):
             group_norm(channels),
         )
 
-    def forward(self, x):
-        return torch.relu(self.stem(x) + x)
+    def forward(self, x, mesh=None):
+        block, conv, gn = self.stem
+        y = conv2d_rows(conv, block(x, mesh), mesh)
+        return torch.relu(group_norm_rows(y, gn, mesh) + x)
 
 
 class DeconvGNReLU(nn.Module):
@@ -62,8 +79,9 @@ class DeconvGNReLU(nn.Module):
                                        output_padding=1)
         self.gn = group_norm(out_c)
 
-    def forward(self, x):
-        return torch.relu(self.gn(self.conv(x)))
+    def forward(self, x, mesh=None):
+        return torch.relu(group_norm_rows(conv_transpose_rows(self.conv, x, mesh), self.gn,
+                                          mesh))
 
 
 class ConvLSTMCell(nn.Module):
@@ -75,9 +93,9 @@ class ConvLSTMCell(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(input_dim + hidden, 4 * hidden, 3, padding=1)
 
-    def forward(self, x, state):
+    def forward(self, x, state, mesh=None):
         h, c = state
-        return lstm_gates(self.conv(torch.cat([x, h], dim=1)), c)
+        return lstm_gates(conv2d_rows(self.conv, torch.cat([x, h], dim=1), mesh), c)
 
 
 class DeformConv(nn.Module):
@@ -98,10 +116,14 @@ class DeformConv(nn.Module):
         self.p_conv = nn.Conv2d(in_c, 18, 3, padding=1)
         self.m_conv = nn.Conv2d(in_c, 9, 3, padding=1)
 
-    def forward(self, x):
-        offset = self.p_conv(x)
-        modulation = torch.sigmoid(self.m_conv(x))
-        return deform_conv(x, offset, modulation, self.conv.weight, self.conv.bias)
+    def forward(self, x, mesh=None):
+        """On a spatial ``mesh``, the slab's output rows: the offsets and
+        modulations from the slab with its halo, the taps sampled from the
+        whole map, since an offset may reach any row."""
+        offset = conv2d_rows(self.p_conv, x, mesh)
+        modulation = torch.sigmoid(conv2d_rows(self.m_conv, x, mesh))
+        return deform_conv(gather_rows(x, mesh), offset, modulation, self.conv.weight,
+                           self.conv.bias, row0=slab_row0(x, mesh))
 
 
 class DeformConvGNReLU(nn.Sequential):
@@ -109,3 +131,6 @@ class DeformConvGNReLU(nn.Sequential):
 
     def __init__(self, in_c: int, out_c: int):
         super().__init__(DeformConv(in_c, out_c), group_norm(out_c), nn.ReLU())
+
+    def forward(self, x, mesh=None):
+        return torch.relu(group_norm_rows(self[0](x, mesh), self[1], mesh))

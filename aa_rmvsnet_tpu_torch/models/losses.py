@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum_
+
 
 def depth_classification_loss(
     prob_volume: torch.Tensor,
@@ -15,6 +17,7 @@ def depth_classification_loss(
     mask: torch.Tensor,
     depth_values: torch.Tensor,
     eps: float = 1e-12,
+    group=None,
 ):
     """Masked cross-entropy against the nearest-hypothesis one-hot bin.
 
@@ -23,6 +26,11 @@ def depth_classification_loss(
       depth_gt: ``(B, H, W)`` ground-truth depth.
       mask: ``(B, H, W)`` float validity mask (1 = supervised).
       depth_values: ``(B, D)`` hypothesis depths (sweep order).
+      group: the spatial process group whose ranks hold the rows of the
+        maps (``parallel/spatial.py``), or None.  The valid count is then
+        summed over its ranks, and the loss returned is this rank's share:
+        the ranks' shares sum to the loss of the whole maps, and so do the
+        gradients they give.
 
     Returns:
       ``(loss, wta_depth)``: the scalar mean masked CE and the ``(B, H, W)``
@@ -37,7 +45,10 @@ def depth_classification_loss(
 
     gt_prob = torch.gather(prob_volume, 1, gt_index[:, None])[:, 0]
     ce = -torch.log(gt_prob + eps)
-    valid = mask.sum(dim=(1, 2)) + 1e-6
+    valid = mask.sum(dim=(1, 2))
+    if group is not None:
+        all_reduce_sum_([valid], group)
+    valid = valid + 1e-6
     loss = ((mask * ce).sum(dim=(1, 2)) / valid).mean()
 
     wta_index = torch.argmax(prob_volume, dim=1)

@@ -45,6 +45,14 @@ per-channel scale shared by every view, which omega folds into its first
 kernel and the view mean multiplies back.  They are plain torch ops, as
 they are XLA code in the JAX package, inside ``quant.*`` profiler ranges.
 
+Under a mesh whose spatial axis is above 1 (:func:`spatial_mesh`) every
+rank holds a slab of rows of every view (``parallel/spatial.py``, the
+collectives GSPMD inserts in the JAX package): FeatNet, omega and the
+U-Net take the mesh and run on it, the source views' features
+are gathered whole before their tables are built (a warp may read any
+row), the homography terms cover the slab's pixels at their map rows, and
+winner-take-all, logsumexp and the collected volume stay the slab's.
+
 Public functions keep the JAX package's NHWC shapes; the modules run NCHW.
 Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block``,
 ``sweep.regularize``, ``sweep.wta``) name the layers for
@@ -71,7 +79,8 @@ from .aggregation import InterViewAA, omega_folded
 from .feature import FeatNet
 from .init import init_like_jax
 from .regularizer import UNetConvLSTM, init_states
-from ..parallel.mesh import view_merge
+from ..parallel.mesh import spatial_rows, view_merge
+from ..parallel.spatial import all_reduce_max, gather_rows
 from ..ops.homography import homography_terms, max_depth_step_displacement, plane_sweep_xy
 from ..ops.patch_sample import (
     F8_MAX,
@@ -145,9 +154,11 @@ class SweepConfig:
       (:func:`view_shard`): each view rank runs FeatNet on the reference
       view and its own source views, builds their tables and homography
       terms, and merges its partial view mean over the view group once per
-      depth block; every rank then regularizes the same costs.  Other axes
-      do not change the sweep.  ``gather_pack > 1`` and ``residual_dtype``
-      raise on a view-parallel sweep, as in the JAX package.
+      depth block; every rank then regularizes the same costs.  With a
+      spatial axis above 1 every rank sweeps its slab of rows
+      (:func:`spatial_mesh`).  Other axes do not change the sweep.
+      ``gather_pack > 1`` and ``residual_dtype`` raise on a view-parallel
+      sweep, as in the JAX package.
     """
 
     depth_block: int = 16
@@ -171,6 +182,19 @@ def pick_depth_block(num_depth: int, target: int) -> int:
         if num_depth % block == 0:
             return block
     return 1
+
+
+def spatial_mesh(mesh):
+    """``mesh`` where its spatial axis is above 1 (the sweep then runs on
+    each rank's slab of rows), else None.  A mesh with view and spatial
+    axes both above 1, which the JAX package runs in inference, is refused:
+    not ported yet."""
+    if mesh is None or mesh.shape["spatial"] == 1:
+        return None
+    if mesh.shape["view"] > 1:
+        raise NotImplementedError("a mesh with view and spatial axes both above 1: not "
+                                  "ported yet to aa_rmvsnet_tpu_torch")
+    return mesh
 
 
 def _dtype_of(model: AARMVSNetCore) -> torch.dtype:
@@ -224,10 +248,13 @@ def _cast(model: AARMVSNetCore, dtype: torch.dtype) -> AARMVSNetCore:
 
 
 def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
-                     dtype: torch.dtype = torch.float32, view_chunk: int = 0) -> torch.Tensor:
+                     dtype: torch.dtype = torch.float32, view_chunk: int = 0,
+                     mesh=None) -> torch.Tensor:
     """FeatNet on every view in ``dtype``: all ``B*V`` views as one batch
     (``view_chunk=0``, the JAX default) or sequential chunks of
-    ``view_chunk`` views, which bounds FeatNet's peak memory.
+    ``view_chunk`` views, which bounds FeatNet's peak memory.  Given a
+    spatial ``mesh`` (:func:`spatial_mesh`), ``imgs`` are this rank's slab
+    of rows and so are the features.
 
     GroupNorm is per sample, so the chunk does not change the math, and on
     the CPU not the values either (FeatNet runs one sample at a time there,
@@ -247,7 +274,7 @@ def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
 
     def run(chunk):  # (B, k, H, W, 3) -> (B, k, H, W, 32)
         x = chunk.reshape(-1, H, W, 3).to(dtype).permute(0, 3, 1, 2)
-        return model.feature(x).permute(0, 2, 3, 1).reshape(B, chunk.shape[1], H, W, -1)
+        return model.feature(x, mesh).permute(0, 2, 3, 1).reshape(B, chunk.shape[1], H, W, -1)
 
     with record_function("featnet"):
         return torch.cat([run(imgs[:, i:i + k]).transpose(0, 1) for i in range(0, V, k)])
@@ -277,18 +304,21 @@ def _build_cost_block(
     depth_block: torch.Tensor,
     table_scales: list,
     hybrid_omega: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Warp + squared residual + omega reweight + view mean for one block.
 
     Args:
-      ref_feat: ``(B, H, W, C)``.
-      src_tables: per source view, a ``(B, H*W, 4C)`` 2x2 patch table.
+      ref_feat: ``(B, H, W, C)`` (a spatial rank's slab of rows).
+      src_tables: per source view, a ``(B, Hs*W, 4C)`` 2x2 patch table of
+        the whole map (``Hs = H`` but on a slab).
       rot_grids: per source view ``(B, 3, H*W)``; transes: ``(B, 3, 1)``.
       depth_block: ``(B, Db)``.
       table_scales: per source view the ``(B, 1, 4C)`` dequantization
         factors of a quantized table, or ``None``.
       hybrid_omega: omega in its folded form on a transposed copy of the
         residual (:func:`..models.aggregation.omega_folded`).
+      mesh: the spatial mesh of a slab (:func:`spatial_mesh`), else None.
 
     Returns:
       ``(Db, B, C, H, W)`` negated variance cost slices.
@@ -300,15 +330,17 @@ def _build_cost_block(
     def terms():
         for table, scale, rot_grid, trans in zip(src_tables, table_scales, rot_grids, transes):
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
-            warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1), H, W,
-                                           scale=scale, compute_dtype=ref_feat.dtype)
+            warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1),
+                                           table.shape[1] // W, W, scale=scale,
+                                           compute_dtype=ref_feat.dtype)
             warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
             residual_sq = (warped - ref) ** 2  # (B, Db, C, H, W)
             if hybrid_omega:
                 flat = residual_sq.permute(0, 3, 4, 1, 2).reshape(B, H, W, Db * C)
-                weights = omega_folded(model.omega, flat, Db).permute(0, 3, 1, 2)
+                weights = omega_folded(model.omega, flat, Db, mesh=mesh).permute(0, 3, 1, 2)
             else:
-                weights = model.omega(residual_sq.reshape(B * Db, C, H, W)).view(B, Db, H, W)
+                weights = model.omega(residual_sq.reshape(B * Db, C, H, W), mesh).view(
+                    B, Db, H, W)
             yield (weights[:, :, None] + 1.0) * residual_sq
 
     return -_view_mean(terms()).transpose(0, 1)
@@ -324,6 +356,7 @@ def _build_cost_block_folded(
     table_scales: list,
     residual_scale: torch.Tensor | None = None,
     residual_dtype: Any = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Depth-folded variant of :func:`_build_cost_block`: the 2x2 gather
     runs in pixel-major order, so each view's warped volume is already
@@ -337,10 +370,10 @@ def _build_cost_block_folded(
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
             xt = x.transpose(1, 2).reshape(B, -1)  # pixel-major (B, H*W*Db)
             yt = y.transpose(1, 2).reshape(B, -1)
-            yield patch_bilinear_sample(table, xt, yt, H, W, scale=scale,
+            yield patch_bilinear_sample(table, xt, yt, table.shape[1] // W, W, scale=scale,
                                         compute_dtype=ref_feat.dtype).view(B, H, W, -1)
 
-    return _cost_from_warped(model, ref_feat, warped(), residual_scale, residual_dtype)
+    return _cost_from_warped(model, ref_feat, warped(), residual_scale, residual_dtype, mesh)
 
 
 def _warp_packed(table: torch.Tensor, rot_grid: torch.Tensor, trans: torch.Tensor,
@@ -350,15 +383,16 @@ def _warp_packed(table: torch.Tensor, rot_grid: torch.Tensor, trans: torch.Tenso
                  residual_scale: torch.Tensor | None = None, residual_dtype: Any = None):
     """Packed warp of one source view, ``K = depth_block.shape[1]``
     hypotheses per gathered row: the folded ``(B, H, W, K*C)`` warped
-    volume, or, given ``ref_flat`` (``(B, H*W, C)`` reference features), the
-    squared residual straight from the blend (``fused_residual``),
-    quantized there with ``residual_scale`` to ``residual_dtype`` (an
-    ``(fp8, int8)`` pair for ``"dual"``).  ``scale``: the dequantization
-    factors of a quantized table."""
+    volume of the ``H x W`` reference pixels (the table holds the whole
+    source map, whose height it gives), or, given ``ref_flat`` (``(B, H*W,
+    C)`` reference features), the squared residual straight from the blend
+    (``fused_residual``), quantized there with ``residual_scale`` to
+    ``residual_dtype`` (an ``(fp8, int8)`` pair for ``"dual"``).  ``scale``:
+    the dequantization factors of a quantized table."""
     x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, K, H*W)
     quantize = ref_flat is not None and residual_dtype is not None
     out = patch_bilinear_sample_packed(
-        table, x.transpose(1, 2), y.transpose(1, 2), H, W, taps=taps,
+        table, x.transpose(1, 2), y.transpose(1, 2), table.shape[1] // W, W, taps=taps,
         folded_out=True, ref=ref_flat, scale=scale, compute_dtype=compute_dtype,
         residual_inv_scale=1.0 / residual_scale if quantize else None,
         residual_dtype=residual_dtype if quantize else None,
@@ -383,6 +417,7 @@ def _build_cost_block_packed(
     fused_residual: bool = False,
     residual_scale: torch.Tensor | None = None,
     residual_dtype: Any = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Packed-row variant: ONE ``table_taps``-wide row per (view, pixel)
     serves the whole block, and the blend emits pixel-major ``(B, H, W,
@@ -397,13 +432,13 @@ def _build_cost_block_packed(
               for t, s, r, tr in zip(src_tables, table_scales, rot_grids, transes))
     if fused_residual:
         return _cost_from_residual(model, warped, C, ref_feat.dtype, residual_scale,
-                                   residual_dtype)
-    return _cost_from_warped(model, ref_feat, warped, residual_scale, residual_dtype)
+                                   residual_dtype, mesh)
+    return _cost_from_warped(model, ref_feat, warped, residual_scale, residual_dtype, mesh)
 
 
 def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped,
                       residual_scale: torch.Tensor | None = None,
-                      residual_dtype: Any = None) -> torch.Tensor:
+                      residual_dtype: Any = None, mesh=None) -> torch.Tensor:
     """Squared residual + omega + view mean on folded warped volumes.
 
     Args:
@@ -430,15 +465,15 @@ def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped,
             yield r
 
     return _cost_from_residual(model, residuals(), C, ref_feat.dtype, residual_scale,
-                               residual_dtype)
+                               residual_dtype, mesh)
 
 
 def _cost_from_residual(model: AARMVSNetCore, residuals, C: int,
                         compute_dtype: torch.dtype | None = None,
                         residual_scale: torch.Tensor | None = None,
-                        residual_dtype: Any = None) -> torch.Tensor:
+                        residual_dtype: Any = None, mesh=None) -> torch.Tensor:
     """Omega reweight + view mean on folded (possibly quantized) squared
-    residuals.
+    residuals (omega on a spatial ``mesh``'s slab where one is given).
 
     Args:
       residuals: per source view a ``(B, H, W, Db*C)`` squared residual, or
@@ -469,7 +504,7 @@ def _cost_from_residual(model: AARMVSNetCore, residuals, C: int,
             if residual_dtype is not None and r_omega.dtype != torch.int8:
                 with record_function("quant.omega_input"):
                     r_omega = r_omega.to(compute_dtype)
-            weights = omega_folded(model.omega, r_omega, Db, omega_scale)  # (B, H, W, Db)
+            weights = omega_folded(model.omega, r_omega, Db, omega_scale, mesh)  # (B, H, W, Db)
             r6 = r_var.view(B, H, W, Db, C)
             if residual_dtype is not None:
                 with record_function("quant.variance_dequant"):
@@ -534,7 +569,9 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     for this rank's source views only, and each block's partial view mean
     is merged over the view group (``parallel.mesh.view_merge``);
     ``features`` may then hold all views or the reference view and this
-    rank's source views only.
+    rank's source views only.  Under a spatial mesh (:func:`spatial_mesh`)
+    ``features`` and ``states`` are this rank's slab of rows, and so are
+    the results.
 
     Returns ``(states, depth_img, max_cost, lse, volume)``: the carry
     after the last hypothesis, the chunk's WTA depth, its maximum cost and
@@ -552,6 +589,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     if config.fused_residual and not config.packed_rows:
         raise ValueError("fused_residual requires packed_rows")
     shard = view_shard(config.mesh, V)
+    rows_mesh = spatial_mesh(config.mesh)
     if pack > 1 and shard is not None:
         raise ValueError("gather_pack > 1 is not supported on a view-sharded mesh")
     if D % (block * pack):
@@ -581,14 +619,17 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     with record_function("sweep.setup"):
         features = features.to(dtype)
         ref_feat = features[0]  # (B, H, W, C)
+        # A warp may read any row of a source view: on a spatial mesh each
+        # rank builds the tables (and their scales) of the whole map.
+        sources = [gather_rows(features[i], rows_mesh, dim=1) for i in src_index]
         taps = config.table_taps if config.packed_rows else 2
         if table_dtype is None:
-            src_tables = [build_patch_table_packed(features[i], taps) for i in src_index]
+            src_tables = [build_patch_table_packed(f, taps) for f in sources]
             table_scales = [None] * len(src_index)
         else:
             with record_function("quant.tables"):
-                quantized = [build_patch_table_packed_quant(features[i], table_dtype, taps)
-                             for i in src_index]
+                quantized = [build_patch_table_packed_quant(f, table_dtype, taps)
+                             for f in sources]
             src_tables = [t for t, _ in quantized]
             table_scales = [s for _, s in quantized]
         residual_scale = None
@@ -598,10 +639,12 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
             # features within +-a lies in [0, (2a)^2], mapped onto qmax.
             a = torch.stack([features[v].float().abs().amax(dim=(0, 1, 2))
                              for v in range(V)]).amax(dim=0)
+            a = all_reduce_max(a, rows_mesh)
             qmax = 127.0 if residual_dtype == torch.int8 else F8_MAX
             residual_scale = torch.clamp_min(true_div((2.0 * a) ** 2, qmax), 1e-12)
         ref_proj = proj_matrices[:, 0]
-        terms = [homography_terms(proj_matrices[:, v], ref_proj, H, W) for v in src_views]
+        row0 = 0 if rows_mesh is None else rows_mesh.coord("spatial") * H
+        terms = [homography_terms(proj_matrices[:, v], ref_proj, H, W, row0) for v in src_views]
         rot_grids = [t[0] for t in terms]
         transes = [t[1] for t in terms]
 
@@ -620,6 +663,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
         build = functools.partial(_build_cost_block_folded, **levers)
     else:
         build = _build_cost_block
+    build = functools.partial(build, mesh=rows_mesh)
 
     def cost_blocks(dsuper):
         """The ``pack`` cost blocks of a super block.  With gather_pack > 1
@@ -637,9 +681,10 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
         for i in range(pack):
             # Both members of a dual pair keep the same columns.
             cols = [_map_pair(lambda o: o[..., i * width:(i + 1) * width], w) for w in warped]
-            blocks.append(_cost_from_residual(model, cols, C, dtype, **levers)
+            blocks.append(_cost_from_residual(model, cols, C, dtype, **levers, mesh=rows_mesh)
                           if config.fused_residual
-                          else _cost_from_warped(model, ref_feat, cols, **levers))
+                          else _cost_from_warped(model, ref_feat, cols, **levers,
+                                                 mesh=rows_mesh))
         return blocks
 
     def block_step(states, dsuper):
@@ -652,7 +697,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
             costs = []
             for cost_block in blocks:
                 for cost_slice in cost_block:
-                    cost, states = model.cost_regularization(cost_slice, states)
+                    cost, states = model.cost_regularization(cost_slice, states, rows_mesh)
                     costs.append(cost[:, 0])
         return states, torch.stack(costs).float()  # (pack * block, B, H, W)
 
@@ -708,7 +753,9 @@ def sweep(
     ``photometric_confidence`` ``(B, H, W)`` softmax probability of the
     winner, and, if ``config.collect_volume``, ``cost_volume``
     ``(B, D, H, W)`` (its softmax over D is the probability volume), all
-    fp32.  Under a view mesh every view rank returns the same result.
+    fp32.  Under a view mesh every view rank returns the same result;
+    under a spatial mesh ``features`` are this rank's slab of rows of every
+    view, and the results are the slab's.
     """
     _, B, H, W, _ = features.shape
     model = _cast(model, config.feature_dtype)
@@ -729,7 +776,10 @@ def forward(
     depth_values: torch.Tensor,
     config: SweepConfig = SweepConfig(),
 ) -> dict:
-    """Full forward: features + sweep.  ``imgs``: ``(B, V, H, W, 3)``.
+    """Full forward: features + sweep.  ``imgs``: ``(B, V, H, W, 3)``; under
+    a spatial mesh (:func:`spatial_mesh`) this rank's slab of rows of every
+    view (``parallel.mesh.spatial_rows`` of the map's height), and the
+    results are the slab's.
 
     Differentiable in the model's parameters through ``cost_volume`` in
     fp32 (``depth`` and ``photometric_confidence`` carry no gradient).  On
@@ -738,12 +788,15 @@ def forward(
     backward recomputes each block, plus 5 x D backward-kernel launches.
     """
     model = _cast(model, config.feature_dtype)
+    rows_mesh = spatial_mesh(config.mesh)
+    if rows_mesh is not None:
+        spatial_rows(rows_mesh, imgs.shape[2] * rows_mesh.shape["spatial"])  # whole slabs
     shard = view_shard(config.mesh, imgs.shape[1])
     if shard is not None:
         # FeatNet on the reference view and this rank's source views only.
         imgs = imgs[:, [0, *shard]]
     return sweep(model, extract_features(model, imgs, config.feature_dtype,
-                                         config.feature_view_chunk),
+                                         config.feature_view_chunk, rows_mesh),
                  proj_matrices, depth_values, config)
 
 

@@ -27,21 +27,26 @@ def deform_conv(
     modulation: torch.Tensor,
     weight: torch.Tensor,
     bias: torch.Tensor | None = None,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Modulated deformable 3x3 conv.
+    """Modulated deformable 3x3 conv, of every output row or of the ``Ho``
+    rows from ``row0`` (a spatial rank's slab, ``offset`` and
+    ``modulation`` giving its rows), sampled from the whole input either way.
 
     Args:
       x: ``(B, C, H, W)`` input features (unpadded).
-      offset: ``(B, 18, H, W)``; channels ``[:9]`` shift rows, ``[9:]``
+      offset: ``(B, 18, Ho, W)``; channels ``[:9]`` shift rows, ``[9:]``
         columns, tap order row-major.
-      modulation: ``(B, 9, H, W)`` modulation scalars (already sigmoided).
+      modulation: ``(B, 9, Ho, W)`` modulation scalars (already sigmoided).
       weight: ``(O, C, 3, 3)`` conv weights (tap ``n`` = ``(n//3, n%3)``).
       bias: optional ``(O,)``.
+      row0: the input row of the first output row.
 
     Returns:
-      ``(B, O, H, W)``.
+      ``(B, O, Ho, W)``.
     """
     B, C, H, W = x.shape
+    Ho = offset.shape[2]
     O = weight.shape[0]
     Hp, Wp = H + 2, W + 2
     x_pad = F.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))  # NHWC
@@ -49,18 +54,18 @@ def deform_conv(
 
     # Tap geometry in fp32 whatever the compute dtype.
     offset = offset.float()
-    rows = torch.arange(1, H + 1, dtype=torch.float32, device=x.device)
+    rows = torch.arange(row0 + 1, row0 + Ho + 1, dtype=torch.float32, device=x.device)
     cols = torch.arange(1, W + 1, dtype=torch.float32, device=x.device)
     taps = weight.permute(2, 3, 1, 0).reshape(9, C, O)
 
-    out = torch.zeros(B, H, W, O, dtype=x.dtype, device=x.device)
+    out = torch.zeros(B, Ho, W, O, dtype=x.dtype, device=x.device)
     for n in range(9):
         dr, dc = n // 3 - 1, n % 3 - 1
         p_r = rows[None, :, None] + (dr + offset[:, n])  # (B, H, W)
         p_c = cols[None, None, :] + (dc + offset[:, 9 + n])
         tap = patch_bilinear_sample(
             table, p_c.reshape(B, -1), p_r.reshape(B, -1), Hp, Wp
-        ).reshape(B, H, W, C)
+        ).reshape(B, Ho, W, C)
         tap = tap * modulation[:, n, :, :, None]
         out = out + tap @ taps[n]
     if bias is not None:

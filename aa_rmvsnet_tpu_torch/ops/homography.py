@@ -18,13 +18,15 @@ import torch
 
 
 def homography_terms(
-    src_proj: torch.Tensor, ref_proj: torch.Tensor, height: int, width: int
+    src_proj: torch.Tensor, ref_proj: torch.Tensor, height: int, width: int, row0: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depth-independent warp terms.
 
     Args:
       src_proj, ref_proj: ``(B, 4, 4)`` full projection matrices.
-      height, width: reference feature-map size.
+      height, width: reference feature-map size, or the rows of a spatial
+        rank's slab and the width.
+      row0: the map row of the first of the ``height`` rows.
 
     Returns:
       ``rot_grid``: ``(B, 3, H*W)``, ``R @ [x, y, 1]`` per reference pixel.
@@ -35,7 +37,7 @@ def homography_terms(
     trans = proj[:, :3, 3:4]
     dev = src_proj.device
     y, x = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev),
+        torch.arange(row0, row0 + height, dtype=torch.float32, device=dev),
         torch.arange(width, dtype=torch.float32, device=dev),
         indexing="ij",
     )

@@ -1,6 +1,6 @@
 """Multi-process runs on ``torch.distributed`` (port of
-``aa_rmvsnet_tpu/parallel``): the data, view and depth axes of the JAX
-package's mesh, and the depth-block pipeline."""
+``aa_rmvsnet_tpu/parallel``): the data, view, spatial and depth axes of
+the JAX package's mesh, and the depth-block pipeline."""
 
 from .mesh import (
     Mesh,
@@ -13,6 +13,7 @@ from .mesh import (
     recv_carry,
     send_carry,
     shard_dataset,
+    spatial_rows,
     view_merge,
 )
 from .depth_pipeline import pipeline_forward, sweep_depth_pipelined
@@ -29,6 +30,7 @@ __all__ = [
     "recv_carry",
     "send_carry",
     "shard_dataset",
+    "spatial_rows",
     "sweep_depth_pipelined",
     "view_merge",
 ]

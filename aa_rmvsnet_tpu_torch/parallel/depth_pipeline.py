@@ -42,10 +42,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-# The module, not its names: models/network.py imports parallel/mesh.py,
-# so this package may be initialised while network.py is.
+# The module, not its names: the models import parallel/mesh.py and
+# parallel/spatial.py, so this package may be initialised while they are.
 from ..models import network
-from ..models.regularizer import init_states
 from .mesh import Mesh, recv_carry, send_carry
 
 
@@ -84,7 +83,7 @@ def _run(model, feature_of, proj_matrices: torch.Tensor, depth_values: torch.Ten
         feats = feature_of(m)
         if zeros is None:
             _, _, H, W, _ = feats.shape
-            zeros = init_states(B, H, W, dtype=config.feature_dtype, device=feats.device)
+            zeros = network.init_states(B, H, W, dtype=config.feature_dtype, device=feats.device)
         states = zeros
         if stage > 0:
             states = recv_carry(zeros, mesh.rank - 1, group)

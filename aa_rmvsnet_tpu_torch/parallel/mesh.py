@@ -19,11 +19,14 @@ itself:
 - ``view``: the sweep's source views split over the view ranks
   (``models/network.py:sweep``), the view mean merged once per depth block
   by :func:`view_merge`;
+- ``spatial``: the rows of every map split over the spatial ranks
+  (``parallel/spatial.py``): spatial rank ``s`` of ``S`` holds the rows
+  :func:`spatial_rows` gives it, and the halo exchanges, row gathers and
+  GroupNorm statistics that GSPMD inserts in the JAX package are written
+  out by hand over the spatial group;
 - ``depth``: the depth-block pipeline (``parallel/depth_pipeline.py``),
   whose stages hand the ConvLSTM carry on with :func:`send_carry` and
   :func:`recv_carry`.
-
-The spatial axis (the row split with its halo exchanges) is not ported yet.
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ class Mesh:
     sizes: tuple[int, int, int, int]
     data_group: Any = None
     view_group: Any = None
+    spatial_group: Any = None
     depth_group: Any = None
 
     @property
@@ -123,7 +127,7 @@ def _axis_groups(rank: int, sizes: tuple) -> dict:
     for size in sizes:
         world *= size
     groups = {}
-    for axis in ("data", "view", "depth"):
+    for axis in AXES:
         i = AXES.index(axis)
         if sizes[i] == world:
             groups[axis] = dist.group.WORLD
@@ -151,15 +155,10 @@ def make_mesh(data: int | None = None, view: int = 1, spatial: int = 1, depth: i
       data: the data axis; ``world // (view * spatial * depth)`` by default.
         Sizes whose product is not the world size raise the JAX package's
         ``ValueError``.
-      view, depth: the view and depth axes.
-      spatial: above 1 it raises ``NotImplementedError`` (not ported yet).
+      view, spatial, depth: the view, spatial and depth axes.
       device: ``"cuda"`` (rank ``k`` takes ``cuda:{k % device_count}``;
         raises without a card) or ``"cpu"``.
     """
-    if spatial != 1:
-        raise NotImplementedError(f"make_mesh: a spatial axis of {spatial}: not ported yet "
-                                  "to aa_rmvsnet_tpu_torch (the data, view and depth axes "
-                                  "are)")
     if view > 1 and spatial > 1:
         warnings.warn(
             "view > 1 combined with spatial > 1: fine for inference, but "
@@ -187,7 +186,8 @@ def make_mesh(data: int | None = None, view: int = 1, spatial: int = 1, depth: i
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     return Mesh(rank, world, group, dev, sizes, data_group=groups.get("data"),
-                view_group=groups.get("view"), depth_group=groups.get("depth"))
+                view_group=groups.get("view"), spatial_group=groups.get("spatial"),
+                depth_group=groups.get("depth"))
 
 
 def local_mesh(device: str = "cuda") -> Mesh:
@@ -197,7 +197,28 @@ def local_mesh(device: str = "cuda") -> Mesh:
     each process steps on its own batch."""
     mesh = make_mesh(device=device)
     return dataclasses.replace(mesh, group=None, data_group=None, view_group=None,
-                               depth_group=None)
+                               spatial_group=None, depth_group=None)
+
+
+#: The rows of a spatial slab come in multiples of this: the pyramid's two
+#: stride-2 levels and the U-Net's two max-pools halve them twice.
+SLAB_ROWS = 4
+
+
+def spatial_rows(mesh: Mesh | None, height: int) -> tuple[int, int]:
+    """``(row0, rows)``: the rows ``[row0, row0 + rows)`` of a map of
+    ``height`` rows that this rank holds on the mesh's spatial axis
+    (``(0, height)`` without one).  Raises ``ValueError`` where the axis
+    does not split ``height`` into equal slabs of a multiple of
+    :data:`SLAB_ROWS` rows."""
+    size = 1 if mesh is None else mesh.shape["spatial"]
+    if size == 1:
+        return 0, height
+    if height % (size * SLAB_ROWS):
+        raise ValueError(f"a height of {height} rows does not split over a spatial axis of "
+                         f"{size} into slabs of a multiple of {SLAB_ROWS} rows")
+    rows = height // size
+    return mesh.coord("spatial") * rows, rows
 
 
 class _Shard:

@@ -34,9 +34,15 @@ package's ``--fanout`` and ``--depth_stages``:
   same-shape samples into one batch sharded over its devices and pads a
   ragged tail with repeats; its batch per device is 1 as well, so the PFMs
   are the same files with the same bytes per map;
+- a spatial axis above 1 splits each map's rows over the spatial ranks
+  (``parallel/spatial.py``, the JAX package's row sharding of ``imgs``):
+  every rank resolves the packed mode on the whole sample, sweeps its slab
+  of rows, and the depth and confidence rows are gathered for spatial rank
+  0 of each data rank to write; with a head, spatial rank 0 gathers the
+  cost volume's rows and runs the head;
 - a depth axis above 1 streams groups of M same-shape maps through the
   depth-block pipeline (``parallel/depth_pipeline.py``), exclusive with
-  data and view axes above 1 and with an evidential head.
+  data, view and spatial axes above 1 and with an evidential head.
 """
 
 from __future__ import annotations
@@ -60,9 +66,11 @@ from ..models.network import (
     forward,
     pick_depth_block,
     pick_packed_rows,
+    spatial_mesh,
 )
 from ..parallel.depth_pipeline import pipeline_forward
-from ..parallel.mesh import shard_dataset
+from ..parallel.mesh import shard_dataset, spatial_rows
+from ..parallel.spatial import gather_rows_to_first
 from ..utils.device import disable_tf32, resolve_device
 
 
@@ -91,7 +99,8 @@ class InferConfig:
     and the mesh's device replaces ``device``.  A data axis above 1 fans
     the samples out over the data ranks; a depth axis above 1 runs the
     depth-block pipeline on groups of ``pipeline_maps`` maps (``2 *
-    depth`` by default)."""
+    depth`` by default); a spatial axis above 1 splits every map's rows
+    over the spatial ranks."""
 
     out_root: str
     depth_block: int = 8
@@ -139,9 +148,10 @@ def save_outputs(out_dir: str, ref_view: int, depth: np.ndarray,
                            mode="depth" if family == "depth_est_0" else "relative")
 
 
-def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfig:
+def sweep_config(config: InferConfig, mode: tuple[bool, int, int], mesh=None) -> SweepConfig:
     """The sweep settings of one map in packed ``mode`` (from
-    :func:`resolve_packed_mode`).  The residual lever needs a folded cost
+    :func:`resolve_packed_mode`), on a spatial ``mesh``'s slab where one is
+    given.  The residual lever needs a folded cost
     layout: kept on packed samples or with ``fold_omega=True``, else
     dropped with the JAX package's warning (a sample whose gate fails
     under ``packed_rows="auto"`` still runs)."""
@@ -162,6 +172,7 @@ def sweep_config(config: InferConfig, mode: tuple[bool, int, int]) -> SweepConfi
         table_dtype=config.table_dtype,
         residual_dtype=residual_dtype,
         feature_view_chunk=config.feature_view_chunk,
+        mesh=mesh,
     )
 
 
@@ -230,7 +241,14 @@ def run_inference(
     ``gate_seconds`` and ``head_seconds`` one list per data rank, and the
     failures of all.  View ranks above 0 compute as replicas and write
     nothing (the JAX package replicates over its view axis in inference).
-    With a depth axis above 1: :func:`_run_inference_depth_pipeline`.
+    With a spatial axis above 1 each rank sweeps its slab of rows of every
+    map (:func:`..parallel.mesh.spatial_rows`; a height that the axis does
+    not split into slabs of a multiple of 4 rows raises), spatial rank 0
+    of each data rank writes the gathered maps, and the stats are gathered
+    over every rank: ``count`` summed over the writing ranks, the lists one
+    per rank in rank order.  A map's time then includes the gather of its
+    rows.  A mesh with view and spatial axes both above 1 is not ported
+    yet.  With a depth axis above 1: :func:`_run_inference_depth_pipeline`.
     """
     head = config.evidential
     if config.depth_source not in ("wta", "evidential"):
@@ -251,11 +269,14 @@ def run_inference(
                 "build the mesh with data=1, spatial=1"
             )
         return _run_inference_depth_pipeline(model, dataset, config, progress)
+    rows_mesh = spatial_mesh(mesh)
     device = resolve_device(config.device) if mesh is None else mesh.device
     rank, ranks = (0, 1) if mesh is None else (mesh.coord("data"), mesh.shape["data"])
     dataset = shard_dataset(dataset, rank, ranks)
-    writes = mesh is None or mesh.coord("view") == 0
+    writes = mesh is None or (mesh.coord("view") == 0 and mesh.coord("spatial") == 0)
     who = f"rank {rank}: " if ranks > 1 else ""
+    if rows_mesh is not None:
+        who = f"rank {mesh.rank}: "
     disable_tf32()
     model = cast_model(model.to(device).eval(), config.feature_dtype)
     if head is not None:
@@ -275,7 +296,9 @@ def run_inference(
                 failures.append(str(sample))
                 print(f"SKIP (load failure): {sample}", flush=True)
                 continue
-            imgs = torch.from_numpy(np.ascontiguousarray(sample["imgs"][None])).to(device)
+            row0, rows = spatial_rows(rows_mesh, sample["imgs"].shape[1])
+            imgs = torch.from_numpy(np.ascontiguousarray(
+                sample["imgs"][None, :, row0:row0 + rows])).to(device)
             proj = torch.from_numpy(
                 np.ascontiguousarray(sample["proj_matrices"][None])).to(device)
             depths = torch.from_numpy(
@@ -285,12 +308,14 @@ def run_inference(
             mode = resolve_packed_mode(sample, config)
             gate_seconds.append(time.perf_counter() - t0)
             if mode not in sweep_configs:
-                sweep_configs[mode] = sweep_config(config, mode)
+                sweep_configs[mode] = sweep_config(config, mode, rows_mesh)
 
             t0 = time.perf_counter()
             out = forward(model, imgs, proj, depths, sweep_configs[mode])
-            depth = out["depth"][0].cpu().numpy()
-            conf = out["photometric_confidence"][0].cpu().numpy()
+            maps = torch.stack([out["depth"][0], out["photometric_confidence"][0]])
+            if rows_mesh is not None:  # whole on spatial rank 0, which writes
+                maps = gather_rows_to_first(maps, rows_mesh)
+            depth, conf = (None, None) if maps is None else maps.cpu().numpy()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
@@ -299,21 +324,28 @@ def run_inference(
             if head is not None:
                 t0 = time.perf_counter()
                 # The volume's last reference goes to the head, which drops
-                # it once the probability volume exists.
-                ev = evidential_apply(head, out.pop("cost_volume"), depths)
+                # it once the probability volume exists (the list holds it
+                # until then).  Under a spatial mesh spatial rank 0 gathers
+                # the volume's rows and runs the head.
+                volume = [out.pop("cost_volume")]
                 del out
-                gamma, nu, alpha, beta = (ev[k][0].cpu().numpy()
-                                          for k in ("gamma", "nu", "alpha", "beta"))
-                del ev
+                if rows_mesh is not None:
+                    volume = [gather_rows_to_first(volume.pop(), rows_mesh)]
+                if volume[0] is not None:
+                    ev = evidential_apply(head, volume.pop(), depths)
+                    gamma, nu, alpha, beta = (ev[k][0].cpu().numpy()
+                                              for k in ("gamma", "nu", "alpha", "beta"))
+                    del ev
+                    uncertainty = {
+                        "aleatoric_0": np.sqrt(beta * (nu + 1) / nu / alpha),
+                        "epistemic_0": 1.0 / np.sqrt(nu),
+                    }
+                    if config.depth_source == "evidential":
+                        depth = gamma
+                del volume
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 head_seconds.append(time.perf_counter() - t0)
-                uncertainty = {
-                    "aleatoric_0": np.sqrt(beta * (nu + 1) / nu / alpha),
-                    "epistemic_0": 1.0 / np.sqrt(nu),
-                }
-                if config.depth_source == "evidential":
-                    depth = gamma
 
             if writes:
                 save_outputs(os.path.join(config.out_root, sample["scan"]),
@@ -332,9 +364,15 @@ def run_inference(
     stats = {"count": len(map_seconds), "total_s": sum(map_seconds),
              "map_seconds": map_seconds, "modes": modes, "gate_seconds": gate_seconds,
              "head_seconds": head_seconds, "failures": failures}
-    if ranks > 1:
+    if rows_mesh is not None:
+        every = [None] * mesh.world_size
+        if not writes:  # a map counts where it is written
+            stats["count"] = 0
+        dist.all_gather_object(every, stats, group=mesh.group)
+    elif ranks > 1:
         every = [None] * ranks
         dist.all_gather_object(every, stats, group=mesh.data_group)
+    if rows_mesh is not None or ranks > 1:
         stats = {"count": sum(s["count"] for s in every),
                  "total_s": max(s["total_s"] for s in every),
                  **{k: [s[k] for s in every]

@@ -42,7 +42,15 @@ views (``models/network.py:view_shard``): FeatNet's and omega's gradients
 are each view rank's share and are summed over the view group, while the
 regularizer's and the head's, computed whole on every view rank, are
 averaged over it (the same value, made bit for bit the same on every
-rank); the data group's collectives then run as above.
+rank); the data group's collectives then run as above.  On the spatial
+axis (the JAX package's ``(data, spatial)`` training mesh) the spatial
+ranks of one data rank hold the same samples and each takes its slab of
+rows of ``imgs``, ``depth`` and ``mask`` (:func:`batch_rows`): the sweep
+runs on the slabs (``parallel/spatial.py``), the loss's valid counts and
+the metrics' masked sums are summed over the spatial group, each rank's
+loss is its rows' share of the batch's, and every gradient, each rank's
+share, is summed over the spatial group before the data group's average.
+Evidential training on a spatial mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,9 +78,17 @@ from ..models.network import (
     SweepConfig,
     forward,
     probability_volume,
+    spatial_mesh,
     view_shard,
 )
-from ..parallel.mesh import Mesh, all_reduce_mean, all_reduce_sum_, shard_dataset
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_mean,
+    all_reduce_sum_,
+    shard_dataset,
+    spatial_rows,
+)
+from ..parallel.spatial import gather_rows
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.metrics import MeterDict, abs_depth_error, threshold_error_rate
 from .checkpoint import restore_latest, save_state
@@ -91,10 +107,11 @@ class TrainConfig:
     with ``evidential_weight_reg``).  ``feature_dtype`` (``torch.float32``
     or ``torch.bfloat16``) and ``fold_omega`` (``False``, ``"hybrid"``,
     ``True``) go to the sweep, as the JAX package's do.  ``mesh``, a
-    :class:`..parallel.mesh.Mesh` with data and view axes, trains across its
-    ranks on its device (``device`` is then not read); ``batch_size`` is
-    per data rank.  A mesh with view and spatial axes above 1 is refused,
-    as the JAX package refuses it.
+    :class:`..parallel.mesh.Mesh` with data and view or spatial axes,
+    trains across its ranks on its device (``device`` is then not read);
+    ``batch_size`` is per data rank.  A mesh with view and spatial axes
+    above 1 is refused, as the JAX package refuses it, and evidential
+    training on a spatial mesh is not ported yet.
     """
 
     learning_rate: float = 1e-3
@@ -129,6 +146,9 @@ class TrainConfig:
             raise TypeError(f"TrainConfig mesh is a parallel.mesh.Mesh (make_mesh) or None, "
                             f"not {type(self.mesh).__name__}")
         check_train_mesh(self.mesh)
+        if self.evidential and spatial_mesh(self.mesh) is not None:
+            raise NotImplementedError("evidential training on a spatial mesh: not ported yet "
+                                      "to aa_rmvsnet_tpu_torch")
 
     def sweep(self, remat: bool = True) -> SweepConfig:
         return SweepConfig(depth_block=self.depth_block, remat=remat, collect_volume=True,
@@ -189,12 +209,36 @@ def batch_to_device(batch: dict, device) -> dict:
     }
 
 
-def loss_fn(model: AARMVSNetCore, batch: dict, sweep_config: SweepConfig):
+def batch_rows(batch: dict, mesh) -> dict:
+    """This rank's slab of rows of ``imgs`` ``(B, V, H, W, 3)``, ``depth``
+    and ``mask`` ``(B, H, W)`` on a spatial mesh
+    (:func:`..parallel.mesh.spatial_rows`), the JAX package's row sharding
+    of the training batch; ``batch`` itself otherwise."""
+    if spatial_mesh(mesh) is None:
+        return batch
+    row0, rows = spatial_rows(mesh, batch["imgs"].shape[2])
+    out = dict(batch, imgs=batch["imgs"][:, :, row0:row0 + rows])
+    for key in ("depth", "mask"):
+        out[key] = batch[key][:, row0:row0 + rows]
+    return out
+
+
+def _rows_group(config: TrainConfig):
+    """The spatial group where the batch's rows are split over it, else
+    None."""
+    mesh = spatial_mesh(config.mesh)
+    return None if mesh is None else mesh.spatial_group
+
+
+def loss_fn(model: AARMVSNetCore, batch: dict, sweep_config: SweepConfig, group=None):
+    """The core's loss and WTA depth; under a spatial mesh ``batch`` holds
+    this rank's rows (:func:`batch_rows`), ``group`` is the spatial group and
+    the loss is the rank's share."""
     out = forward(model, batch["imgs"], batch["proj_matrices"],
                   batch["depth_values"], sweep_config)
     return depth_classification_loss(
         probability_volume(out["cost_volume"]), batch["depth"], batch["mask"],
-        batch["depth_values"],
+        batch["depth_values"], group=group,
     )
 
 
@@ -218,6 +262,19 @@ def evidential_loss_fn(model: AARMVSNetCore, head: EvidentialHead, batch: dict,
                         batch["depth"], batch["mask"], config.evidential_weight_reg,
                         group=_group(config))
     return loss, ev
+
+
+def _pixel_groups(config: TrainConfig) -> tuple:
+    """The groups over whose ranks the global batch's pixels are split: the
+    spatial group (rows), then the data group (samples)."""
+    return (_rows_group(config), _group(config))
+
+
+def _loss_metric(loss: torch.Tensor, config: TrainConfig) -> torch.Tensor:
+    """The batch's loss from this rank's: the spatial ranks' shares summed."""
+    loss = loss.detach().clone()
+    all_reduce_sum_([loss], _rows_group(config))
+    return loss
 
 
 def _mean_over_ranks(metrics: dict, keys, config: TrainConfig) -> None:
@@ -263,19 +320,23 @@ def trainable_parameters(model, head=None) -> list:
 def average_gradients(params, mesh: Mesh, view_partial=()) -> None:
     """The global batch's gradient of every parameter, in place (a
     parameter without one counts as zeros), the same on every rank.  Over
-    the view group the gradients of ``view_partial``, of which each view
-    rank holds its source views' share, are summed, and the others, which
-    every view rank computes whole, averaged (on the card their backward is
-    not bit for bit deterministic, so the view ranks' copies would drift
-    apart); then every gradient is averaged over the data group.  One
-    all-reduce per group."""
+    the spatial group every gradient, of which each spatial rank holds its
+    rows' share, is summed.  Over the view group the gradients of
+    ``view_partial``, of which each view rank holds its source views'
+    share, are summed, and the others, which every view rank computes
+    whole, averaged (on the card their backward is not bit for bit
+    deterministic, so the view ranks' copies would drift apart); then every
+    gradient is averaged over the data group.  One all-reduce per group."""
     views = mesh.shape["view"] > 1
-    if mesh.data_group is None and not views:
+    rows = mesh.shape["spatial"] > 1
+    if mesh.data_group is None and not views and not rows:
         return
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    if rows:
+        all_reduce_sum_(grads, mesh.spatial_group)
     if views:
         all_reduce_sum_(grads, mesh.view_group)
         partial = {id(p) for p in view_partial}
@@ -294,15 +355,17 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
     run in train mode and the loss is ``loss_emvsnet`` on the head's output.
     Under ``config.mesh`` the gradients are those of the global batch
     before the clip (range ``train.all_reduce``; :func:`average_gradients`),
-    and the metrics are the global batch's.  Returns ``(metrics, images)``
-    of detached tensors."""
+    and the metrics are the global batch's; on a spatial mesh ``batch``
+    holds this rank's rows (:func:`batch_rows`), and so do the images.
+    Returns ``(metrics, images)`` of detached tensors."""
     model.train()
     if head is not None:
         head.train()
     optimizer.zero_grad(set_to_none=True)
     with record_function("train.forward"):
         if head is None:
-            loss, wta_depth = loss_fn(model, batch, config.sweep(remat=True))
+            loss, wta_depth = loss_fn(model, batch, config.sweep(remat=True),
+                                      _rows_group(config))
         else:
             loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=True))
     with record_function("train.backward"):
@@ -333,9 +396,9 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
                                    "loss_components/beta"], config)
         return metrics, images
     depth, mask = batch["depth"], batch["mask"]
-    metrics = {"loss": loss.detach(),
+    metrics = {"loss": _loss_metric(loss, config),
                "abs_depth_error": abs_depth_error(wta_depth, depth, mask,
-                                                  group=_group(config))}
+                                                  group=_pixel_groups(config))}
     _mean_over_ranks(metrics, ["loss"], config)
     images = {"depth_est": wta_depth * mask,
               "error_map": torch.abs(wta_depth - depth) * mask}
@@ -352,13 +415,13 @@ def eval_step(model, batch: dict, config: TrainConfig,
     the global batch's."""
     model.eval()
     if head is None:
-        loss, depth_est = loss_fn(model, batch, config.sweep(remat=False))
+        loss, depth_est = loss_fn(model, batch, config.sweep(remat=False), _rows_group(config))
     else:
         head.eval()
         loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=False))
         depth_est = ev["gamma"]
-    depth, mask, group = batch["depth"], batch["mask"], _group(config)
-    metrics = {"loss": loss,
+    depth, mask, group = batch["depth"], batch["mask"], _pixel_groups(config)
+    metrics = {"loss": _loss_metric(loss, config),
                "abs_depth_error": abs_depth_error(depth_est, depth, mask, group=group)}
     _mean_over_ranks(metrics, ["loss"], config)
     for tau in THRESHOLDS_MM:
@@ -417,7 +480,9 @@ def run_training(
     with one data rank), ``(len(dataset) // data) // batch_size`` steps an
     epoch, from rank 0's weights (broadcast after any resume, which every
     rank reads); only rank 0 writes checkpoints (the others wait at a
-    barrier), prints and calls ``logger``.
+    barrier), prints and calls ``logger``.  On a spatial mesh each rank
+    steps on its rows of every batch (:func:`batch_rows`), and the summary
+    images are gathered whole for rank 0.
 
     Returns ``{start_step, step, losses, step_seconds, val}``: per-step
     losses (the global batch's) and seconds (host clock around the step,
@@ -490,7 +555,7 @@ def run_training(
             batched(samples, config.batch_size, drop_last=True), steps_per_epoch - done
         ):
             t0 = time.perf_counter()
-            batch = batch_to_device(host_batch, device)
+            batch = batch_rows(batch_to_device(host_batch, device), mesh)
             metrics, images = train_step(model, optimizer, scheduler, batch, config, head)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -500,6 +565,8 @@ def run_training(
             step += 1
             if step % config.summary_freq == 0:
                 means = meter.mean(group)
+                if _rows_group(config) is not None:  # the first sample's rows, whole
+                    images = {k: gather_rows(v[:1], mesh, dim=1) for k, v in images.items()}
                 if is_main:
                     print(f"epoch {epoch} step {step}: "
                           + " ".join(f"{k}={v:.4f}" for k, v in means.items()), flush=True)
@@ -519,7 +586,8 @@ def run_training(
                                   on_skip=on_skip),
                 config.batch_size, drop_last=True,
             ), val_steps):
-                vmeter.update(eval_step(model, batch_to_device(vbatch, device), config, head))
+                vmeter.update(eval_step(model, batch_rows(batch_to_device(vbatch, device), mesh),
+                                        config, head))
             val_means = vmeter.mean(group)
             if is_main:
                 print(f"epoch {epoch} fulltest: "

@@ -10,7 +10,10 @@ error.  ``std_prob`` is the probability volume's spread over depth.
 In data-parallel training (``parallel/mesh.py``) a process ``group`` makes
 the masked means those of the global batch: the numerators and the valid
 counts are summed over the ranks before the one division, and
-:meth:`MeterDict.mean` weights each rank's running mean by its count.
+:meth:`MeterDict.mean` weights each rank's running mean by its count.  The
+error metrics also take a sequence of groups, summed over in turn (the
+spatial group, whose ranks hold the rows of one batch, then the data
+group).
 """
 
 from __future__ import annotations
@@ -19,10 +22,17 @@ import torch
 import torch.distributed as dist
 
 
+def _groups(group) -> tuple:
+    """A group or a sequence of them, without the Nones."""
+    return tuple(g for g in (group if isinstance(group, (tuple, list)) else (group,))
+                 if g is not None)
+
+
 def _global_ratio(num: torch.Tensor, den: torch.Tensor, group) -> torch.Tensor:
-    """``num / max(den, 1)``, both summed over ``group``'s ranks first."""
+    """``num / max(den, 1)``, both summed over each group's ranks first."""
     both = torch.stack([num.float(), den.float()])
-    dist.all_reduce(both, group=group)
+    for g in _groups(group):
+        dist.all_reduce(both, group=g)
     return both[0] / both[1].clamp(min=1)
 
 
@@ -30,7 +40,7 @@ def threshold_error_rate(depth_est: torch.Tensor, depth_gt: torch.Tensor,
                          mask: torch.Tensor, threshold: float, group=None) -> torch.Tensor:
     valid = mask > 0.5
     bad = (torch.abs(depth_est - depth_gt) > threshold) & valid
-    if group is not None:
+    if _groups(group):
         return _global_ratio(bad.sum(), valid.sum(), group)
     return bad.sum() / valid.sum().clamp(min=1)
 
@@ -39,7 +49,7 @@ def abs_depth_error(depth_est: torch.Tensor, depth_gt: torch.Tensor,
                     mask: torch.Tensor, group=None) -> torch.Tensor:
     valid = mask > 0.5
     total = (torch.abs(depth_est - depth_gt) * valid).sum()
-    if group is not None:
+    if _groups(group):
         return _global_ratio(total, valid.sum(), group)
     return total / valid.sum().clamp(min=1)
 

@@ -13,8 +13,10 @@ Phases, each printing a line; any failure exits non-zero:
    inference main path (864x1152), at odd shapes, at ``hidden=3`` (2, 3,
    7, 5), whose plane is no multiple of the 16-byte vector, and with z
    and c as contiguous views one element into their storage, off the
-   16-byte grid (the last two take the kernel's scalar path), fp32 (atol
-   1e-6) and bf16 (atol 2e-2), with the share of outputs at the five cells
+   16-byte grid (the last two take the kernel's scalar path), and at the
+   cell shapes of a spatial rank's slab (half the rows of 864x1152 and of
+   128x160: 5i, 5h and 6f), fp32 (atol 1e-6) and bf16 (atol 2e-2), with
+   the share of outputs at the five cells
    that differ from the plain version's; kernel, plain, library-call times
    and the kernel's bound per depth step, in fp32 and in bf16 (the
    inference main path's type); kernel and library-call times of one fp32
@@ -25,7 +27,8 @@ Phases, each printing a line; any failure exits non-zero:
    with one launch; and the host's cost per call of the wrapper, of the
    custom op and of the library call;
 3b. backward kernel vs plain: the same for the ConvLSTM gate-backward
-   kernel, fp32 (atol 1e-5) and bf16 (atol 5e-2), its times in fp32 and
+   kernel at the same shapes, fp32 (atol 1e-5) and bf16 (atol 5e-2), its
+   times in fp32 and
    in bf16 (the type of a bf16 training step) beside
    ``_thnn_fused_lstm_cell_backward_impl`` in the same type and the byte
    bound (bf16: half of fp32's bytes);
@@ -114,7 +117,9 @@ Phases, each printing a line; any failure exits non-zero:
    step and host seconds printed;
 5b. the exact path kept: one map of the same scene with ``--fp32
    --packed_rows 0``'s settings, its launch count asserted, and the share
-   of its depths within one bin of the bf16 packed map's;
+   of its depths within one bin of the bf16 packed map's; then the same
+   map in fp32 with packed rows (``--fp32``, mode (True, 1, 4)), its launch
+   count asserted: the serial maps that 5i's fp32 runs are held to;
 5c. the evidential head: alone, CUDA against CPU at 32x40, D=32, fp32 with
    seeded weights (``utils/synthetic.py:seeded_head``), at the CPU tests'
    bars (gamma 2e-3; nu, alpha, beta 1e-3; prob_combine 1e-4); then the
@@ -148,14 +153,28 @@ Phases, each printing a line; any failure exits non-zero:
    the map's shape (5 cells' (h, c) of seeded values in bf16), three
    times from a barrier: stage 0's ``send_carry`` until its send
    completes, stage 1's ``recv_carry`` until the carry is on its card,
-   with the bytes checked.  5f and 5g run in one pair of rank subprocesses
-   with a deadline;
-5h. the command a user runs, ``python -m aa_rmvsnet_tpu_torch.cli eval
-   --fanout 2`` with phase 5's flags (``--preset dtu_eval``, D=512, depth
-   block 8, bf16 and packed rows by default) on phase 5's scene written as
-   a scene directory: the command starts its two ranks on ``cuda:0`` over
-   gloo itself; its first line, its exit code and its maps, held to phase
-   5's at 5f's bars, are checked.  The card's machine has no cv2, so the
+   with the bytes checked;
+5i. the spatial split (``cli eval --spatial 2``): the same under
+   ``make_mesh(spatial=2)`` for phase 5's first map, two gloo ranks on
+   ``cuda:0`` each sweeping its 432 rows of every view, with the halo
+   exchanges, row gathers and GroupNorm all-reduces of
+   ``parallel/spatial.py``, three times: with ``InferConfig()``'s defaults
+   (bf16, packed rows), a smoke check held to 5b's exact map no farther
+   than phase 5's bf16 map is, with the count and seconds of each rank's
+   all-gathers and all-reduces (each timed between two synchronises, which
+   slows the map); in fp32 with packed rows and on the exact fp32 path,
+   each held to 5b's serial map of the same settings at 5f's bars; each
+   with its packed mode, 5 x D forward launches a rank with 432x1152 the
+   largest plane the gate kernel ran on, the seconds and the peak memory
+   by rank.  5f, 5g and 5i run in one pair of rank subprocesses with a
+   deadline;
+5h. the commands a user runs, ``python -m aa_rmvsnet_tpu_torch.cli eval
+   --fanout 2`` and then ``--spatial 2``, with phase 5's flags (``--preset
+   dtu_eval``, D=512, depth block 8, bf16 and packed rows by default) on
+   phase 5's scene written as a scene directory: each command starts its
+   two ranks on ``cuda:0`` over gloo itself; its first line, its exit code
+   and its maps, held to phase 5's at 5f's bars (``--spatial 2``'s bf16
+   map by 5i's smoke check), are checked.  The card's machine has no cv2, so the
    scene's images are written as ``.npy`` arrays under their ``.jpg``
    names and decoded by a stand-in ``cv2`` module (``imread`` by
    ``np.load``, ``cvtColor`` a channel flip) put first on the command's
@@ -198,6 +217,12 @@ Phases, each printing a line; any failure exits non-zero:
    the core and the evidential head, at 6d's bars, with 2 x 5 x D forward
    and 5 x D backward launches a rank (6d's and 6e's ranks take the core
    and then the head in one launch);
+6f. spatial training: ``TrainConfig(mesh=make_mesh(spatial=2))`` at phase
+   6's geometry, two gloo ranks on ``cuda:0`` each stepping on its 64 rows
+   of the sample (every row-split op differentiated, the remat recompute
+   re-issuing its collectives), against this process's step on the whole
+   sample, for the core, at 6d's bars, with 2 x 5 x D forward and 5 x D
+   backward launches a rank;
 7. the fusion kernel (``ops/fusion.py:fuse_ref``) against its plain
    version, bit for bit on the card and on the CPU: one 864x1152 reference
    view of a noisy plane against 10 sources, with how many of its terms lie
@@ -228,10 +253,12 @@ Before the total, a line gives each phase's seconds.  The line before the
 last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
 ``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d,
-5f (``inference_fanout``) and 5g (``inference_depth_pipeline``), 6, 6b, 6c
-(``training_bf16``, ``training_fold_omega``), 6d
-(``training_data_parallel``) and 6e (``training_view_parallel``), the
-ranks' sums, 7c and 8);
+5f (``inference_fanout``), 5g (``inference_depth_pipeline``) and 5i
+(``inference_spatial``, ``inference_spatial_packed_fp32``,
+``inference_spatial_fp32``), 6, 6b, 6c (``training_bf16``,
+``training_fold_omega``), 6d (``training_data_parallel``), 6e
+(``training_view_parallel``) and 6f (``training_spatial``), the ranks'
+sums, 7c and 8);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the gate kernels' ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
@@ -250,6 +277,7 @@ TF32, which keeps about three decimal digits.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -384,6 +412,12 @@ def _cell_shapes(H, W):
             (1, 16, H // 2, W // 2), (1, 8, H, W)]
 
 
+def _slab_cell_shapes():
+    """The cells of a spatial rank's slab on two ranks: half the rows of
+    phase 5's map (5i, 5h) and of phase 6's (6f)."""
+    return _cell_shapes(MAIN_H // 2, MAIN_W) + _cell_shapes(TRAIN_H // 2, TRAIN_W)
+
+
 def _library_gates(zl, zeros, cl):
     """The same gate math as one PyTorch call (``nn.LSTMCell``'s fused CUDA
     cell), on ``(N, 4h)`` gates in its (i, f, g, o) order plus a zero
@@ -437,10 +471,12 @@ def phase_kernel() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cells = _cell_shapes(MAIN_H, MAIN_W)
-    # (shape, z and c one element into their storage): the cells and the
-    # odd shapes take the 16-byte path; hidden=3 (a plane of 105) and the
-    # offset views the scalar one.
-    cases = [(shape, False) for shape in cells + [(2, 16, 9, 13), (2, 8, 9, 13), (2, 3, 7, 5)]]
+    # (shape, z and c one element into their storage): the cells, the
+    # spatial split's (a rank's slab of half the rows, in inference and in
+    # training) and the odd shapes take the 16-byte path; hidden=3 (a plane
+    # of 105) and the offset views the scalar one.
+    cases = [(shape, False) for shape in dict.fromkeys(
+        cells + _slab_cell_shapes() + [(2, 16, 9, 13), (2, 8, 9, 13), (2, 3, 7, 5)])]
     cases.append(((2, 16, 9, 13), True))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     bars = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
@@ -636,10 +672,11 @@ def phase_backward_kernel() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     cells = _cell_shapes(MAIN_H, MAIN_W)
-    # (shape, z and c one element into their storage): the cells take the
-    # 16-byte path; hidden=3 (a plane of 105) and the offset views the
-    # scalar one.
-    cases = [(shape, False) for shape in cells + [(2, 16, 9, 13), (2, 8, 9, 13), (2, 3, 7, 5)]]
+    # (shape, z and c one element into their storage): the cells and the
+    # spatial split's take the 16-byte path; hidden=3 (a plane of 105) and
+    # the offset views the scalar one.
+    cases = [(shape, False) for shape in dict.fromkeys(
+        cells + _slab_cell_shapes() + [(2, 16, 9, 13), (2, 8, 9, 13), (2, 3, 7, 5)])]
     cases.append(((2, 16, 9, 13), True))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     bars = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
@@ -1438,7 +1475,14 @@ def _read_maps(out_root: str, ref: int) -> tuple:
                  for family in ("depth_est_0", "confidence_0"))
 
 
-def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
+def phase_main_exact(samples, phase5: dict) -> tuple[int, int]:
+    """5b: one exact fp32 map, then map 0 in fp32 with packed rows;
+    ``phase5`` gains them (``exact``, ``packed_fp32``), which the spatial
+    split's fp32 maps are held to (5i), and the bf16 packed map 0's
+    distance from the exact one (``bf16_vs_exact``: the share of depths
+    within one bin, the confidence's max_abs_err), the calibration of the
+    spatial split's bf16 smoke bar (5i, 5h).  Returns the two runs' gate
+    launches."""
     from aa_rmvsnet_tpu_torch.ops import gates
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
     from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
@@ -1458,15 +1502,65 @@ def phase_main_exact(samples, packed_depth0: np.ndarray) -> int:
             _fail(f"exact path wrote {stats['count']} maps in modes {stats['modes']} with "
                   f"{launches} gate kernel and {backward} backward launches; expected 1, "
                   f"(False, 1, 4), {5 * MAIN_D} and 0")
-        depth0 = _check_maps(out_root, 1, MAIN_DEPTH_MIN,
-                             MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
-    within = np.mean(np.abs(depth0 - packed_depth0) <= MAIN_DEPTH_INTERVAL + 1e-6)
+        _check_maps(out_root, 1, MAIN_DEPTH_MIN,
+                    MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+        phase5["exact"] = _read_maps(out_root, 0)
+        phase5["exact_seconds"] = stats["map_seconds"][0]
+    with tempfile.TemporaryDirectory() as out_root:
+        gates.launches = gates.backward_launches = 0
+        packed = run_inference(model, samples[:1], InferConfig(
+            out_root=out_root, feature_dtype=torch.float32, num_workers=2, device="cuda"))
+        packed_launches = gates.launches
+        if packed["count"] != 1 or packed_launches != 5 * MAIN_D \
+                or gates.backward_launches != 0 or packed["modes"] != [(True, 1, 4)]:
+            _fail(f"fp32 packed path wrote {packed['count']} maps in modes {packed['modes']} "
+                  f"with {packed_launches} gate kernel and {gates.backward_launches} backward "
+                  f"launches; expected 1, (True, 1, 4), {5 * MAIN_D} and 0")
+        _check_maps(out_root, 1, MAIN_DEPTH_MIN,
+                    MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+        phase5["packed_fp32"] = _read_maps(out_root, 0)
+        phase5["packed_fp32_seconds"] = packed["map_seconds"][0]
+    within, conf_err = _distance(phase5["maps"][0], phase5["exact"])
+    phase5["bf16_vs_exact"] = (within, conf_err)
     print(f"main-exact: run_inference, fp32, packed_rows=False, fused_residual=False, at "
           f"{MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}: 1 map in {stats['map_seconds'][0]:.3f} s, "
           f"peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
           f"(= 5 x {MAIN_D}, fp32); the bf16 packed map 0 is within one depth bin of it on "
-          f"{within:.4%} of pixels", flush=True)
-    return launches
+          f"{within:.4%} of pixels, confidence max_abs_err {conf_err:.3e}; map 0 in fp32 with "
+          f"packed rows (mode (True, 1, 4)) in {packed['map_seconds'][0]:.3f} s, gate kernel "
+          f"launches {packed_launches}", flush=True)
+    return launches, packed_launches
+
+
+def _distance(got: tuple, want: tuple) -> tuple[float, float]:
+    """Of two ``(depth, confidence)`` maps: the share of depths within one
+    bin, and the confidence's max_abs_err."""
+    within = float(np.mean(np.abs(got[0] - want[0]) <= MAIN_DEPTH_INTERVAL + 1e-6))
+    return within, float(np.abs(got[1] - want[1]).max())
+
+
+def _bf16_held_to_exact(label: str, got: tuple, phase5: dict) -> str:
+    """A bf16 map 0 of the spatial split against phase 5b's exact fp32 map,
+    at least as close as phase 5's own bf16 map is: its depths within one
+    bin on no fewer pixels, less 5 points, and its confidence within twice
+    that map's max_abs_err.  A smoke check: with the seeded (untrained)
+    weights one bf16 rounding anywhere moves a quarter of the depths by
+    more than a bin (phase 5 against 5b), so two bf16 sweeps whose sums
+    associate differently (the row split's GroupNorm statistics, cuDNN's
+    algorithms at the slab's shapes) cannot agree bit for bit; the split
+    itself, packed rows and the exact path, is held at 5f's bars in fp32
+    (5i)."""
+    within, conf_err = _distance(got, phase5["exact"])
+    serial_within, serial_conf = phase5["bf16_vs_exact"]
+    equal = float(np.mean(got[0] == phase5["maps"][0][0]))
+    ok = within >= serial_within - 0.05 and conf_err <= 2 * serial_conf
+    text = (f"against 5b's exact fp32 map: depth within one bin on {within:.4%} of pixels "
+            f"(bar: phase 5's bf16 map's {serial_within:.4%} less 5 points), confidence "
+            f"max_abs_err {conf_err:.3e} (bar: twice phase 5's {serial_conf:.3e}); depth "
+            f"equal to phase 5's bf16 map on {equal:.4%} of pixels")
+    if not ok:
+        _fail(f"{label}: bf16 map farther from the exact one than phase 5's: {text}")
+    return text
 
 
 def phase_evidential(samples) -> tuple[int, int]:
@@ -1824,7 +1918,7 @@ from aa_rmvsnet_tpu_torch.models import AARMVSNetCore, EvidentialHead
 from aa_rmvsnet_tpu_torch.ops import gates
 from aa_rmvsnet_tpu_torch.parallel import initialize_distributed, make_mesh
 from aa_rmvsnet_tpu_torch.pipeline.train import (
-    TrainConfig, make_optimizer, train_step, trainable_parameters)
+    TrainConfig, batch_rows, make_optimizer, train_step, trainable_parameters)
 from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
 
 a = json.loads(sys.argv[1])
@@ -1834,11 +1928,12 @@ if a["mode"] == "rank":
 else:
     torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{a['port']}",
                                          world_size=1, rank=0)
-mesh = make_mesh(view=a["view"], device="cuda")
+mesh = make_mesh(view=a["view"], spatial=a["spatial"], device="cuda")
 weights = torch.load(a["weights"], weights_only=True)
 data = np.load(a["batch"])
 rows = slice(*a["rows"])
-batch = {k: torch.from_numpy(np.ascontiguousarray(data[k][rows])).cuda() for k in data.files}
+batch = batch_rows({k: torch.from_numpy(np.ascontiguousarray(data[k][rows])).cuda()
+                    for k in data.files}, mesh)
 all_reduces = [0]
 all_reduce = torch.distributed.all_reduce
 
@@ -2029,7 +2124,7 @@ def _hold_ranks_to_single(label: str, ranks: list, weights: dict, batch: dict,
           f"{stat_err:.2e} (bar 1e-5); seconds a step after a warm-up one: ranks "
           f"[{', '.join(f'{x:.3f}' for x in ranks[0]['seconds'])}], "
           f"[{', '.join(f'{x:.3f}' for x in ranks[1]['seconds'])}] (two processes "
-          f"sharing the card, {wall:.1f} s from spawn to exit for core and head), one "
+          f"sharing the card, {wall:.1f} s from spawn to exit for the ranks' cases), one "
           f"process at batch "
           f"{batch_size} {single['seconds']:.3f}, phase 6's fp32 batch 1 "
           f"{float(np.mean(phase6['step_seconds'][1:])):.3f}; peak memory a rank "
@@ -2064,7 +2159,7 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
                       maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
         port = _free_port()
         t0 = time.perf_counter()
-        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=1,
+        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=1, spatial=1,
                                    rows=[r, r + 1], cases=[False, True]) for r in range(2)],
                              workdir)
         wall = time.perf_counter() - t0
@@ -2076,7 +2171,7 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
                                   "pixels masked) against one process at batch 2")
 
         (nccl,) = _run_workers([dict(common, mode="nccl", rank=0, port=_free_port(), view=1,
-                                     rows=[0, 1], cases=[False])], workdir)
+                                     spatial=1, rows=[0, 1], cases=[False])], workdir)
         mesh, plain = nccl["mesh"], nccl["plain"]
         loss_rel = abs(mesh["metrics"]["loss"] - plain["metrics"]["loss"]) \
             / abs(plain["metrics"]["loss"])
@@ -2097,20 +2192,28 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
     return tuple(launched)
 
 
-# One rank of phases 5f and 5g: run_inference with InferConfig()'s defaults
-# under make_mesh(data=2), then under make_mesh(depth=2) with pipeline_maps 2,
-# both ranks on cuda:0 over gloo, on phase 5's scene built again from its
-# seed; per path the stats, the gate launches, the peak memory and the
-# seconds go to a torch.save file, and with them the seconds of three
+# One rank of phases 5f, 5g and 5i: run_inference with InferConfig()'s
+# defaults under make_mesh(data=2), under make_mesh(depth=2) with
+# pipeline_maps 2, and under make_mesh(spatial=2) on the first map (then
+# that map in fp32 with packed rows, and on the exact fp32 path, 5b's two
+# settings), both ranks on cuda:0 over gloo, on phase 5's scene built again
+# from its seed; per path the stats, the gate launches, the peak memory and
+# the seconds go to a torch.save file, and with them the seconds of three
 # handoffs of a seeded carry of the map's shape from stage 0 to stage 1.
+# On the first spatial path (bf16) the row-split ops' collectives are
+# counted and timed (a synchronise on each side, so that a collective's
+# time is its own and not the card's queued work), which slows that map;
+# the fp32 paths run without these probes.  On every spatial path the
+# planes the gate kernel runs on are recorded.
 INFER_WORKER = """
 import json, sys, time
 import torch
 import chip_smoke
+from aa_rmvsnet_tpu_torch.models import blocks
 from aa_rmvsnet_tpu_torch.models.regularizer import init_states
 from aa_rmvsnet_tpu_torch.ops import gates
 from aa_rmvsnet_tpu_torch.parallel import (
-    initialize_distributed, make_mesh, recv_carry, send_carry)
+    initialize_distributed, make_mesh, recv_carry, send_carry, spatial)
 from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
 from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
 from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
@@ -2120,20 +2223,61 @@ disable_tf32()
 initialize_distributed(f"localhost:{a['port']}", 2, a["rank"], backend="gloo")
 samples = chip_smoke._main_scene()
 model = seeded_model(chip_smoke.SEED)
-out = {}
-for path, axes, maps in (("fanout", {"data": 2}, None), ("pipeline", {"depth": 2}, 2)):
-    mesh = make_mesh(**axes, device="cuda")
+comm, planes = {}, set()
+
+
+def timed(kind, fn):
+    def collective(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            comm[kind][0] += 1
+            comm[kind][1] += time.perf_counter() - t0
+    return collective
+
+
+def recorded(z, c):
+    planes.add(tuple(z.shape[-2:]))
+    return lstm_gates(z, c)
+
+
+lstm_gates = blocks.lstm_gates
+fp32 = dict(feature_dtype=torch.float32)
+exact = dict(fp32, packed_rows=False, fused_residual=False)
+plain_collectives = spatial._all_gather, torch.distributed.all_reduce
+out, meshes = {}, {}
+for path, axes, maps, dataset, settings in (
+        ("fanout", {"data": 2}, None, samples, {}),
+        ("pipeline", {"depth": 2}, 2, samples, {}),
+        ("spatial", {"spatial": 2}, None, samples[:1], {}),
+        ("spatial_packed_fp32", {"spatial": 2}, None, samples[:1], fp32),
+        ("spatial_fp32", {"spatial": 2}, None, samples[:1], exact)):
+    mesh = meshes[path] = make_mesh(**axes, device="cuda")
     torch.cuda.set_device(mesh.device)
+    probed = path == "spatial"
+    spatial._all_gather, torch.distributed.all_reduce = (
+        (timed("all_gather", plain_collectives[0]), timed("all_reduce", plain_collectives[1]))
+        if probed else plain_collectives)
+    blocks.lstm_gates = recorded if path.startswith("spatial") else lstm_gates
+    comm.update(all_gather=[0, 0.0], all_reduce=[0, 0.0])
+    planes.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gates.launches = gates.backward_launches = 0
     t0 = time.perf_counter()
-    stats = run_inference(model, samples, InferConfig(
-        out_root=a["out_root"] + "_" + path, num_workers=2, mesh=mesh, pipeline_maps=maps))
+    stats = run_inference(model, dataset, InferConfig(
+        out_root=a["out_root"] + "_" + path, num_workers=2, mesh=mesh, pipeline_maps=maps,
+        **settings))
     out[path] = {"stats": stats, "launches": (gates.launches, gates.backward_launches),
                  "peak": torch.cuda.max_memory_allocated(),
-                 "seconds": time.perf_counter() - t0}
+                 "seconds": time.perf_counter() - t0,
+                 "comm": {k: list(v) for k, v in comm.items()} if probed else None,
+                 "planes": sorted(planes)}
     torch.cuda.empty_cache()
+mesh = meshes["pipeline"]
 noise = torch.Generator(device=mesh.device).manual_seed(chip_smoke.SEED)
 carry = tuple(tuple(torch.randn(t.shape, generator=noise, device=mesh.device).to(t.dtype)
                     for t in pair)
@@ -2160,10 +2304,12 @@ torch.distributed.destroy_process_group()
 """
 
 
-def phase_inference_ranks(phase5: dict) -> tuple[int, int]:
-    """5f and 5g: two INFER_WORKER ranks, the fan-out and then the depth
-    pipeline, each path's maps checked as phase 5's and held to them.
-    Returns each path's gate launches over the ranks."""
+def phase_inference_ranks(phase5: dict) -> tuple[int, int, int, int, int]:
+    """5f, 5g and 5i: two INFER_WORKER ranks, the fan-out, the depth
+    pipeline and the spatial split (bf16, fp32 with packed rows, exact
+    fp32), each path's maps checked as phase 5's and held to them (the
+    spatial split's fp32 maps to 5b's).  Returns each path's gate launches
+    over the ranks."""
     torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
     launched = []
     with tempfile.TemporaryDirectory() as workdir:
@@ -2173,15 +2319,20 @@ def phase_inference_ranks(phase5: dict) -> tuple[int, int]:
         ranks = _run_workers([dict(rank=r, port=port, out_root=out_root) for r in range(2)],
                              workdir, worker=INFER_WORKER)
         wall = time.perf_counter() - t0
-        for path, report in (("fanout", _report_fanout), ("pipeline", _report_pipeline)):
-            _check_maps(f"{out_root}_{path}", MAIN_MAPS, MAIN_DEPTH_MIN,
+        # The spatial paths sweep their one map on both ranks, a slab each.
+        for path, maps, forward, report in (
+                ("fanout", MAIN_MAPS, 5 * MAIN_D * MAIN_MAPS, _report_fanout),
+                ("pipeline", MAIN_MAPS, 5 * MAIN_D * MAIN_MAPS, _report_pipeline),
+                *((path, 1, 2 * 5 * MAIN_D, functools.partial(_report_spatial, path))
+                  for path in ("spatial", "spatial_packed_fp32", "spatial_fp32"))):
+            _check_maps(f"{out_root}_{path}", maps, MAIN_DEPTH_MIN,
                         MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
-            got = [_read_maps(f"{out_root}_{path}", ref) for ref in range(MAIN_MAPS)]
+            got = [_read_maps(f"{out_root}_{path}", ref) for ref in range(maps)]
             per_path = [r[path] for r in ranks]
             launches = [sum(r["launches"][i] for r in per_path) for i in (0, 1)]
-            if launches != [5 * MAIN_D * MAIN_MAPS, 0]:
+            if launches != [forward, 0]:
                 _fail(f"{path}: the ranks launched the gate kernels {launches} times; "
-                      f"expected {5 * MAIN_D * MAIN_MAPS} forward and no backward")
+                      f"expected {forward} forward and no backward")
             report(per_path, got, phase5, wall)
             launched.append(launches[0])
     return tuple(launched)
@@ -2218,7 +2369,7 @@ def _report_fanout(ranks: list, got: list, phase5: dict, wall: float) -> None:
           f"sharing the card; phase 5 alone "
           f"[{', '.join(f'{x:.3f}' for x in phase5['map_seconds'])}]), total_s "
           f"{stats['total_s']:.3f}, {ranks[0]['seconds']:.1f} s from the call to its return "
-          f"({wall:.1f} s from spawn to exit with 5g); peak memory by rank "
+          f"({wall:.1f} s from spawn to exit with 5g and 5i); peak memory by rank "
           f"[{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)}] GiB (phase 5 "
           f"{phase5['peak'] / 2**30:.2f}); {held}; gate kernel launches "
           f"{sum(r['launches'][0] for r in ranks)} (= 5 x {MAIN_D} x {MAIN_MAPS}) ok",
@@ -2253,6 +2404,59 @@ def _report_pipeline(ranks: list, got: list, phase5: dict, wall: float) -> None:
           flush=True)
 
 
+def _report_spatial(path: str, ranks: list, got: list, phase5: dict, wall: float) -> None:
+    """5i: ``run_inference`` under ``make_mesh(spatial=2)`` on phase 5's
+    first map: two gloo ranks on cuda:0, each sweeping its 432 rows with
+    the halo exchanges, row gathers and GroupNorm all-reduces of
+    ``parallel/spatial.py``; 5 x D forward launches a rank, the gate kernel
+    on the slab's planes (432x1152 at full scale).  The fp32 maps, with
+    packed rows and on the exact path, are held to 5b's serial maps of the
+    same settings at 5f's bars.  With ``InferConfig()``'s defaults (bf16,
+    packed rows) the map is a smoke check, held to 5b's exact map by
+    :func:`_bf16_held_to_exact`, and its collectives are counted and timed
+    (probes that slow it; 5h times the same map without them)."""
+    stats = ranks[0]["stats"]
+    modes = [m for per_rank in stats["modes"] for m in per_rank]
+    label, settings, want_mode, want, alone = {
+        "spatial": ("spatial", "InferConfig() defaults", (True, 1, 4), None,
+                    f"phase 5 alone {phase5['map_seconds'][0]:.3f}"),
+        "spatial_packed_fp32": ("spatial fp32 packed", "fp32 with packed rows", (True, 1, 4),
+                                "packed_fp32", f"5b alone {phase5['packed_fp32_seconds']:.3f}"),
+        "spatial_fp32": ("spatial fp32", "5b's exact settings", (False, 1, 4), "exact",
+                         f"5b alone {phase5['exact_seconds']:.3f}"),
+    }[path]
+    if stats["count"] != 1 or modes != [want_mode] * 2:
+        _fail(f"{label}: {stats['count']} maps written, packed modes {modes}")
+    slab = (MAIN_H // 2, MAIN_W)
+    for r in ranks:
+        if r["launches"][0] != 5 * MAIN_D or max(r["planes"]) != slab:
+            _fail(f"{label}: a rank launched the gate kernel {r['launches'][0]} times on "
+                  f"planes {r['planes']}; expected {5 * MAIN_D} with {slab} the largest")
+    if want is None:
+        held = _bf16_held_to_exact(label, got[0], phase5)
+    else:
+        held = _held_to_phase5(label, got, {"maps": [phase5[want]]}).replace(
+            "phase 5's maps", f"5b's serial map of these settings")
+    comm = [r["comm"] for r in ranks]
+    if comm[0] is None:
+        probes = "no probes"
+    else:
+        probes = (f"collectives a rank (each timed between two synchronises): all-gathers "
+                  f"(halos, row gathers) {[c['all_gather'][0] for c in comm]} in "
+                  f"[{', '.join(f'{c['all_gather'][1]:.3f}' for c in comm)}] s, all-reduces "
+                  f"(GroupNorm statistics) {[c['all_reduce'][0] for c in comm]} in "
+                  f"[{', '.join(f'{c['all_reduce'][1]:.3f}' for c in comm)}] s")
+    print(f"{label}: run_inference, {settings}, make_mesh(spatial=2), two gloo ranks on "
+          f"cuda:0 at {MAIN_H}x{MAIN_W} ({slab[0]} rows a rank), V={MAIN_V}, D={MAIN_D}: map "
+          f"0, packed modes {modes}, seconds by rank "
+          f"{[round(x, 3) for r in stats['map_seconds'] for x in r]} (two processes sharing "
+          f"the card; {alone}), {ranks[0]['seconds']:.1f} s from the call to its return; "
+          f"{probes}; gate planes {ranks[0]['planes']}; peak memory by rank "
+          f"[{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)}] GiB (phase 5 "
+          f"{phase5['peak'] / 2**30:.2f}); {held}; gate kernel launches "
+          f"{[r['launches'][0] for r in ranks]} (5 x {MAIN_D} a rank) ok", flush=True)
+
+
 # The stand-in for cv2 of phase 5h: the scene's images are .npy arrays
 # (BGR, as cv2 decodes) under their .jpg names.
 CV2_STANDIN = '''
@@ -2277,7 +2481,7 @@ def _write_main_scene(root: str) -> None:
     """Phase 5's scene as a scene directory ``root/scan1`` (images, cams,
     ``pair.txt`` listing phase 5's reference views and their sources
     nearest first), its images written for :data:`CV2_STANDIN`."""
-    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras, plane_sources, plane_views
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_cameras, plane_views
 
     scan = os.path.join(root, "scan1")
     os.makedirs(os.path.join(scan, "images"))
@@ -2292,19 +2496,31 @@ def _write_main_scene(root: str) -> None:
         with open(os.path.join(scan, "cams", f"{v:08d}_cam.txt"), "w") as f:
             f.write("\n".join(["extrinsic", *rows(E), "", "intrinsic", *rows(K), "",
                                f"{MAIN_DEPTH_MIN!r} {MAIN_DEPTH_INTERVAL!r}", ""]))
-    with open(os.path.join(scan, "pair.txt"), "w") as f:
-        f.write(f"{MAIN_MAPS}\n")
-        for ref in range(MAIN_MAPS):
+    _write_pair(root, MAIN_MAPS)
+
+
+def _write_pair(root: str, maps: int) -> None:
+    """``root/scan1/pair.txt`` listing phase 5's first ``maps`` reference
+    views and their sources, nearest first."""
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_sources
+
+    n_cams = MAIN_MAPS + MAIN_V - 1
+    with open(os.path.join(root, "scan1", "pair.txt"), "w") as f:
+        f.write(f"{maps}\n")
+        for ref in range(maps):
             sources = plane_sources(ref, n_cams)
             f.write(f"{ref}\n{len(sources)} "
                     + " ".join(f"{v} {len(sources) - i}" for i, v in enumerate(sources)) + "\n")
 
 
-def phase_cli_fanout(phase5: dict) -> None:
-    """5h: ``python -m aa_rmvsnet_tpu_torch.cli eval --fanout 2`` with
-    phase 5's flags on phase 5's scene written to disk; its two ranks share
-    ``cuda:0`` over gloo.  Its first line, exit code and maps (held to
-    phase 5's) are checked."""
+def phase_cli_ranks(phase5: dict) -> None:
+    """5h: ``python -m aa_rmvsnet_tpu_torch.cli eval --fanout 2``, then
+    ``--spatial 2``, with phase 5's flags on phase 5's scene written to
+    disk; each command's two ranks share ``cuda:0`` over gloo.  Each
+    command's first line, exit code and maps are checked: the fan-out's
+    held to phase 5's at 5f's bars, the spatial split's map 0 (the scene's
+    ``pair.txt`` then lists reference view 0 alone) to 5b's exact map by
+    :func:`_bf16_held_to_exact`."""
     from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -2317,43 +2533,48 @@ def phase_cli_fanout(phase5: dict) -> None:
         os.makedirs(standin)
         with open(os.path.join(standin, "cv2.py"), "w") as f:
             f.write(CV2_STANDIN)
-        out_root = os.path.join(workdir, "maps")
-        cmd = [sys.executable, "-m", "aa_rmvsnet_tpu_torch.cli", "eval", "--testpath", workdir,
-               "--testlist", listfile, "--preset", "dtu_eval", "--loadckpt", ckpt,
-               "--view_num", str(MAIN_V), "--numdepth", str(MAIN_D), "--max_h", str(MAIN_H),
-               "--max_w", str(MAIN_W), "--interval_scale", "1", "--depth_block",
-               str(MAIN_BLOCK), "--outdir", out_root, "--fanout", "2"]
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [standin, os.getcwd()] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-        torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=os.getcwd(), env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True, start_new_session=True)
-        try:
-            out, err = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            _fail("cli eval --fanout 2 did not finish in 300 s")
-        finally:
+        for flag, maps in (("--fanout", MAIN_MAPS), ("--spatial", 1)):
+            name = f"cli eval {flag} 2"
+            out_root = os.path.join(workdir, "maps" + flag)
+            if maps == 1:
+                _write_pair(workdir, 1)
+            cmd = [sys.executable, "-m", "aa_rmvsnet_tpu_torch.cli", "eval", "--testpath",
+                   workdir, "--testlist", listfile, "--preset", "dtu_eval", "--loadckpt", ckpt,
+                   "--view_num", str(MAIN_V), "--numdepth", str(MAIN_D), "--max_h",
+                   str(MAIN_H), "--max_w", str(MAIN_W), "--interval_scale", "1",
+                   "--depth_block", str(MAIN_BLOCK), "--outdir", out_root, flag, "2"]
+            torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=os.getcwd(), env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, start_new_session=True)
             try:
-                os.killpg(proc.pid, 9)  # the ranks too
-            except ProcessLookupError:
-                pass
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            _fail(f"cli eval --fanout 2 exited with {proc.returncode}: {err[-2000:]}")
-        lines = out.splitlines()
-        first = "eval: 2 ranks (--fanout 2) on torch.distributed, backend gloo, ranks on " \
-            "cuda:0, cuda:0"
-        if lines[0] != first:
-            _fail(f"cli eval --fanout 2 began {lines[0]!r}, not {first!r}")
-        _check_maps(out_root, MAIN_MAPS, MAIN_DEPTH_MIN,
-                    MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
-        held = _held_to_phase5("cli eval --fanout 2",
-                               [_read_maps(out_root, ref) for ref in range(MAIN_MAPS)], phase5)
-    maps = [line for line in lines if "scan1/" in line]
-    print(f"cli eval --fanout 2: exit 0 in {wall:.1f} s (spawn, two ranks sharing cuda:0, "
-          f"{MAIN_MAPS} maps at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}); first line "
-          f"{lines[0]!r}; its map lines {maps}; {held}", flush=True)
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                _fail(f"{name} did not finish in 300 s")
+            finally:
+                try:
+                    os.killpg(proc.pid, 9)  # the ranks too
+                except ProcessLookupError:
+                    pass
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                _fail(f"{name} exited with {proc.returncode}: {err[-2000:]}")
+            lines = out.splitlines()
+            first = f"eval: 2 ranks ({flag} 2) on torch.distributed, backend gloo, ranks on " \
+                "cuda:0, cuda:0"
+            if lines[0] != first:
+                _fail(f"{name} began {lines[0]!r}, not {first!r}")
+            _check_maps(out_root, maps, MAIN_DEPTH_MIN,
+                        MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
+            got = [_read_maps(out_root, ref) for ref in range(maps)]
+            held = (_held_to_phase5(name, got, phase5) if maps > 1
+                    else _bf16_held_to_exact(name, got[0], phase5))
+            printed = [line for line in lines if "scan1/" in line]
+            print(f"{name}: exit 0 in {wall:.1f} s (spawn, two ranks sharing cuda:0, "
+                  f"{maps} map(s) at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}); first line "
+                  f"{lines[0]!r}; its map lines {printed}; {held}", flush=True)
 
 
 def phase_view_parallel(phase6: dict) -> tuple[int, int]:
@@ -2379,8 +2600,8 @@ def phase_view_parallel(phase6: dict) -> tuple[int, int]:
                       maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
         port = _free_port()
         t0 = time.perf_counter()
-        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=2, rows=[0, 1],
-                                   cases=[False, True]) for r in range(2)], workdir)
+        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=2, spatial=1,
+                                   rows=[0, 1], cases=[False, True]) for r in range(2)], workdir)
         wall = time.perf_counter() - t0
         for evidential in (False, True):
             _hold_ranks_to_single(f"view-parallel {'evidential' if evidential else 'core'}",
@@ -2388,6 +2609,39 @@ def phase_view_parallel(phase6: dict) -> tuple[int, int]:
                                   wall, phase6, launched,
                                   "two gloo ranks on cuda:0 with a view axis of 2 (source "
                                   "views 1-2 and 3-4) against one process on the sample")
+    return tuple(launched)
+
+
+def phase_spatial_training(phase6: dict) -> tuple[int, int]:
+    """6f: ``TrainConfig(mesh=make_mesh(spatial=2))`` at ``dtu_train``: two
+    gloo ranks on cuda:0, each stepping on its 64 rows of the sample (the
+    halo exchanges, row gathers and GroupNorm all-reduces differentiated,
+    the gradients summed over the spatial group), against this process's
+    step on the whole sample, for the core, at phase 6d's bars.  Returns
+    the ranks' gate launches."""
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    keys = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
+    sample = _dtu_train_sample()
+    batch = {k: np.stack([sample[k]]) for k in keys}
+    weights = {"core": seeded_model(SEED).state_dict()}
+    launched = [0, 0]
+    with tempfile.TemporaryDirectory() as workdir:
+        np.savez(os.path.join(workdir, "batch.npz"), **batch)
+        torch.save(weights, os.path.join(workdir, "weights.pt"))
+        common = dict(weights=os.path.join(workdir, "weights.pt"),
+                      batch=os.path.join(workdir, "batch.npz"), block=TRAIN_BLOCK,
+                      maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=1, spatial=2,
+                                   rows=[0, 1], cases=[False]) for r in range(2)], workdir)
+        wall = time.perf_counter() - t0
+        _hold_ranks_to_single("spatial core", [r[False] for r in ranks], weights, batch, False,
+                              wall, phase6, launched,
+                              f"two gloo ranks on cuda:0 with a spatial axis of 2 (rows 0-"
+                              f"{TRAIN_H // 2 - 1} and {TRAIN_H // 2}-{TRAIN_H - 1}) against "
+                              "one process on the sample")
     return tuple(launched)
 
 
@@ -2827,17 +3081,19 @@ def main() -> int:
     samples = run("scene", _main_scene)
     bf16_launches, packed_depth0, phase5 = run("5", phase_main, samples)
     run("5e", phase_feat_chunk, samples, phase5)
-    fp32_launches = run("5b", phase_main_exact, samples, packed_depth0)
+    fp32_launches, fp32_packed_launches = run("5b", phase_main_exact, samples, phase5)
     evidential_launches, evidential_backward = run("5c", phase_evidential, samples)
     levers_launches = run("5d", phase_main_levers, samples, packed_depth0, phase5)
-    fanout_launches, pipeline_launches = run("5f+5g", phase_inference_ranks, phase5)
-    run("5h", phase_cli_fanout, phase5)
+    (fanout_launches, pipeline_launches, spatial_launches, spatial_packed_fp32_launches,
+     spatial_fp32_launches) = run("5f+5g+5i", phase_inference_ranks, phase5)
+    run("5h", phase_cli_ranks, phase5)
     phase6 = run("6", phase_train)
     forward["launches"], backward["launches"] = phase6["launches"], phase6["backward"]
     train_ev_launches, train_ev_backward = run("6b", phase_train_evidential)
     levers = run("6c", phase_train_bf16, phase6)
     levers["training_data_parallel"] = run("6d", phase_data_parallel, phase6)
     levers["training_view_parallel"] = run("6e", phase_view_parallel, phase6)
+    levers["training_spatial"] = run("6f", phase_spatial_training, phase6)
     fusion = run("7", phase_fusion_kernel)
     fusion["launches"] = run("7b", phase_fusion_scan)
     chain_launches, chain_fused = run("7c", phase_chain)
@@ -2845,10 +3101,15 @@ def main() -> int:
     fusion["launches_by_path"] = {"fusion_scan": fusion["launches"], "chain": chain_fused}
     forward["launches_by_path"] = {"inference_bf16_packed": bf16_launches,
                                    "inference_fp32": fp32_launches,
+                                   "inference_fp32_packed": fp32_packed_launches,
                                    "inference_evidential": evidential_launches,
                                    "inference_levers": levers_launches,
                                    "inference_fanout": fanout_launches,
                                    "inference_depth_pipeline": pipeline_launches,
+                                   "inference_spatial": spatial_launches,
+                                   "inference_spatial_packed_fp32":
+                                       spatial_packed_fp32_launches,
+                                   "inference_spatial_fp32": spatial_fp32_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches,
                                    **{k: v[0] for k, v in levers.items()},
@@ -2857,7 +3118,10 @@ def main() -> int:
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
                                     "inference_levers": 0, "inference_fanout": 0,
-                                    "inference_depth_pipeline": 0,
+                                    "inference_depth_pipeline": 0, "inference_spatial": 0,
+                                    "inference_spatial_packed_fp32": 0,
+                                    "inference_spatial_fp32": 0,
+                                    "inference_fp32_packed": 0,
                                     "training": backward["launches"],
                                     "training_evidential": train_ev_backward,
                                     **{k: v[1] for k, v in levers.items()},

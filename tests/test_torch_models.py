@@ -130,7 +130,7 @@ def test_unet_convlstm_step_matches(params, model):
     cost_j, new_j = network_j.AARMVSNetCore().apply(
         params, jnp.asarray(x), states_j, method=network_j.AARMVSNetCore.regularize)
     states_t = tuple((_nchw(h), _nchw(c)) for h, c in states_j)
-    zeros = init_states(B, H, W)
+    zeros = init_states(B, H, W, device="cpu")
     assert [tuple(h.shape) for h, _ in zeros] == [tuple(h.shape) for h, _ in states_t]
     with torch.no_grad():
         cost_t, new_t = model.cost_regularization(_nchw(x), states_t)

@@ -415,7 +415,8 @@ def test_cli_train_two_processes(tmp_path):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(SystemExit, match="--spatial: not ported yet"):
+    with pytest.raises(SystemExit, match=r"--spatial 2 needs as many processes, one a rank "
+                                         r"\(--num_processes 1\)"):
         cli.main(["train", "--trainpath", str(tmp_path), "--trainlist", "x", "--device", "cpu",
                   "--spatial", "2"])
     with pytest.raises(SystemExit, match=r"global batch 3 \(= 1 x 3 processes\) must be "
@@ -423,14 +424,12 @@ def test_refusals(tmp_path):
                                          r"/ spatial 1\)"):
         cli.check_global_batch(1, 3, 2, 2)
     cli.check_global_batch(2, 3, 3, 3)  # the port's own case: data axis = processes
-    with pytest.raises(NotImplementedError, match="a spatial axis of 2: not ported yet"):
-        make_mesh(spatial=2, device="cpu")
-    for axis in ("view", "depth"):  # over one process: JAX's mesh-size refusal
+    sizes = {"view": "1x2x1x1", "spatial": "1x1x2x1", "depth": "1x1x1x2"}
+    for axis, shape in sizes.items():  # over one process: JAX's mesh-size refusal
         with pytest.raises(ValueError, match=r"1 devices not divisible by "
                                              r"view\*spatial\*depth=2"):
             make_mesh(**{axis: 2}, device="cpu")
-        with pytest.raises(ValueError, match="mesh 1x2x1x1 != 1 devices" if axis == "view"
-                           else "mesh 1x1x1x2 != 1 devices"):
+        with pytest.raises(ValueError, match=f"mesh {shape} != 1 devices"):
             make_mesh(data=1, **{axis: 2}, device="cpu")
     with pytest.raises(ValueError, match="mesh 2x1x1x1 != 1 devices"):
         make_mesh(data=2, device="cpu")

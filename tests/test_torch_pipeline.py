@@ -159,11 +159,15 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 
 def test_unported_flag_is_refused(tmp_path):
+    """``--spatial`` is ported (``tests/test_torch_spatial_pipeline.py``); a
+    use of it that cannot work is refused by name before any rank starts."""
     from aa_rmvsnet_tpu_torch import cli
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["eval", "--testpath", str(tmp_path), "--testlist", "x",
-                  "--loadckpt", "x", "--spatial", "2"])
+    argv = ["eval", "--testpath", str(tmp_path), "--testlist", "x", "--loadckpt", "x"]
+    with pytest.raises(SystemExit, match="--spatial 0: must be at least 1"):
+        cli.main([*argv, "--spatial", "0"])
+    with pytest.raises(SystemExit, match="--depth_stages is exclusive with --fanout/--spatial"):
+        cli.main([*argv, "--spatial", "2", "--depth_stages", "2"])
 
 
 @pytest.mark.parametrize("flag,value", [("--fold_omega", "hybird"), ("--packed_rows", "2"),

@@ -330,9 +330,9 @@ def test_int8_omega_computes_in_bf16_in_an_fp32_sweep(model, monkeypatch):
     seen = []
     group_norm = aggregation._group_norm_folded
 
-    def spy(x, gn, groups):
+    def spy(x, gn, groups, mesh=None):
         seen.append(x.dtype)
-        return group_norm(x, gn, groups)
+        return group_norm(x, gn, groups, mesh)
 
     monkeypatch.setattr(aggregation, "_group_norm_folded", spy)
     scene = [torch.from_numpy(a) for a in _random_scene(seed=9, D=8)]

@@ -304,22 +304,22 @@ def _parser_options(module):
             for name, p in sub.choices.items()}
 
 
-#: The JAX CLI's multi-device flags (ROADMAP item 14); --spatial is refused
-#: by name as not ported yet.
-MULTI_DEVICE = {"eval": {"--fanout": "2", "--spatial": "2", "--depth_stages": "2",
-                         "--pipeline_maps": "4"},
-                "train": {"--coordinator": "localhost:1", "--num_processes": "2",
-                          "--process_id": "1", "--spatial": "2", "--single_device": None}}
+#: The JAX CLI's multi-device flags (ROADMAP item 14), all ported.
+MULTI_DEVICE = {"eval": ("--fanout", "--spatial", "--depth_stages", "--pipeline_maps"),
+                "train": ("--coordinator", "--num_processes", "--process_id", "--spatial",
+                          "--single_device")}
 #: The ported multi-process flags of ``train``: a use that cannot work, and
 #: its refusal by name; ``--single_device`` is taken, and the run goes on
 #: to read the missing list.
 PORTED_TRAIN = {"--coordinator": ("localhost", SystemExit, "--coordinator 'localhost': must"),
                 "--num_processes": ("2", SystemExit, "--num_processes 2 needs --coordinator"),
                 "--process_id": ("1", SystemExit, "--process_id 1: must be in"),
-                "--single_device": (None, FileNotFoundError, "x")}
+                "--single_device": (None, FileNotFoundError, "x"),
+                "--spatial": ("2", SystemExit, "--spatial 2 needs as many processes")}
 #: The ported multi-rank flags of ``eval``: a use that cannot work (its
 #: arguments), and its refusal by name.
 PORTED_EVAL = {"--fanout": (["0"], "--fanout 0: must be at least 1"),
+               "--spatial": (["0"], "--spatial 0: must be at least 1"),
                "--depth_stages": (["2", "--fanout", "2"],
                                   "--depth_stages is exclusive with --fanout/--spatial"),
                "--pipeline_maps": (["0"], "--pipeline_maps 0: must be at least 1")}
@@ -335,17 +335,14 @@ def test_cli_takes_every_jax_subcommand_and_flag():
 @pytest.mark.parametrize("command,flag", [(c, f) for c, flags in MULTI_DEVICE.items()
                                           for f in flags])
 def test_multi_device_flags_are_refused_by_name(tmp_path, command, flag):
-    value, error, message = MULTI_DEVICE[command][flag], SystemExit, f"{flag}: not ported yet"
-    values = [value] if value else []
+    error = SystemExit
     if command == "eval":
         argv = ["eval", "--testpath", str(tmp_path), "--testlist", "x", "--loadckpt", "x"]
-        if flag in PORTED_EVAL:
-            values, message = PORTED_EVAL[flag]
+        values, message = PORTED_EVAL[flag]
     else:
         argv = ["train", "--trainpath", str(tmp_path), "--trainlist", "x", "--device", "cpu"]
-        if flag in PORTED_TRAIN:
-            value, error, message = PORTED_TRAIN[flag]
-            values = [value] if value else []
+        value, error, message = PORTED_TRAIN[flag]
+        values = [value] if value else []
     with pytest.raises(error, match=message):
         cli.main([*argv, flag, *values])
 

@@ -190,12 +190,13 @@ def test_cli_train_refuses_head_flags(flags, message, tmp_path):
                   *flags])
 
 
-#: The multi-device flags of ``cli train``: ``--spatial`` is not ported;
-#: ``--coordinator`` is, and refuses an address without a port by name;
-#: ``--single_device`` is, and the run goes on to read the missing list.
+#: The multi-device flags of ``cli train``, all ported: ``--coordinator``
+#: refuses an address without a port by name, ``--spatial`` a rank count
+#: above the processes'; with ``--single_device`` the run goes on to read
+#: the missing list.
 TRAIN_FLAGS = {
     "--coordinator": (["--coordinator", "localhost"], SystemExit, "must be host:port"),
-    "--spatial": (["--spatial"], SystemExit, "not ported yet"),
+    "--spatial": (["--spatial", "2"], SystemExit, "--spatial 2 needs as many processes"),
     "--single_device": (["--single_device"], FileNotFoundError, "x"),
 }
 
