@@ -40,8 +40,9 @@ parallel across N processes on ``torch.distributed`` (one card each, NCCL;
 gloo with ``--device cpu``), ``--batch_size`` per process, as the JAX CLI
 does, and ``--single_device`` makes each process step alone on its shard;
 ``--spatial S`` splits each batch's rows over S of the N processes (the
-data axis is N / S, the global batch still ``--batch_size`` x N; evidential
-training on it is not ported yet).
+data axis is N / S, the global batch still ``--batch_size`` x N; with
+``--evidential`` the head runs on the cost volume gathered whole on each
+of the S ranks).
 ``eval --fanout N`` (the samples spread over N ranks), ``eval --spatial S``
 (each map's rows split over S ranks, with ``--fanout`` too) and ``eval
 --depth_stages P [--pipeline_maps M]`` (the depth-block pipeline over P
@@ -579,8 +580,6 @@ def _check_spatial(args) -> None:
         raise SystemExit(f"--spatial {args.spatial}: must be at least 1")
     if args.spatial == 1 or args.single_device:
         return
-    if args.evidential:
-        raise SystemExit("--evidential with --spatial: not ported yet to aa_rmvsnet_tpu_torch")
     data = args.num_processes // args.spatial
     if data == 0:
         raise SystemExit(f"--spatial {args.spatial} needs as many processes, one a rank "

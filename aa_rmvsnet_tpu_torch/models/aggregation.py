@@ -18,9 +18,17 @@ Two forms of the same network:
 Both take a spatial ``mesh`` (``parallel/spatial.py``) on a rank's slab of
 rows: rw0's 3x3 convolution with its halo, every GroupNorm's statistics
 over every rank's rows, the 1x1 convolutions on the slab as it is.
+
+On an int8 input (the int8 and dual residual levers) ``omega_folded`` runs
+rw0 as an int8 convolution and the rest in bf16; with the environment
+variable ``AA_RMVSNET_OMEGA_INT8=chain``, read where the JAX package reads
+it (on an int8 input, at each call), the stems and rw2 take int8
+activations too (:func:`_omega_chain`).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -110,6 +118,94 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, padding: int, groups: int) 
                     groups=groups)
 
 
+def _quant_kernel(kernel: torch.Tensor,
+                  act_scale: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_quant_kernel``: ``kernel`` ``(cout, cin, kh,
+    kw)`` in fp32, times the per-input-channel activation scale
+    ``act_scale`` where one is given, quantized per output channel onto
+    +-127 (``kmax`` over its (cin, kh, kw)).  Returns the integer-valued
+    kernel and the fp32 dequantization scale ``kmax / 127``."""
+    k = kernel.float()
+    if act_scale is not None:
+        k = k * act_scale[None, :, None, None]
+    kmax = torch.clamp_min(k.abs().amax(dim=(1, 2, 3)), 1e-12)
+    kq = torch.clamp(torch.round(k / kmax[:, None, None, None] * 127.0), -127, 127)
+    return kq, true_div(kmax, 127.0)
+
+
+def _tile(v: torch.Tensor, groups: int) -> torch.Tensor:
+    """A per-channel vector tiled over the G folded volumes, shaped to
+    broadcast over NCHW."""
+    return v.repeat(groups)[:, None, None]
+
+
+def _conv8(x: torch.Tensor, conv: nn.Conv2d, kq: torch.Tensor, co_scale: torch.Tensor,
+           groups: int, mesh=None) -> torch.Tensor:
+    """``conv``'s G-grouped int8 convolution of the int8 NCHW ``x`` with
+    the quantized kernel ``kq`` (the JAX package's ``_conv8``): the exact
+    integer sum rounded once to bf16 (:func:`int8_conv`), times the
+    dequantization scale in bf16, plus the bias in bf16.  On a spatial
+    ``mesh``'s slab with the halo the kernel reads."""
+    padding = conv.padding
+    if mesh is not None:
+        above, below = conv_halo(conv.kernel_size[0], 1, padding[0])
+        if above or below:
+            x = halo_rows(x, above, below, mesh)
+        padding = (0, padding[1])
+    y = int8_conv(x, kq.repeat(groups, 1, 1, 1), padding, groups)
+    return y * _tile(co_scale.to(torch.bfloat16), groups) + _tile(
+        conv.bias.to(torch.bfloat16), groups)
+
+
+#: The int8 chain's clip of a GroupNorm output, in standard deviations (the
+#: JAX package's ``sb``).
+CHAIN_SIGMAS = 8.0
+
+
+def _gn_bound(gn: nn.GroupNorm) -> torch.Tensor:
+    """The int8 chain's static bound of ``|gn|``'s output per channel,
+    ``|weight| * 8 + |bias|`` in fp32.  As in the JAX package it has no
+    floor: a channel whose weight and bias are 0 gets the scale 0."""
+    return gn.weight.float().abs() * CHAIN_SIGMAS + gn.bias.float().abs()
+
+
+def _quant_act(x: torch.Tensor, bound: torch.Tensor, groups: int) -> torch.Tensor:
+    """A non-negative bf16 activation onto int8 with the per-channel scale
+    ``bound / 127`` rounded to bf16: ``round(x / a)`` in bf16, clipped to
+    [0, 127] (the JAX package's ``quant_act``)."""
+    a = _tile(true_div(bound, 127.0).to(torch.bfloat16), groups)
+    return torch.clamp(torch.round(x / a), 0, 127).to(torch.int8)
+
+
+def _omega_chain(omega: InterViewAA, y: torch.Tensor, groups: int, mesh=None) -> torch.Tensor:
+    """The rest of omega after its int8 rw0 (``y``, bf16 NCHW) with int8
+    activations, the JAX package's ``AA_RMVSNET_OMEGA_INT8=chain``
+    (``aggregation.py:164-236``): each GroupNorm output is clipped to its
+    static bound (:func:`_gn_bound`) and quantized onto int8
+    (:func:`_quant_act`), and its scale folded into the next kernel before
+    that kernel's own per-output-channel quantization (:func:`_quant_kernel`);
+    the stems and rw2 are int8 convolutions (:func:`_conv8`: 1x1 sums over
+    4 channels, at most 4 x 127 x 127).  The residual add dequantizes the
+    block's input; the bound of ``relu(z + y)`` is rw1's GroupNorm bound
+    plus rw0's.  As in the JAX package, the int32 sums are cast to bf16
+    before the dequantization scale multiplies them.  Returns the bf16
+    sigmoid weights, NCHW."""
+    rw0, rw1, rw2 = omega.reweight_network[:3]
+    stem0, stem1, stem_gn = rw1.stem
+    b1 = _gn_bound(rw0[1])
+    yq = _quant_act(torch.relu(_group_norm_folded(y, rw0[1], groups, mesh)), b1, groups)
+    b2 = _gn_bound(stem0[1])
+    z = _conv8(yq, stem0[0], *_quant_kernel(stem0[0].weight, true_div(b1, 127.0)), groups)
+    zq = _quant_act(torch.relu(_group_norm_folded(z, stem0[1], groups, mesh)), b2, groups)
+    z = _conv8(zq, stem1, *_quant_kernel(stem1.weight, true_div(b2, 127.0)), groups)
+    z = _group_norm_folded(z, stem_gn, groups, mesh)
+    y_deq = yq.to(torch.bfloat16) * _tile(true_div(b1, 127.0).to(torch.bfloat16), groups)
+    b3 = _gn_bound(stem_gn) + b1
+    sq = _quant_act(torch.relu(z + y_deq), b3, groups)
+    w = _conv8(sq, rw2, *_quant_kernel(rw2.weight, true_div(b3, 127.0)), groups)
+    return torch.sigmoid(w)
+
+
 def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
                  input_scale: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """The omega network with ``groups`` volumes folded into channels.
@@ -132,7 +228,8 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
         onto +-127 (``kmax`` over its (cin, kh, kw)), the exact integer
         convolution (:func:`int8_conv`), then ``kmax / 127`` and the bias
         in bf16; the rest of the chain then runs in bf16 whatever the
-        model's dtype, as in the JAX package.
+        model's dtype, as in the JAX package, or on int8 activations with
+        ``AA_RMVSNET_OMEGA_INT8=chain`` (:func:`_omega_chain`).
       mesh: a spatial mesh when ``x`` is a rank's slab of rows, else None.
 
     Returns:
@@ -148,16 +245,10 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
     y = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC volumes
     if x.dtype == torch.int8:
         with record_function("quant.omega_int8_rw0"):
-            k = kernel.float()
-            kmax = torch.clamp_min(k.abs().amax(dim=(1, 2, 3)), 1e-12)  # per output channel
-            kq = torch.clamp(torch.round(k / kmax[:, None, None, None] * 127.0), -127, 127)
-            padding = conv0.padding
-            if mesh is not None:
-                y = halo_rows(y, *conv_halo(3, 1, padding[0]), mesh)
-                padding = (0, padding[1])
-            y = int8_conv(y, kq.repeat(groups, 1, 1, 1), padding, groups)
-            y = y * true_div(kmax, 127.0).to(torch.bfloat16).repeat(groups)[:, None, None]
-            y = y + conv0.bias.to(torch.bfloat16).repeat(groups)[:, None, None]
+            y = _conv8(y, conv0, *_quant_kernel(kernel), groups, mesh)
+        if os.environ.get("AA_RMVSNET_OMEGA_INT8") == "chain":
+            with record_function("quant.omega_int8_chain"):
+                return _omega_chain(omega, y, groups, mesh).permute(0, 2, 3, 1)
     else:
         y = _conv_folded(y, conv0, groups, kernel, mesh)
     y = torch.relu(_group_norm_folded(y, rw0[1], groups, mesh))

@@ -51,7 +51,10 @@ collectives GSPMD inserts in the JAX package): FeatNet, omega and the
 U-Net take the mesh and run on it, the source views' features
 are gathered whole before their tables are built (a warp may read any
 row), the homography terms cover the slab's pixels at their map rows, and
-winner-take-all, logsumexp and the collected volume stay the slab's.
+winner-take-all, logsumexp and the collected volume stay the slab's.  A
+view axis may split the source views at the same time (inference only, as
+in the JAX package): the row gathers run over the spatial group, the view
+merge over the view group, in one order on every rank.
 
 Public functions keep the JAX package's NHWC shapes; the modules run NCHW.
 Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block``,
@@ -144,7 +147,8 @@ class SweepConfig:
       qmax, 1e-12)``, ``a`` the channel's amax over the source and
       reference features, qmax 127 for int8 and 448 otherwise.  Omega
       folds it into its first kernel; on an int8 copy it runs rw0 as an
-      int8 convolution and the rest of its chain in bf16.  The variance
+      int8 convolution and the rest of its chain in bf16 (on int8
+      activations with ``AA_RMVSNET_OMEGA_INT8=chain``).  The variance
       multiplies it back.  Approximate.
     feature_view_chunk: FeatNet views per batch, 0 for all ``B*V`` at
       once (:func:`extract_features`); a chunk bounds FeatNet's peak
@@ -156,7 +160,8 @@ class SweepConfig:
       terms, and merges its partial view mean over the view group once per
       depth block; every rank then regularizes the same costs.  With a
       spatial axis above 1 every rank sweeps its slab of rows
-      (:func:`spatial_mesh`).  Other axes do not change the sweep.
+      (:func:`spatial_mesh`), the view ranks of a slab their source views
+      where both axes are above 1.  Other axes do not change the sweep.
       ``gather_pack > 1`` and ``residual_dtype`` raise on a view-parallel
       sweep, as in the JAX package.
     """
@@ -186,14 +191,12 @@ def pick_depth_block(num_depth: int, target: int) -> int:
 
 def spatial_mesh(mesh):
     """``mesh`` where its spatial axis is above 1 (the sweep then runs on
-    each rank's slab of rows), else None.  A mesh with view and spatial
-    axes both above 1, which the JAX package runs in inference, is refused:
-    not ported yet."""
+    each rank's slab of rows), else None.  A view axis above 1 may come
+    with it: each view rank then sweeps its source views
+    (:func:`view_shard`) on its slab, and the view merge runs per slab
+    over the view group, whose ranks share a spatial coordinate."""
     if mesh is None or mesh.shape["spatial"] == 1:
         return None
-    if mesh.shape["view"] > 1:
-        raise NotImplementedError("a mesh with view and spatial axes both above 1: not "
-                                  "ported yet to aa_rmvsnet_tpu_torch")
     return mesh
 
 
@@ -571,7 +574,11 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     ``features`` may then hold all views or the reference view and this
     rank's source views only.  Under a spatial mesh (:func:`spatial_mesh`)
     ``features`` and ``states`` are this rank's slab of rows, and so are
-    the results.
+    the results.  Both at once: each view rank's source views on its slab,
+    the tables built from features gathered over the spatial group and the
+    partial view mean merged over the view group, per block in the same
+    order on every rank (the spatial collectives of the cost block, the
+    view merge, then the regularizer's).
 
     Returns ``(states, depth_img, max_cost, lse, volume)``: the carry
     after the last hypothesis, the chunk's WTA depth, its maximum cost and
@@ -779,7 +786,9 @@ def forward(
     """Full forward: features + sweep.  ``imgs``: ``(B, V, H, W, 3)``; under
     a spatial mesh (:func:`spatial_mesh`) this rank's slab of rows of every
     view (``parallel.mesh.spatial_rows`` of the map's height), and the
-    results are the slab's.
+    results are the slab's; with a view axis too, each view rank of a
+    slab regularizes the same merged costs and returns that slab (bit for
+    bit on the CPU; on the card to the rounding of its convolutions).
 
     Differentiable in the model's parameters through ``cost_volume`` in
     fp32 (``depth`` and ``photometric_confidence`` carry no gradient).  On

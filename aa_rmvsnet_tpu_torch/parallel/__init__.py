@@ -15,6 +15,7 @@ from .mesh import (
     shard_dataset,
     spatial_rows,
     view_merge,
+    views_as_replicas,
 )
 from .depth_pipeline import pipeline_forward, sweep_depth_pipelined
 
@@ -33,4 +34,5 @@ __all__ = [
     "spatial_rows",
     "sweep_depth_pipelined",
     "view_merge",
+    "views_as_replicas",
 ]

@@ -190,6 +190,20 @@ def make_mesh(data: int | None = None, view: int = 1, spatial: int = 1, depth: i
                 depth_group=groups.get("depth"))
 
 
+def views_as_replicas(mesh: Mesh | None) -> Mesh | None:
+    """``mesh`` with its view axis folded into the data axis, as inference
+    sees it (the JAX package replicates over its view axis there): sizes
+    ``(data * view, 1, spatial, depth)``, the same layout of ranks, so
+    every rank keeps its spatial and depth coordinates and groups.  The
+    folded data axis has no process group (``data_group`` None): the
+    result is for the sweep, not for the data axis's collectives."""
+    if mesh is None or mesh.shape["view"] == 1:
+        return mesh
+    data, view, spatial, depth = mesh.sizes
+    return dataclasses.replace(mesh, sizes=(data * view, 1, spatial, depth), data_group=None,
+                               view_group=None)
+
+
 def local_mesh(device: str = "cuda") -> Mesh:
     """Each process alone (``cli train --single_device``): this process's
     rank and the world size pick its data shard and make rank 0 the one

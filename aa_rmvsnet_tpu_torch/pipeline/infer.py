@@ -69,7 +69,7 @@ from ..models.network import (
     spatial_mesh,
 )
 from ..parallel.depth_pipeline import pipeline_forward
-from ..parallel.mesh import shard_dataset, spatial_rows
+from ..parallel.mesh import shard_dataset, spatial_rows, views_as_replicas
 from ..parallel.spatial import gather_rows_to_first
 from ..utils.device import disable_tf32, resolve_device
 
@@ -240,15 +240,18 @@ def run_inference(
     largest of the ranks' summed map seconds, ``map_seconds``, ``modes``,
     ``gate_seconds`` and ``head_seconds`` one list per data rank, and the
     failures of all.  View ranks above 0 compute as replicas and write
-    nothing (the JAX package replicates over its view axis in inference).
+    nothing (the JAX package replicates over its view axis in inference:
+    the sweep sees :func:`..parallel.mesh.views_as_replicas` of the mesh).
     With a spatial axis above 1 each rank sweeps its slab of rows of every
     map (:func:`..parallel.mesh.spatial_rows`; a height that the axis does
-    not split into slabs of a multiple of 4 rows raises), spatial rank 0
-    of each data rank writes the gathered maps, and the stats are gathered
-    over every rank: ``count`` summed over the writing ranks, the lists one
-    per rank in rank order.  A map's time then includes the gather of its
-    rows.  A mesh with view and spatial axes both above 1 is not ported
-    yet.  With a depth axis above 1: :func:`_run_inference_depth_pipeline`.
+    not split into slabs of a multiple of 4 rows raises), and so does each
+    view rank where the view axis is above 1 too; spatial rank 0 of view
+    rank 0 of each data rank gathers the maps (and, with a head, the cost
+    volume, and runs the head) and writes, and the stats are gathered over
+    every rank: ``count`` summed over the writing ranks, the lists one per
+    rank in rank order.  A map's time then includes the gather of its
+    rows.  With a depth axis above 1:
+    :func:`_run_inference_depth_pipeline`.
     """
     head = config.evidential
     if config.depth_source not in ("wta", "evidential"):
@@ -269,7 +272,7 @@ def run_inference(
                 "build the mesh with data=1, spatial=1"
             )
         return _run_inference_depth_pipeline(model, dataset, config, progress)
-    rows_mesh = spatial_mesh(mesh)
+    rows_mesh = spatial_mesh(views_as_replicas(mesh))
     device = resolve_device(config.device) if mesh is None else mesh.device
     rank, ranks = (0, 1) if mesh is None else (mesh.coord("data"), mesh.shape["data"])
     dataset = shard_dataset(dataset, rank, ranks)
@@ -326,12 +329,12 @@ def run_inference(
                 # The volume's last reference goes to the head, which drops
                 # it once the probability volume exists (the list holds it
                 # until then).  Under a spatial mesh spatial rank 0 gathers
-                # the volume's rows and runs the head.
+                # the volume's rows, and the rank that writes runs the head.
                 volume = [out.pop("cost_volume")]
                 del out
                 if rows_mesh is not None:
                     volume = [gather_rows_to_first(volume.pop(), rows_mesh)]
-                if volume[0] is not None:
+                if volume[0] is not None and writes:
                     ev = evidential_apply(head, volume.pop(), depths)
                     gamma, nu, alpha, beta = (ev[k][0].cpu().numpy()
                                               for k in ("gamma", "nu", "alpha", "beta"))

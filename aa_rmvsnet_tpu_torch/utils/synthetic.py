@@ -59,13 +59,13 @@ def seeded_model(seed: int) -> AARMVSNetCore:
     return model.eval()
 
 
-def seeded_head(seed: int) -> EvidentialHead:
+def seeded_head(seed: int, maxdisp: int = 32) -> EvidentialHead:
     """The evidential head with random weights from ``seed``: the JAX
     package's init (lecun-normal kernels), then BatchNorm scales ~ N(1,
     0.1), biases ~ N(0, 0.1), running means ~ N(0, 0.1) and variances ~
     U(0.5, 1.5), so that every BN does work.  Eval mode."""
     gen = torch.Generator().manual_seed(seed)
-    head = EvidentialHead(generator=gen)
+    head = EvidentialHead(maxdisp, generator=gen)
     with torch.no_grad():
         for mod in head.modules():
             if isinstance(mod, nn.BatchNorm3d):

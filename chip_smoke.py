@@ -15,7 +15,7 @@ Phases, each printing a line; any failure exits non-zero:
    and c as contiguous views one element into their storage, off the
    16-byte grid (the last two take the kernel's scalar path), and at the
    cell shapes of a spatial rank's slab (half the rows of 864x1152 and of
-   128x160: 5i, 5h and 6f), fp32 (atol 1e-6) and bf16 (atol 2e-2), with
+   128x160: 5i, 5h, 5k, 6f and 6g), fp32 (atol 1e-6) and bf16 (atol 2e-2), with
    the share of outputs at the five cells
    that differ from the plain version's; kernel, plain, library-call times
    and the kernel's bound per depth step, in fp32 and in bf16 (the
@@ -107,6 +107,17 @@ Phases, each printing a line; any failure exits non-zero:
    weights in the JAX package too (``tests/test_torch_quant_pipeline.py``),
    so its shares are printed beside the dual residual's, which must beat
    them;
+4i. the JAX package's int8 omega chain (``AA_RMVSNET_OMEGA_INT8=chain``,
+   ``models/aggregation.py:_omega_chain``), CUDA against CPU at 64x80 with
+   8 folded volumes on seeded bf16 omega weights: each of its four int8
+   stages equal to an integer-exact reference (a float64 convolution of
+   its own int8 inputs) rounded once, bit for bit, on both devices; the
+   card's stage inputs equal to the CPU's on >= 99.9 % of activations, none
+   off by more than 1; the weights within 2^-6 of the CPU's; the chain
+   against the base int8 path within the JAX package's bars (mean < 0.03,
+   max < 0.25); then on 4g's scene the dual residual and the production
+   stack with the chain, each >= 90 % of pixels and >= 99 % of the
+   confident ones within one bin of the bf16 packed path;
 5. main path, inference: ``run_inference`` with ``InferConfig()``'s
    defaults (bf16, packed rows where the gate passes, fused residual) at
    the ``dtu_eval`` geometry (V=5, D=512, 864x1152, depth_block 8) on an
@@ -136,6 +147,11 @@ Phases, each printing a line; any failure exits non-zero:
    (True, 2, 4) and 5 x D forward and no backward gate-kernel launches
    asserted, its seconds and peak memory printed beside phase 5's, and the
    share of its depths within one bin of phase 5's map;
+5j. the production stack with the int8 omega chain: 5d's map again with
+   ``AA_RMVSNET_OMEGA_INT8=chain``, its mode, 5 x D forward and no backward
+   launches and omega's 4 int8 convolutions a call (5d: 1) asserted, its
+   seconds and peak memory beside 5d's, and its depths within one bin of
+   5d's map on no fewer pixels than 5d's are of phase 5's;
 5f. the eval fan-out (``cli eval --fanout 2``): ``run_inference`` with
    ``InferConfig()``'s defaults under ``make_mesh(data=2)``, two gloo ranks
    on ``cuda:0`` (NCCL refuses two ranks on one card), each building phase
@@ -179,6 +195,15 @@ Phases, each printing a line; any failure exits non-zero:
    names and decoded by a stand-in ``cv2`` module (``imread`` by
    ``np.load``, ``cvtColor`` a channel flip) put first on the command's
    ``PYTHONPATH``; all past the decode is the command's own;
+5k. view with spatial: ``make_mesh(view=2, spatial=2)``, four gloo ranks on
+   ``cuda:0``, phase 5's map 0 with D cut to 64 (the plane in mid-sweep),
+   exact fp32: ``forward`` on the mesh (each rank its view rank's 2 source
+   views on its 432 rows, the features gathered over the spatial group,
+   the view mean merged over the view group) and ``run_inference`` on it
+   (the view ranks as replicas), each held to this process's serial exact
+   map at 5f's bars (each view rank's map for ``forward``; how far the view
+   ranks' maps lie apart printed), 5 x D forward launches a rank a run,
+   seconds and peak memory by rank;
 6. main path, training: ``run_training`` at the ``dtu_train`` geometry
    (128x160, V=5, D=128, depth_block 16, batch 1, Adam 1e-3 on the
    cosine schedule of a 10-epoch DTU run) for 8 steps on one synthetic
@@ -223,6 +248,12 @@ Phases, each printing a line; any failure exits non-zero:
    re-issuing its collectives), against this process's step on the whole
    sample, for the core, at 6d's bars, with 2 x 5 x D forward and 5 x D
    backward launches a rank;
+6g. spatial evidential training: ``TrainConfig(evidential=True,
+   mesh=make_mesh(spatial=2))`` at 6f's geometry with maxdisp 32, each rank
+   gathering the cost volume's rows and running the head on the whole map,
+   against this process's evidential step at 6d's bars, the ranks equal
+   bit for bit after the step (the head's BatchNorm statistics averaged
+   over them), with 2 x 5 x D forward and 5 x D backward launches a rank;
 7. the fusion kernel (``ops/fusion.py:fuse_ref``) against its plain
    version, bit for bit on the card and on the CPU: one 864x1152 reference
    view of a noisy plane against 10 sources, with how many of its terms lie
@@ -253,12 +284,13 @@ Before the total, a line gives each phase's seconds.  The line before the
 last is ``{"kernels": [...]}``; each kernel's
 ``launches`` is its count on the training main path (phase 6), and
 ``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d,
-5f (``inference_fanout``), 5g (``inference_depth_pipeline``) and 5i
-(``inference_spatial``, ``inference_spatial_packed_fp32``,
-``inference_spatial_fp32``), 6, 6b, 6c (``training_bf16``,
+5j (``inference_levers_omega_chain``), 5f (``inference_fanout``), 5g
+(``inference_depth_pipeline``), 5i (``inference_spatial``,
+``inference_spatial_packed_fp32``, ``inference_spatial_fp32``) and 5k
+(``inference_view_spatial``), 6, 6b, 6c (``training_bf16``,
 ``training_fold_omega``), 6d (``training_data_parallel``), 6e
-(``training_view_parallel``) and 6f (``training_spatial``), the ranks'
-sums, 7c and 8);
+(``training_view_parallel``), 6f (``training_spatial``) and 6g
+(``training_spatial_evidential``), the ranks' sums, 7c and 8);
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are fp32 times per
 depth step, and the gate kernels' ``*_bf16`` keys the same in bf16;
 ``ms_train_shapes`` and ``library_ms_train_shapes`` are fp32 times per
@@ -277,6 +309,7 @@ TF32, which keeps about three decimal digits.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -298,8 +331,10 @@ MAIN_DEPTH_MIN, MAIN_DEPTH_INTERVAL = 425.0, 1.0
 MAIN_PLANE = dict(seed=SEED + 3, focal=2000.0, baseline=2.0, plane_depth=600.0)
 # Small whole-path check, CUDA against CPU, and packed against exact.
 SMALL_H, SMALL_W, SMALL_V, SMALL_D = 64, 80, 3, 48
-# The bf16 guardrail of the JAX package.
+# The bf16 guardrail of the JAX package; the levers' guardrail scene's
+# depth step.
 GUARD_H, GUARD_W, GUARD_V, GUARD_D = 256, 320, 3, 128
+GUARD_INTERVAL = 2.5
 # Small training check, CUDA against CPU; the evidential one's maxdisp.
 GRAD_D, GRAD_BLOCK, GRAD_MAXDISP = 16, 8, 16
 # Draws of 2^-8 weight noise that calibrate the small bf16 training check.
@@ -338,6 +373,11 @@ DIVISION_PAIRS = 1 << 24
 # The chain: run_inference, fusion and quality on a plane scene at 864x1152,
 # 4 maps, D cut from 512 to 128 at 2.5 a step, with matching_model weights.
 CHAIN_MAPS, CHAIN_D, CHAIN_DEPTH_MIN, CHAIN_INTERVAL = 4, 128, 440.0, 2.5
+# The JAX package's switch of the int8 omega chain (4i, 5j).
+OMEGA_CHAIN = "AA_RMVSNET_OMEGA_INT8"
+# View with spatial (5k): phase 5's map 0 with D cut from 512 to 64, the
+# plane (at 600) in the middle of the sweep.
+VS_D, VS_DEPTH_MIN = 64, 568.0
 # Export (phase 8) at the JAX package's export defaults: the forward at
 # (1, 3, 64, 80, 3), D=16, depth block 8, fp32, unpacked; the head at
 # (1, 32, 64, 80), maxdisp 32.
@@ -414,7 +454,7 @@ def _cell_shapes(H, W):
 
 def _slab_cell_shapes():
     """The cells of a spatial rank's slab on two ranks: half the rows of
-    phase 5's map (5i, 5h) and of phase 6's (6f)."""
+    phase 5's map (5i, 5h, 5k) and of phase 6's (6f, 6g)."""
     return _cell_shapes(MAIN_H // 2, MAIN_W) + _cell_shapes(TRAIN_H // 2, TRAIN_W)
 
 
@@ -1343,26 +1383,53 @@ def phase_levers_small() -> None:
             _fail(f"the lever {name!r} on CUDA disagrees with the CPU")
 
 
-def phase_levers_guardrail() -> None:
-    from aa_rmvsnet_tpu_torch.models import SweepConfig, forward
+def _guardrail_setup() -> dict:
+    """The scene, weights and base of the lever guardrails (4g, 4i): phase
+    4d's scene with ``matching_model(sharpness=1000)`` weights, the bf16
+    packed path without levers as the base, its confident pixels, and the
+    production stack's sweep settings in the mode the gate picks."""
+    from aa_rmvsnet_tpu_torch.models import forward
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, resolve_packed_mode, sweep_config
     from aa_rmvsnet_tpu_torch.utils.synthetic import matching_model, plane_scene
 
-    f8, i8 = torch.float8_e4m3fn, torch.int8
-    depth_interval = 2.5
     sample = plane_scene(GUARD_H, GUARD_W, GUARD_V, GUARD_D, maps=2, seed=SEED + 7,
                          focal=600.0, baseline=16.0, plane_depth=480.0, depth_min=425.0,
-                         depth_interval=depth_interval)[1]
+                         depth_interval=GUARD_INTERVAL)[1]
     base_config = InferConfig(out_root="")
     if resolve_packed_mode(sample, base_config) != (True, 1, 4):
         _fail("the packed gate did not pick (True, 1, 4) for the lever guardrail scene")
-    stack = InferConfig(out_root="", table_dtype=i8, residual_dtype="dual", gather_pack=2,
-                        table_taps=6)
+    stack = InferConfig(out_root="", table_dtype=torch.int8, residual_dtype="dual",
+                        gather_pack=2, table_taps=6)
     stack_mode = resolve_packed_mode(sample, stack)
     model = matching_model(SEED, sharpness=1000.0).cuda()
     args = [torch.from_numpy(sample[k])[None].cuda()
             for k in ("imgs", "proj_matrices", "depth_values")]
     base_sweep = sweep_config(base_config, (True, 1, 4))
+    with torch.inference_mode():
+        base = forward(model, *args, base_sweep)
+    confident = (base["photometric_confidence"] > 0.3).cpu().numpy()
+    if confident.mean() <= 0.5:
+        _fail(f"only {confident.mean():.2%} of the guardrail's pixels are confident")
+    return dict(model=model, args=args, base_sweep=base_sweep, base=base, confident=confident,
+                stack=sweep_config(stack, stack_mode), stack_mode=stack_mode)
+
+
+def _guardrail_shares(setup: dict, config) -> tuple[float, float]:
+    """The shares of all and of the confident pixels whose depth lies
+    within one bin of the guardrail's base under the sweep ``config``."""
+    from aa_rmvsnet_tpu_torch.models import forward
+
+    with torch.inference_mode():
+        out = forward(setup["model"], *setup["args"], config)
+    within = ((out["depth"] - setup["base"]["depth"]).abs()
+              <= GUARD_INTERVAL + 1e-6).cpu().numpy()
+    return within.mean(), within[setup["confident"]].mean()
+
+
+def phase_levers_guardrail() -> None:
+    f8, i8 = torch.float8_e4m3fn, torch.int8
+    setup = _guardrail_setup()
+    base_sweep, confident = setup["base_sweep"], setup["confident"]
     levers = {  # name: (sweep config, confident-pixel bar or None)
         "fp8 tables": (replace(base_sweep, table_dtype=f8), None),
         "int8 tables": (replace(base_sweep, table_dtype=i8), None),
@@ -1370,33 +1437,146 @@ def phase_levers_guardrail() -> None:
         "fp8 residual": (replace(base_sweep, table_dtype=i8, residual_dtype=f8), 0.99),
         "int8 residual": (replace(base_sweep, table_dtype=i8, residual_dtype=i8), None),
         "dual residual": (replace(base_sweep, table_dtype=i8, residual_dtype="dual"), 0.99),
-        f"production stack {stack_mode}": (sweep_config(stack, stack_mode), 0.99),
+        f"production stack {setup['stack_mode']}": (setup["stack"], 0.99),
     }
-    with torch.inference_mode():
-        base = forward(model, *args, base_sweep)
-        confident = (base["photometric_confidence"] > 0.3).cpu().numpy()
-        if confident.mean() <= 0.5:
-            _fail(f"only {confident.mean():.2%} of the guardrail's pixels are confident")
-        shares = {}
-        for name, (config, conf_bar) in levers.items():
-            out = forward(model, *args, config)
-            within = ((out["depth"] - base["depth"]).abs()
-                      <= depth_interval + 1e-6).cpu().numpy()
-            shares[name] = (within.mean(), within[confident].mean())
-            if name == "int8 residual":
-                ok, bars = True, "no bar: the JAX package's int8 residual misses it too"
-            else:
-                ok = within.mean() >= 0.90 and (conf_bar is None
-                                                or within[confident].mean() >= conf_bar)
-                bars = "bars 90%" + ("" if conf_bar is None else f", {conf_bar:.0%} confident")
-            print(f"levers guardrail at {GUARD_H}x{GUARD_W}, V={GUARD_V}, D={GUARD_D}, bf16, "
-                  f"{name} vs the bf16 packed path: {shares[name][0]:.4%} of pixels within one "
-                  f"bin, {shares[name][1]:.4%} of the {confident.mean():.2%} confident ones "
-                  f"({bars}) {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                _fail(f"the {name} lever fails the JAX package's guardrail")
+    shares = {}
+    for name, (config, conf_bar) in levers.items():
+        shares[name] = _guardrail_shares(setup, config)
+        if name == "int8 residual":
+            ok, bars = True, "no bar: the JAX package's int8 residual misses it too"
+        else:
+            ok = shares[name][0] >= 0.90 and (conf_bar is None or shares[name][1] >= conf_bar)
+            bars = "bars 90%" + ("" if conf_bar is None else f", {conf_bar:.0%} confident")
+        print(f"levers guardrail at {GUARD_H}x{GUARD_W}, V={GUARD_V}, D={GUARD_D}, bf16, "
+              f"{name} vs the bf16 packed path: {shares[name][0]:.4%} of pixels within one "
+              f"bin, {shares[name][1]:.4%} of the {confident.mean():.2%} confident ones "
+              f"({bars}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            _fail(f"the {name} lever fails the JAX package's guardrail")
     if shares["dual residual"][1] <= shares["int8 residual"][1]:
         _fail("the dual residual does not beat the int8 residual on confident pixels")
+
+
+@contextlib.contextmanager
+def _omega_chain_on():
+    """The JAX package's switch of the int8 omega chain, set for the block."""
+    os.environ[OMEGA_CHAIN] = "chain"
+    try:
+        yield
+    finally:
+        del os.environ[OMEGA_CHAIN]
+
+
+@contextlib.contextmanager
+def _int8_convs(record: bool = False):
+    """Count omega's int8 convolutions (``models/aggregation.py:int8_conv``)
+    in the block; with ``record`` keep each one's ``(x, kernel, padding,
+    groups, out)``."""
+    from aa_rmvsnet_tpu_torch.models import aggregation
+
+    calls = []
+    conv = aggregation.int8_conv
+
+    def spy(x, weight, padding, groups):
+        out = conv(x, weight, padding, groups)
+        calls.append((x, weight, padding, groups, out) if record else None)
+        return out
+
+    aggregation.int8_conv = spy
+    try:
+        yield calls
+    finally:
+        aggregation.int8_conv = conv
+
+
+def phase_omega_chain() -> None:
+    """4i: the int8 omega chain (``AA_RMVSNET_OMEGA_INT8=chain``) on the
+    card against the CPU at 64x80, G=8 folded volumes (one view's block of
+    8 hypotheses), on seeded bf16 omega weights whose GroupNorm affines are
+    drawn too (they set the chain's static bounds), and a quantized squared
+    residual as the JAX package's chain test builds it.  On each device
+    each of the four int8 stages (rw0, stem0, stem1, rw2) equals the
+    integer-exact convolution of its own int8 inputs (float64) rounded once
+    to bf16, bit for bit; the card's stage inputs equal the CPU's on >=
+    99.9 % of activations, none off by more than 1 (a GroupNorm statistic
+    summed in another order moves an activation across a rounding
+    boundary); the weights within 2^-6 of the CPU's (the CPU tests' bar
+    against JAX where activations differ); the chain against the base int8
+    path within the JAX package's bars (mean < 0.03, max < 0.25); then on
+    4g's scene the dual residual (int8 tables) and the production stack
+    with the chain on, each >= 90 % of pixels and >= 99 % of the confident
+    ones within one bin of the bf16 packed path (the JAX package's claim
+    for the chain, ``tests/test_models.py:609-612``)."""
+    from aa_rmvsnet_tpu_torch.models.aggregation import omega_folded
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    groups = 8
+    gen = torch.Generator().manual_seed(SEED + 21)
+    omega = seeded_model(SEED).omega.to(torch.bfloat16)
+    rw0, rw1 = omega.reweight_network[:2]
+    with torch.no_grad():
+        for gn in (rw0[1], rw1.stem[0][1], rw1.stem[2]):
+            gn.weight.copy_(1.0 + 0.5 * torch.randn(gn.weight.shape, generator=gen))
+            gn.bias.copy_(0.3 * torch.randn(gn.bias.shape, generator=gen))
+    raw = torch.randn(2, SMALL_H, SMALL_W, groups * 32, generator=gen) ** 2
+    scale = torch.randn(32, generator=gen).abs() * 0.1 + 0.05
+    x = torch.clamp(torch.round(raw / scale.repeat(groups)), 0, 127).to(torch.int8)
+    runs = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            omega.to(dev)
+            with _omega_chain_on(), _int8_convs(record=True) as calls:
+                weights = omega_folded(omega, x.to(dev), groups, scale.to(dev))
+            runs[dev] = (weights.float().cpu(), calls)
+        base = omega_folded(omega, x.cuda(), groups, scale.cuda()).float().cpu()
+        largest = 0
+        for dev, (_, calls) in runs.items():
+            if len(calls) != 4:
+                _fail(f"the chain ran {len(calls)} int8 convolutions on {dev}, not 4")
+            for i, (xi, kernel, padding, g, out) in enumerate(calls):
+                exact = torch.nn.functional.conv2d(xi.double(), kernel.double(),
+                                                   padding=padding, groups=g)
+                largest = max(largest, int(exact.abs().max().item()))
+                if not torch.equal(out, exact.float().to(torch.bfloat16)):
+                    _fail(f"chain stage {i} on {dev} is not the exact integer sum rounded once")
+        shares = []
+        for i, (c, g) in enumerate(zip(runs["cpu"][1], runs["cuda"][1])):
+            diff = (g[0].cpu().int() - c[0].int()).abs()
+            shares.append((diff == 0).float().mean().item())
+            if diff.max().item() > 1 or shares[-1] < 0.999:
+                _fail(f"chain stage {i}: the card's int8 inputs equal the CPU's on "
+                      f"{shares[-1]:.4%}, off by up to {diff.max().item()}")
+    w_cpu, w_gpu = runs["cpu"][0], runs["cuda"][0]
+    err = (w_gpu - w_cpu).abs().max().item()
+    same = (w_gpu == w_cpu).float().mean().item()
+    moved = (w_gpu - base).abs()
+    ok = err <= 2.0 ** -6 and moved.mean().item() < 0.03 and moved.max().item() < 0.25
+    print(f"omega chain: CUDA vs CPU at {SMALL_H}x{SMALL_W}, G={groups}, bf16 weights: the "
+          f"4 int8 stages equal integer-exact references rounded once on both devices (sums "
+          f"up to {largest:,}); the card's stage inputs equal the CPU's on "
+          f"[{', '.join(f'{x:.4%}' for x in shares)}] (bar 99.9%, off by at most 1); weights "
+          f"max_abs_err {err:.3e} (bar 2^-6), bit for bit on {same:.4%}; chain vs base on the "
+          f"card mean {moved.mean().item():.4f}, max {moved.max().item():.4f} (JAX's bars "
+          f"0.03, 0.25) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail("the int8 omega chain on the card disagrees with the CPU or the base path")
+
+    setup = _guardrail_setup()
+    with _omega_chain_on(), _int8_convs() as calls:
+        levers = {"dual residual": replace(setup["base_sweep"], table_dtype=torch.int8,
+                                           residual_dtype="dual"),
+                  f"production stack {setup['stack_mode']}": setup["stack"]}
+        for name, config in levers.items():
+            calls.clear()
+            within, conf_within = _guardrail_shares(setup, config)
+            ok = within >= 0.90 and conf_within >= 0.99 and calls
+            print(f"omega chain guardrail at {GUARD_H}x{GUARD_W}, V={GUARD_V}, D={GUARD_D}, "
+                  f"bf16, {name} with the chain ({len(calls)} int8 convolutions) vs the bf16 "
+                  f"packed path: {within:.4%} of pixels within one bin, {conf_within:.4%} of "
+                  f"the {setup['confident'].mean():.2%} confident ones (bars 90%, 99% "
+                  f"confident) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                _fail(f"the {name} with the int8 omega chain fails the guardrail")
 
 
 def _check_maps(out_root: str, maps: int, depth_min: float, depth_max: float) -> np.ndarray:
@@ -1652,13 +1832,19 @@ def phase_evidential(samples) -> tuple[int, int]:
     return launches, backward
 
 
-def phase_main_levers(samples, packed_depth0: np.ndarray, phase5: dict) -> int:
+def _production_stack_map(samples, label: str) -> dict:
+    """One map of the phase-5 scene through ``run_inference`` with the JAX
+    package's production stack of levers (``cli eval --int8_tables
+    --dual_residual --gather_pack 2 --table_taps 6``): its mode (True, 2,
+    4), 5 x D forward and no backward gate launches asserted, its PFMs
+    checked as phase 5's.  Returns its seconds, peak memory, launches, map
+    0's depth and the int8 convolutions omega ran."""
     from aa_rmvsnet_tpu_torch.ops import gates
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
     from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
 
     model = seeded_model(SEED)
-    with tempfile.TemporaryDirectory() as out_root:
+    with tempfile.TemporaryDirectory() as out_root, _int8_convs() as convs:
         torch.cuda.reset_peak_memory_stats()
         gates.launches = gates.backward_launches = 0
         stats = run_inference(model, samples[:1], InferConfig(
@@ -1669,21 +1855,56 @@ def phase_main_levers(samples, packed_depth0: np.ndarray, phase5: dict) -> int:
         peak = torch.cuda.max_memory_allocated()
         if stats["count"] != 1 or launches != 5 * MAIN_D or backward != 0 \
                 or stats["modes"] != [(True, 2, 4)]:
-            _fail(f"the production stack wrote {stats['count']} maps in modes "
+            _fail(f"{label} wrote {stats['count']} maps in modes "
                   f"{stats['modes']} with {launches} gate kernel and {backward} backward "
                   f"launches; expected 1, (True, 2, 4), {5 * MAIN_D} and 0")
         depth0 = _check_maps(out_root, 1, MAIN_DEPTH_MIN,
                              MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
-    within = np.mean(np.abs(depth0 - packed_depth0) <= MAIN_DEPTH_INTERVAL + 1e-6)
+    return {"seconds": stats["map_seconds"][0], "peak": peak, "launches": launches,
+            "depth": depth0, "int8_convs": len(convs)}
+
+
+def phase_main_levers(samples, packed_depth0: np.ndarray, phase5: dict) -> dict:
+    """5d: the production stack's map; returns :func:`_production_stack_map`'s
+    result with its depths' share within one bin of phase 5's map 0."""
+    run = _production_stack_map(samples, "the production stack")
+    run["within_phase5"] = np.mean(np.abs(run["depth"] - packed_depth0)
+                                   <= MAIN_DEPTH_INTERVAL + 1e-6)
     print(f"main-levers: run_inference, the production stack (bf16, int8 tables, dual "
           f"residual, gather_pack 2, table_taps 6, fused residual) at {MAIN_H}x{MAIN_W}, "
-          f"V={MAIN_V}, D={MAIN_D}: packed mode {stats['modes'][0]}, 1 map in "
-          f"{stats['map_seconds'][0]:.3f} s (phase 5: "
+          f"V={MAIN_V}, D={MAIN_D}: packed mode (True, 2, 4), 1 map in "
+          f"{run['seconds']:.3f} s (phase 5: "
           f"[{', '.join(f'{x:.3f}' for x in phase5['map_seconds'])}] s), peak memory "
-          f"{peak / 2**30:.2f} GiB (phase 5: {phase5['peak'] / 2**30:.2f} GiB), gate kernel "
-          f"launches {launches} (= 5 x {MAIN_D}), backward 0; its depths within one bin of "
-          f"phase 5's map 0 on {within:.4%} of pixels", flush=True)
-    return launches
+          f"{run['peak'] / 2**30:.2f} GiB (phase 5: {phase5['peak'] / 2**30:.2f} GiB), gate "
+          f"kernel launches {run['launches']} (= 5 x {MAIN_D}), backward 0; its depths within "
+          f"one bin of phase 5's map 0 on {run['within_phase5']:.4%} of pixels", flush=True)
+    return run
+
+
+def phase_main_levers_chain(samples, phase5d: dict) -> int:
+    """5j: 5d's map with the int8 omega chain on (``AA_RMVSNET_OMEGA_INT8=
+    chain``): omega's 4 int8 convolutions for each of its 256 calls (4
+    source views x 64 blocks of 8) where 5d ran 1, its seconds and peak
+    memory beside 5d's, and its depths within one bin of 5d's map on no
+    fewer pixels than 5d's are of phase 5's (the chain moves the map no
+    more than the stack's own levers do).  Returns its gate launches."""
+    with _omega_chain_on():
+        run = _production_stack_map(samples, "the production stack with the chain")
+    calls = (MAIN_V - 1) * (MAIN_D // MAIN_BLOCK)
+    within = np.mean(np.abs(run["depth"] - phase5d["depth"]) <= MAIN_DEPTH_INTERVAL + 1e-6)
+    ok = (run["int8_convs"] == 4 * calls and phase5d["int8_convs"] == calls
+          and within >= phase5d["within_phase5"])
+    print(f"main-levers-chain: run_inference, the production stack with the int8 omega chain "
+          f"at {MAIN_H}x{MAIN_W}, V={MAIN_V}, D={MAIN_D}: packed mode (True, 2, 4), omega's "
+          f"int8 convolutions {run['int8_convs']} (5d: {phase5d['int8_convs']}), 1 map in "
+          f"{run['seconds']:.3f} s (5d: {phase5d['seconds']:.3f} s), peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB (5d: {phase5d['peak'] / 2**30:.2f} GiB), gate kernel "
+          f"launches {run['launches']} (= 5 x {MAIN_D}), backward 0; its depths within one bin "
+          f"of 5d's map on {within:.4%} of pixels (bar: 5d's share against phase 5's, "
+          f"{phase5d['within_phase5']:.4%}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail("the production stack with the int8 omega chain")
+    return run["launches"]
 
 
 def _dtu_train_sample():
@@ -1902,15 +2123,17 @@ def phase_train_bf16(phase6: dict) -> dict:
     return {"training_bf16": launched[:2], "training_fold_omega": fold_launched[:2]}
 
 
-# One rank of phases 6d and 6e: for each case (the core, then the core with
+# One rank of phases 6d-6g: for each case (the core, then the core with
 # the head), a train_step of the seeded weights on its rows of the batch,
-# under a gloo mesh on cuda:0 with a data axis of 2 (6d) or a view axis of 2
-# (6e) (mode "rank"), or a world-size-1 NCCL group's step of the core
-# against the step without a mesh (mode "nccl"), with the step's calls of
+# under a gloo mesh on cuda:0 with a data axis of 2 (6d), a view axis of 2
+# (6e) or a spatial axis of 2 (6f, 6g; the head's labels stay whole) (mode
+# "rank"), or a world-size-1 NCCL group's step of the core against the
+# step without a mesh (mode "nccl"), with the step's calls of
 # torch.distributed.all_reduce counted; the results go to a torch.save
 # file.  A warm-up step on a copy of the weights comes first, so
-# that the compared step does not pay the first calls; two more steps after
-# it are timed.
+# that the compared step does not pay the first calls; "timed" more steps
+# after it (two by default; none for 6g, whose steps take ~12 s) are
+# timed.
 DP_WORKER = """
 import json, sys, time
 import numpy as np, torch
@@ -1932,8 +2155,7 @@ mesh = make_mesh(view=a["view"], spatial=a["spatial"], device="cuda")
 weights = torch.load(a["weights"], weights_only=True)
 data = np.load(a["batch"])
 rows = slice(*a["rows"])
-batch = batch_rows({k: torch.from_numpy(np.ascontiguousarray(data[k][rows])).cuda()
-                    for k in data.files}, mesh)
+whole = {k: torch.from_numpy(np.ascontiguousarray(data[k][rows])).cuda() for k in data.files}
 all_reduces = [0]
 all_reduce = torch.distributed.all_reduce
 
@@ -1959,6 +2181,7 @@ def step(with_mesh, evidential, timed_after=0):
                          maxdisp=a["maxdisp"], mesh=mesh if with_mesh else None)
     optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config,
                                           a["total_steps"])
+    batch = batch_rows(whole, config.mesh, evidential)
     gates.launches = gates.backward_launches = all_reduces[0] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1987,7 +2210,7 @@ def step(with_mesh, evidential, timed_after=0):
 out = {}
 for evidential in a["cases"]:
     step(a["mode"] == "rank", evidential)  # warm-up
-    out[evidential] = step(True, evidential, timed_after=2)
+    out[evidential] = step(True, evidential, timed_after=a.get("timed", 2))
 if a["mode"] == "nccl":
     out = {"mesh": out[False], "plain": step(False, False),
            "backend": torch.distributed.get_backend()}
@@ -2645,6 +2868,200 @@ def phase_spatial_training(phase6: dict) -> tuple[int, int]:
     return tuple(launched)
 
 
+def phase_spatial_evidential_training(phase6: dict) -> tuple[int, int]:
+    """6g: ``TrainConfig(evidential=True, mesh=make_mesh(spatial=2))`` at
+    ``dtu_train`` with maxdisp 32: two gloo ranks on cuda:0, each sweeping
+    its 64 rows of the sample, gathering the cost volume's rows and running
+    the head on the whole map (its BatchNorm statistics averaged over the
+    ranks after the step), against this process's evidential step on the
+    sample, at phase 6d's bars; the ranks equal bit for bit after the step.
+    Returns the ranks' gate launches."""
+    from aa_rmvsnet_tpu_torch.models import EvidentialHead
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    keys = ("imgs", "proj_matrices", "depth_values", "depth", "mask")
+    sample = _dtu_train_sample()
+    batch = {k: np.stack([sample[k]]) for k in keys}
+    weights = {"core": seeded_model(SEED).state_dict(),
+               "head": EvidentialHead(TRAIN_MAXDISP,
+                                      generator=torch.Generator().manual_seed(1)).state_dict()}
+    launched = [0, 0]
+    with tempfile.TemporaryDirectory() as workdir:
+        np.savez(os.path.join(workdir, "batch.npz"), **batch)
+        torch.save(weights, os.path.join(workdir, "weights.pt"))
+        common = dict(weights=os.path.join(workdir, "weights.pt"),
+                      batch=os.path.join(workdir, "batch.npz"), block=TRAIN_BLOCK,
+                      maxdisp=TRAIN_MAXDISP, total_steps=DTU_TRAIN_TOTAL_STEPS)
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _run_workers([dict(common, mode="rank", rank=r, port=port, view=1, spatial=2,
+                                   rows=[0, 1], cases=[True], timed=0) for r in range(2)],
+                             workdir)
+        wall = time.perf_counter() - t0
+        _hold_ranks_to_single("spatial evidential", [r[True] for r in ranks], weights, batch,
+                              True, wall, phase6, launched,
+                              f"two gloo ranks on cuda:0 with a spatial axis of 2 (rows 0-"
+                              f"{TRAIN_H // 2 - 1} and {TRAIN_H // 2}-{TRAIN_H - 1}, the head "
+                              "on the gathered volume) against one process on the sample")
+    return tuple(launched)
+
+
+def _view_spatial_scene() -> dict:
+    """Phase 5's map 0 with D cut to 64 (the plane in mid-sweep)."""
+    from aa_rmvsnet_tpu_torch.utils.synthetic import plane_scene
+
+    return plane_scene(MAIN_H, MAIN_W, MAIN_V, VS_D, maps=MAIN_MAPS, **MAIN_PLANE,
+                       depth_min=VS_DEPTH_MIN, depth_interval=MAIN_DEPTH_INTERVAL)[0]
+
+
+# One rank of phase 5k: under make_mesh(view=2, spatial=2), four gloo ranks
+# on cuda:0, the exact fp32 forward of _view_spatial_scene's map on the
+# rank's rows (the view rank's 2 source views), then run_inference on it
+# with 5b's exact settings (the view ranks as replicas); per path the
+# outputs, the gate launches, the seconds and the peak memory go to a
+# torch.save file.
+VIEW_SPATIAL_WORKER = """
+import json, sys, time, warnings
+import torch
+import chip_smoke
+from aa_rmvsnet_tpu_torch.models import SweepConfig, forward
+from aa_rmvsnet_tpu_torch.ops import gates
+from aa_rmvsnet_tpu_torch.parallel import initialize_distributed, make_mesh, spatial_rows
+from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
+from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
+from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+a = json.loads(sys.argv[1])
+disable_tf32()
+initialize_distributed(f"localhost:{a['port']}", 4, a["rank"], backend="gloo")
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    mesh = make_mesh(view=2, spatial=2, device="cuda")
+torch.cuda.set_device(mesh.device)
+sample = chip_smoke._view_spatial_scene()
+model = seeded_model(chip_smoke.SEED).cuda()
+row0, rows = spatial_rows(mesh, chip_smoke.MAIN_H)
+out = {"coords": (mesh.coord("view"), mesh.coord("spatial")),
+       "warned": any("view > 1 combined with spatial > 1" in str(w.message) for w in caught)}
+
+
+def measured(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gates.launches = gates.backward_launches = 0
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return {"result": result, "seconds": time.perf_counter() - t0,
+            "launches": (gates.launches, gates.backward_launches),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def sweep():
+    inputs = [torch.from_numpy(sample["imgs"][None, :, row0:row0 + rows]).cuda(),
+              torch.from_numpy(sample["proj_matrices"][None]).cuda(),
+              torch.from_numpy(sample["depth_values"][None]).cuda()]
+    with torch.inference_mode():
+        res = forward(model, *inputs, SweepConfig(depth_block=chip_smoke.MAIN_BLOCK,
+                                                  collect_volume=False, mesh=mesh))
+    return res["depth"][0].cpu(), res["photometric_confidence"][0].cpu()
+
+
+out["forward"] = measured(sweep)
+torch.cuda.empty_cache()
+out["infer"] = measured(lambda: run_inference(model, [sample], InferConfig(
+    out_root=a["out_root"], feature_dtype=torch.float32, packed_rows=False,
+    fused_residual=False, num_workers=0, mesh=mesh), progress=False))
+torch.save(out, a["out"])
+torch.distributed.destroy_process_group()
+"""
+
+
+def phase_view_spatial() -> int:
+    """5k: ``make_mesh(view=2, spatial=2)``, four gloo ranks sharing cuda:0,
+    on phase 5's map 0 with D cut to 64, exact fp32: ``forward`` on the
+    mesh (each rank sweeps its view rank's 2 source views on its 432 rows,
+    the source features gathered over the spatial group and the partial
+    view mean merged over the view group once per depth block), then
+    ``run_inference`` on it with 5b's exact settings (the view ranks as
+    replicas, spatial rank 0 of view rank 0 writing).  Both held to this
+    process's serial exact map at 5i's fp32 bars (5f's: depth equal on >=
+    99.9 % of pixels, confidence atol 1e-4), each view rank's map for
+    ``forward``; 5 x D forward gate launches a rank a run.  Returns the
+    ranks' gate launches."""
+    from aa_rmvsnet_tpu_torch.models import SweepConfig, forward
+    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+
+    sample = _view_spatial_scene()
+    model = seeded_model(SEED).cuda()
+    inputs = [torch.from_numpy(sample[k])[None].cuda()
+              for k in ("imgs", "proj_matrices", "depth_values")]
+    gates.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        serial = forward(model, *inputs, SweepConfig(depth_block=MAIN_BLOCK,
+                                                     collect_volume=False))
+    torch.cuda.synchronize()
+    serial_seconds = time.perf_counter() - t0
+    if gates.launches != 5 * VS_D:
+        _fail(f"view-spatial: the serial map launched the gate kernel {gates.launches} times")
+    want = {"maps": [(serial["depth"][0].cpu().numpy(),
+                      serial["photometric_confidence"][0].cpu().numpy())]}
+    del model, inputs, serial
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        out_root = os.path.join(workdir, "maps")
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _run_workers([dict(rank=r, port=port, out_root=out_root) for r in range(4)],
+                             workdir, worker=VIEW_SPATIAL_WORKER)
+        wall = time.perf_counter() - t0
+        if [r["coords"] for r in ranks] != [(0, 0), (0, 1), (1, 0), (1, 1)] \
+                or not all(r["warned"] for r in ranks):
+            _fail("view-spatial: the ranks' coordinates or make_mesh's warning")
+        # Each view rank's map (its two slabs), held to the serial one: the
+        # view ranks regularize the same merged costs, but the card's
+        # convolutions need not be bit for bit from one process to another.
+        serial_text = ("phase 5's maps", f"the serial exact D={VS_D} map")
+        views, held_forward = [], []
+        for v in range(2):
+            views.append(tuple(torch.cat([ranks[2 * v + s]["forward"]["result"][i]
+                                          for s in range(2)]).numpy() for i in range(2)))
+            held_forward.append(_held_to_phase5(f"view-spatial forward, view rank {v}",
+                                                [views[v]], want).replace(*serial_text))
+        replicas = (float(np.mean(views[0][0] == views[1][0])),
+                    float(np.abs(views[0][1] - views[1][1]).max()))
+        _check_maps(out_root, 1, VS_DEPTH_MIN, VS_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (VS_D - 1))
+        held_infer = _held_to_phase5("view-spatial run_inference", [_read_maps(out_root, 0)],
+                                     want).replace(*serial_text)
+    stats = ranks[0]["infer"]["result"]
+    modes = [m for per_rank in stats["modes"] for m in per_rank]
+    if stats["count"] != 1 or modes != [(False, 1, 4)] * 4:
+        _fail(f"view-spatial: run_inference wrote {stats['count']} maps in modes {modes}")
+    launches = 0
+    for r in ranks:
+        for path in ("forward", "infer"):
+            if r[path]["launches"] != (5 * VS_D, 0):
+                _fail(f"view-spatial: a rank's {path} launched the gate kernels "
+                      f"{r[path]['launches']} times; expected ({5 * VS_D}, 0)")
+            launches += r[path]["launches"][0]
+    print(f"view-spatial: make_mesh(view=2, spatial=2), four gloo ranks on cuda:0 at "
+          f"{MAIN_H}x{MAIN_W} ({MAIN_H // 2} rows and 2 of the {MAIN_V - 1} source views a "
+          f"rank), D={VS_D}, exact fp32: forward, view rank 0 {held_forward[0]}, view rank 1 "
+          f"{held_forward[1]}; the view ranks' depth equal on {replicas[0]:.4%}, confidence "
+          f"{replicas[1]:.2e} apart; seconds by rank "
+          f"[{', '.join(f'{r['forward']['seconds']:.3f}' for r in ranks)}] (four processes "
+          f"sharing the card; serial {serial_seconds:.3f}); run_inference (view ranks as "
+          f"replicas) {held_infer}, seconds by rank "
+          f"[{', '.join(f'{r['infer']['seconds']:.3f}' for r in ranks)}]; peak memory by "
+          f"rank [{', '.join(f'{r['forward']['peak'] / 2**30:.2f}' for r in ranks)}] GiB; "
+          f"gate kernel launches {launches} (5 x {VS_D} a rank a run); {wall:.1f} s from "
+          "spawn to exit ok", flush=True)
+    return launches
+
+
 def phase_feat_chunk(samples, phase5: dict) -> None:
     """5e: FeatNet with all views in one batch (chunk 0, the default)
     against one view at a time (chunk 1), and the automatic depth block's
@@ -3078,15 +3495,18 @@ def main() -> int:
     run("4d", phase_bf16_guardrail)
     run("4f", phase_levers_small)
     run("4g", phase_levers_guardrail)
+    run("4i", phase_omega_chain)
     samples = run("scene", _main_scene)
     bf16_launches, packed_depth0, phase5 = run("5", phase_main, samples)
     run("5e", phase_feat_chunk, samples, phase5)
     fp32_launches, fp32_packed_launches = run("5b", phase_main_exact, samples, phase5)
     evidential_launches, evidential_backward = run("5c", phase_evidential, samples)
-    levers_launches = run("5d", phase_main_levers, samples, packed_depth0, phase5)
+    levers5d = run("5d", phase_main_levers, samples, packed_depth0, phase5)
+    omega_chain_launches = run("5j", phase_main_levers_chain, samples, levers5d)
     (fanout_launches, pipeline_launches, spatial_launches, spatial_packed_fp32_launches,
      spatial_fp32_launches) = run("5f+5g+5i", phase_inference_ranks, phase5)
     run("5h", phase_cli_ranks, phase5)
+    view_spatial_launches = run("5k", phase_view_spatial)
     phase6 = run("6", phase_train)
     forward["launches"], backward["launches"] = phase6["launches"], phase6["backward"]
     train_ev_launches, train_ev_backward = run("6b", phase_train_evidential)
@@ -3094,6 +3514,7 @@ def main() -> int:
     levers["training_data_parallel"] = run("6d", phase_data_parallel, phase6)
     levers["training_view_parallel"] = run("6e", phase_view_parallel, phase6)
     levers["training_spatial"] = run("6f", phase_spatial_training, phase6)
+    levers["training_spatial_evidential"] = run("6g", phase_spatial_evidential_training, phase6)
     fusion = run("7", phase_fusion_kernel)
     fusion["launches"] = run("7b", phase_fusion_scan)
     chain_launches, chain_fused = run("7c", phase_chain)
@@ -3103,13 +3524,15 @@ def main() -> int:
                                    "inference_fp32": fp32_launches,
                                    "inference_fp32_packed": fp32_packed_launches,
                                    "inference_evidential": evidential_launches,
-                                   "inference_levers": levers_launches,
+                                   "inference_levers": levers5d["launches"],
+                                   "inference_levers_omega_chain": omega_chain_launches,
                                    "inference_fanout": fanout_launches,
                                    "inference_depth_pipeline": pipeline_launches,
                                    "inference_spatial": spatial_launches,
                                    "inference_spatial_packed_fp32":
                                        spatial_packed_fp32_launches,
                                    "inference_spatial_fp32": spatial_fp32_launches,
+                                   "inference_view_spatial": view_spatial_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches,
                                    **{k: v[0] for k, v in levers.items()},
@@ -3117,10 +3540,12 @@ def main() -> int:
                                    "export": export_launches}
     backward["launches_by_path"] = {"inference_bf16_packed": 0, "inference_fp32": 0,
                                     "inference_evidential": evidential_backward,
-                                    "inference_levers": 0, "inference_fanout": 0,
+                                    "inference_levers": 0,
+                                    "inference_levers_omega_chain": 0, "inference_fanout": 0,
                                     "inference_depth_pipeline": 0, "inference_spatial": 0,
                                     "inference_spatial_packed_fp32": 0,
                                     "inference_spatial_fp32": 0,
+                                    "inference_view_spatial": 0,
                                     "inference_fp32_packed": 0,
                                     "training": backward["launches"],
                                     "training_evidential": train_ev_backward,

@@ -316,8 +316,6 @@ def test_spatial_refusals(tmp_path):
                                          r"divisible by the data mesh axis \(2 = 5 devices "
                                          r"/ spatial 2\)"):
         cli.main([*train, "--num_processes", "5", "--spatial", "2", "--batch_size", "1"])
-    with pytest.raises(SystemExit, match="--evidential with --spatial: not ported yet"):
-        cli.main([*train, "--num_processes", "2", "--spatial", "2", "--evidential"])
     mesh = _fake_mesh((1, 1, 2, 1))
     assert spatial_rows(mesh, 40) == (0, 20)
     for height in (30, 36):  # slabs of 15 and 18 rows
@@ -325,12 +323,5 @@ def test_spatial_refusals(tmp_path):
                                              "a spatial axis of 2 into slabs of a multiple "
                                              "of 4 rows"):
             spatial_rows(mesh, height)
-    with pytest.raises(NotImplementedError, match="evidential training on a spatial mesh: "
-                                                  "not ported yet"):
-        TrainConfig(evidential=True, mesh=mesh)
     with pytest.raises(ValueError, match="training with view > 1 AND spatial > 1"):
         TrainConfig(mesh=_fake_mesh((1, 2, 2, 1)))
-    with pytest.raises(NotImplementedError, match="a mesh with view and spatial axes both "
-                                                  "above 1: not ported yet"):
-        run_inference(AARMVSNetCore(), [], InferConfig(out_root=str(tmp_path),
-                                                        mesh=_fake_mesh((1, 2, 2, 1))))
