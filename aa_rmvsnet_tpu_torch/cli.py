@@ -41,10 +41,12 @@ gloo with ``--device cpu``), ``--batch_size`` per process, as the JAX CLI
 does, and ``--single_device`` makes each process step alone on its shard;
 ``--spatial S`` splits each batch's rows over S of the N processes (the
 data axis is N / S, the global batch still ``--batch_size`` x N; with
-``--evidential`` the head runs on the cost volume gathered whole on each
-of the S ranks).
+``--evidential`` each of the S ranks runs the head on its rows of the cost
+volume, so the map's height over S must be a multiple of 4).
 ``eval --fanout N`` (the samples spread over N ranks), ``eval --spatial S``
-(each map's rows split over S ranks, with ``--fanout`` too) and ``eval
+(each map's rows split over S ranks, with ``--fanout`` too; with
+``--evidential_ckpt`` each rank runs the head on its rows and only its
+four maps are gathered) and ``eval
 --depth_stages P [--pipeline_maps M]`` (the depth-block pipeline over P
 ranks) start their ranks themselves, on a free port of localhost: rank
 ``k`` on ``cuda:{k % device_count}``, NCCL where every rank has a card of

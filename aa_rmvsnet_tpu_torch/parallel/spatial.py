@@ -18,9 +18,12 @@ tensors (rows on dim -2), and each is differentiable, so that ``cli train
   gradient (inference's outputs);
 - :func:`group_norm_rows`: GroupNorm whose statistics cover every rank's
   rows;
-- :func:`conv2d_rows`, :func:`conv_transpose_rows`: a convolution of a
-  slab with the halo its kernel reads, so that each output row is the
-  unsharded convolution's;
+- :func:`conv2d_rows`, :func:`conv_transpose_rows`, and for NCDHW (rows on
+  H, dim -2) :func:`conv3d_rows`, :func:`conv_transpose3d_rows`: a
+  convolution of a slab with the halo its kernel reads, so that each
+  output row is the unsharded convolution's;
+- :func:`resize_rows`: the align-corners linear resize of the map's rows,
+  each output row weighted from the map's rows at their global indices;
 - :func:`all_reduce_max`: a non-differentiable maximum (the residual
   lever's quantization scale).
 
@@ -41,11 +44,13 @@ in the forward, in the backward and in a remat block's recompute.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resize import interp_matrix
 from .mesh import Mesh, all_reduce_sum
 
 
@@ -264,3 +269,71 @@ def conv_transpose_rows(deconv: nn.ConvTranspose2d, x: torch.Tensor,
     y = F.conv_transpose2d(halo_rows(x, 0, 1, mesh), deconv.weight, deconv.bias, stride=2,
                            padding=1, output_padding=(0, 1))
     return y[..., :2 * h, :]
+
+
+def conv3d_rows(conv: nn.Conv3d, x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``conv`` on the slab ``x`` (NCDHW, rows on H): the slab with the halo
+    the kernel reads on the rows (:func:`conv_halo`), then the convolution
+    padded on D and W as ``conv`` pads them and not on the rows.
+    ``conv(x)`` without a mesh."""
+    if mesh is None:
+        return conv(x)
+    above, below = conv_halo(conv.kernel_size[1], conv.stride[1], conv.padding[1],
+                             conv.dilation[1])
+    if above or below:
+        x = halo_rows(x, above, below, mesh)
+    return F.conv3d(x, conv.weight, conv.bias, stride=conv.stride,
+                    padding=(conv.padding[0], 0, conv.padding[2]), dilation=conv.dilation,
+                    groups=conv.groups)
+
+
+def conv_transpose3d_rows(deconv: nn.ConvTranspose3d, x: torch.Tensor,
+                          mesh: Mesh | None) -> torch.Tensor:
+    """``deconv``, the 3x3x3 stride-2 ``padding=1, output_padding=1``
+    upsampling of ``models/evidential.py:Deconv3dBN``, on the slab ``x``
+    (NCDHW), as :func:`conv_transpose_rows` does it in 2D: the slab with
+    the first row of the rank below, transposed with no output padding on
+    the rows, gives ``2 h + 1`` rows of which the first ``2 h`` are the
+    slab's.  ``deconv(x)`` without a mesh."""
+    if mesh is None:
+        return deconv(x)
+    if (deconv.kernel_size, deconv.stride, deconv.padding, deconv.output_padding) != \
+            ((3, 3, 3), (2, 2, 2), (1, 1, 1), (1, 1, 1)):
+        raise ValueError("conv_transpose3d_rows takes the 3x3x3 stride-2 upsampling of "
+                         "Deconv3dBN")
+    h = x.shape[-2]
+    y = F.conv_transpose3d(halo_rows(x, 0, 1, mesh), deconv.weight, deconv.bias, stride=2,
+                           padding=1, output_padding=(1, 0, 1))
+    return y[..., :2 * h, :]
+
+
+def resize_rows(x: torch.Tensor, rows: int, mesh: Mesh | None) -> torch.Tensor:
+    """The align-corners linear resize of the map's rows (dim -2) to
+    ``rows`` rows, of which each rank keeps its slab of ``rows / S``.
+    Output row ``o`` reads map rows ``floor(o (H - 1) / (rows - 1))`` and
+    the next, which may lie in the rank below: the weights are
+    ``ops/resize.py:interp_matrix(H, rows)`` at the map's row indices, and
+    the rows the slab lacks come by :func:`halo_rows` (the same halo on
+    every rank, the most any rank needs).  A resize to the same rows is the
+    identity.  Without a mesh, the weights' product with the whole map."""
+    height = map_rows(x, mesh)
+    if rows == height:
+        return x
+    weights = interp_matrix(height, rows)
+    if mesh is None:
+        return torch.matmul(torch.from_numpy(weights).to(x), x)
+    _, s, size = _axis(mesh)
+    if rows % size:
+        raise ValueError(f"a resize to {rows} rows does not split over a spatial axis of "
+                         f"{size}")
+    h, out = x.shape[-2], rows // size
+    above = below = 0
+    for k in range(size):
+        read = np.flatnonzero(weights[k * out:(k + 1) * out].any(axis=0))
+        above = max(above, k * h - int(read[0]))
+        below = max(below, int(read[-1]) - ((k + 1) * h - 1))
+    local = np.pad(weights, ((0, 0), (above, below)))[s * out:(s + 1) * out,
+                                                      s * h:(s + 1) * h + above + below]
+    if above or below:
+        x = halo_rows(x, above, below, mesh)
+    return torch.matmul(torch.from_numpy(np.ascontiguousarray(local)).to(x), x)

@@ -38,8 +38,8 @@ package's ``--fanout`` and ``--depth_stages``:
   (``parallel/spatial.py``, the JAX package's row sharding of ``imgs``):
   every rank resolves the packed mode on the whole sample, sweeps its slab
   of rows, and the depth and confidence rows are gathered for spatial rank
-  0 of each data rank to write; with a head, spatial rank 0 gathers the
-  cost volume's rows and runs the head;
+  0 of each data rank to write; with a head, each spatial rank runs it on
+  its slab of the cost volume, and only the head's four maps are gathered;
 - a depth axis above 1 streams groups of M same-shape maps through the
   depth-block pipeline (``parallel/depth_pipeline.py``), exclusive with
   data, view and spatial axes above 1 and with an evidential head.
@@ -245,10 +245,11 @@ def run_inference(
     With a spatial axis above 1 each rank sweeps its slab of rows of every
     map (:func:`..parallel.mesh.spatial_rows`; a height that the axis does
     not split into slabs of a multiple of 4 rows raises), and so does each
-    view rank where the view axis is above 1 too; spatial rank 0 of view
-    rank 0 of each data rank gathers the maps (and, with a head, the cost
-    volume, and runs the head) and writes, and the stats are gathered over
-    every rank: ``count`` summed over the writing ranks, the lists one per
+    view rank where the view axis is above 1 too; with a head each spatial
+    rank of view rank 0 runs it on its slab of the cost volume; spatial
+    rank 0 of view rank 0 of each data rank gathers the maps (with a head,
+    its four maps too, never the volume) and writes, and the stats are
+    gathered over every rank: ``count`` summed over the writing ranks, the lists one per
     rank in rank order.  A map's time then includes the gather of its
     rows.  With a depth axis above 1:
     :func:`_run_inference_depth_pipeline`.
@@ -328,17 +329,20 @@ def run_inference(
                 t0 = time.perf_counter()
                 # The volume's last reference goes to the head, which drops
                 # it once the probability volume exists (the list holds it
-                # until then).  Under a spatial mesh spatial rank 0 gathers
-                # the volume's rows, and the rank that writes runs the head.
+                # until then).  Under a spatial mesh every spatial rank of
+                # view rank 0 runs the head on its slab, and spatial rank 0
+                # gathers the four maps.
                 volume = [out.pop("cost_volume")]
                 del out
-                if rows_mesh is not None:
-                    volume = [gather_rows_to_first(volume.pop(), rows_mesh)]
-                if volume[0] is not None and writes:
-                    ev = evidential_apply(head, volume.pop(), depths)
-                    gamma, nu, alpha, beta = (ev[k][0].cpu().numpy()
-                                              for k in ("gamma", "nu", "alpha", "beta"))
+                if mesh is None or mesh.coord("view") == 0:
+                    ev = evidential_apply(head, volume.pop(), depths, rows_mesh)
+                    nig = torch.stack([ev[k][0] for k in ("gamma", "nu", "alpha", "beta")])
                     del ev
+                    if rows_mesh is not None:
+                        nig = gather_rows_to_first(nig, rows_mesh)
+                if writes:
+                    gamma, nu, alpha, beta = nig.cpu().numpy()
+                    del nig
                     uncertainty = {
                         "aleatoric_0": np.sqrt(beta * (nu + 1) / nu / alpha),
                         "epistemic_0": 1.0 / np.sqrt(nu),

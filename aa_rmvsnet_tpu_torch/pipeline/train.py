@@ -50,14 +50,13 @@ runs on the slabs (``parallel/spatial.py``), the loss's valid counts and
 the metrics' masked sums are summed over the spatial group, each rank's
 loss is its rows' share of the batch's, and every gradient, each rank's
 share, is summed over the spatial group before the data group's average.
-With the evidential head on a spatial mesh each rank gathers the cost
-volume's rows (``parallel/spatial.py:gather_rows``) and runs the head
-replicated on the whole map, against the whole map's ``depth`` and
-``mask`` (which :func:`batch_rows` then leaves whole): every spatial rank
-computes the loss ``L`` and backpropagates ``L / S``, so that the gather's
-backward, which sums the ranks' cotangents, hands each rank its rows' share
-of the volume's gradient; the spatial sum then gives the core's gradient
-and the mean of the head's replicas' gradients, with no other collective.
+With the evidential head on a spatial mesh each rank runs the head on its
+slab of the cost volume (``EvidentialHead.forward(..., mesh)``, as GSPMD
+keeps the JAX package's head row-sharded): its BatchNorm statistics are
+summed over the spatial and data groups, so that they, and the running
+statistics, are the global batch's on every rank, and ``loss_emvsnet`` is
+the rank's rows' share over the global valid count, whose gradients the
+same spatial sum adds up.
 """
 
 from __future__ import annotations
@@ -95,7 +94,7 @@ from ..parallel.mesh import (
     shard_dataset,
     spatial_rows,
 )
-from ..parallel.spatial import gather_rows
+from ..parallel.spatial import gather_rows, spatial_mean
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.metrics import MeterDict, abs_depth_error, threshold_error_rate
 from .checkpoint import restore_latest, save_state
@@ -212,21 +211,17 @@ def batch_to_device(batch: dict, device) -> dict:
     }
 
 
-def batch_rows(batch: dict, mesh, evidential: bool = False) -> dict:
+def batch_rows(batch: dict, mesh) -> dict:
     """This rank's slab of rows of ``imgs`` ``(B, V, H, W, 3)``, ``depth``
     and ``mask`` ``(B, H, W)`` on a spatial mesh
     (:func:`..parallel.mesh.spatial_rows`), the JAX package's row sharding
-    of the training batch; ``batch`` itself otherwise.  With
-    ``evidential`` the head's labels, ``depth`` and ``mask``, stay whole:
-    the head runs on the whole map (:func:`evidential_loss_fn`)."""
+    of the training batch (the core's labels and the evidential head's
+    alike); ``batch`` itself otherwise."""
     if spatial_mesh(mesh) is None:
         return batch
     row0, rows = spatial_rows(mesh, batch["imgs"].shape[2])
-    out = dict(batch, imgs=batch["imgs"][:, :, row0:row0 + rows])
-    if not evidential:
-        for key in ("depth", "mask"):
-            out[key] = batch[key][:, row0:row0 + rows]
-    return out
+    return dict(batch, imgs=batch["imgs"][:, :, row0:row0 + rows],
+                **{key: batch[key][:, row0:row0 + rows] for key in ("depth", "mask")})
 
 
 def _rows_group(config: TrainConfig):
@@ -259,24 +254,23 @@ def evidential_loss_fn(model: AARMVSNetCore, head: EvidentialHead, batch: dict,
     """The core's probability volume through ``head`` (in the mode the
     caller set), then ``loss_emvsnet``.  Returns ``(loss, head outputs)``.
     Under a mesh the head's train-mode statistics and the loss's valid
-    count are the global batch's.  On a spatial mesh ``imgs`` are this
-    rank's rows and ``depth`` and ``mask`` the whole map's
-    (``batch_rows(..., evidential=True)``): the cost volume's rows are
-    gathered over the spatial group, and the head and the loss, the whole
-    map's, are the same on every spatial rank."""
+    count are the global batch's.  On a spatial mesh ``batch`` holds this
+    rank's rows (:func:`batch_rows`): the head runs on the slab of the
+    cost volume, its outputs are the slab's, and the loss is the rank's
+    share."""
     out = forward(model, batch["imgs"], batch["proj_matrices"],
                   batch["depth_values"], sweep_config)
-    volume = gather_rows(out.pop("cost_volume"), spatial_mesh(config.mesh), dim=2)
+    volume = out.pop("cost_volume")
     if volume.shape[2:] != batch["depth"].shape[1:]:
         raise ValueError(f"evidential_loss_fn: a {tuple(volume.shape[2:])} volume against "
                          f"{tuple(batch['depth'].shape[1:])} labels; on a spatial mesh the "
-                         "labels stay whole (batch_rows(..., evidential=True))")
-    with batch_statistics_over(head, _group(config)):
-        ev = head(probability_volume(volume), batch["depth_values"])
+                         "labels are the slab's rows (batch_rows)")
+    with batch_statistics_over(head, _pixel_groups(config)):
+        ev = head(probability_volume(volume), batch["depth_values"], spatial_mesh(config.mesh))
     del volume
     loss = loss_emvsnet(ev["gamma"], ev["nu"], ev["alpha"], ev["beta"],
                         batch["depth"], batch["mask"], config.evidential_weight_reg,
-                        group=_group(config))
+                        group=_group(config), rows_group=_rows_group(config))
     return loss, ev
 
 
@@ -306,15 +300,17 @@ def _mean_over_ranks(metrics: dict, keys, config: TrainConfig) -> None:
 
 def _evidential_summaries(ev: dict, batch: dict, config: TrainConfig) -> tuple[dict, dict]:
     """Metrics and images of an evidential step (JAX
-    ``_evidential_summaries``): the head's mean nu, alpha and beta, gamma's
-    error, and both uncertainty decompositions."""
+    ``_evidential_summaries``): the head's mean nu, alpha and beta and
+    gamma's error, over the whole map on a spatial mesh, and both
+    uncertainty decompositions (this rank's rows)."""
     gamma, depth, mask = ev["gamma"].detach(), batch["depth"], batch["mask"]
     nu, alpha, beta = ev["nu"].detach(), ev["alpha"].detach(), ev["beta"].detach()
+    rows = spatial_mesh(config.mesh)
     metrics = {
-        "loss_components/nu": nu.mean(),
-        "loss_components/alpha": alpha.mean(),
-        "loss_components/beta": beta.mean(),
-        "abs_depth_error": abs_depth_error(gamma, depth, mask, group=_group(config)),
+        "loss_components/nu": spatial_mean(nu, (0, 1, 2), rows),
+        "loss_components/alpha": spatial_mean(alpha, (0, 1, 2), rows),
+        "loss_components/beta": spatial_mean(beta, (0, 1, 2), rows),
+        "abs_depth_error": abs_depth_error(gamma, depth, mask, group=_pixel_groups(config)),
     }
     decomp = uncertainty_decompositions(nu, alpha, beta)
     images = {
@@ -372,9 +368,7 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
     Under ``config.mesh`` the gradients are those of the global batch
     before the clip (range ``train.all_reduce``; :func:`average_gradients`),
     and the metrics are the global batch's; on a spatial mesh ``batch``
-    holds this rank's rows (:func:`batch_rows`), and so do the images, but
-    with the head its labels and images are the whole map's, and each
-    spatial rank backpropagates its share ``L / S`` of the loss.
+    holds this rank's rows (:func:`batch_rows`), and so do the images.
     Returns ``(metrics, images)`` of detached tensors."""
     model.train()
     if head is not None:
@@ -387,12 +381,7 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
         else:
             loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=True))
     with record_function("train.backward"):
-        if head is not None and _rows_group(config) is not None:
-            # Every spatial rank computes the whole loss; the row gather's
-            # backward sums their cotangents.
-            (loss / config.mesh.shape["spatial"]).backward()
-        else:
-            loss.backward()
+        loss.backward()
     params = trainable_parameters(model, head)
     if config.mesh is not None:
         partial = ()
@@ -405,19 +394,17 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
             clip_by_global_norm(params, config.grad_clip)
         optimizer.step()
         scheduler.step()
-    if head is not None and config.mesh is not None:
-        # The view ranks', or the spatial ranks', BatchNorm statistics come
-        # from the same volume, but the card's 3D convolutions are not bit
-        # for bit deterministic, so the replicas' running statistics are
-        # averaged to stay equal.
-        replicas = [config.mesh.view_group if config.mesh.shape["view"] > 1 else None,
-                    _rows_group(config)]
+    if head is not None and config.mesh is not None and config.mesh.shape["view"] > 1:
+        # The view ranks' BatchNorm statistics come from the same volume,
+        # but the card's 3D convolutions are not bit for bit deterministic,
+        # so the replicas' running statistics are averaged to stay equal.
+        # The spatial ranks' are sums over the ranks, equal already.
         with record_function("train.all_reduce"):
-            for group in replicas:
-                all_reduce_mean([b for b in head.buffers() if b.is_floating_point()], group)
+            all_reduce_mean([b for b in head.buffers() if b.is_floating_point()],
+                            config.mesh.view_group)
     if head is not None:
         metrics, images = _evidential_summaries(ev, batch, config)
-        metrics["loss"] = loss.detach()
+        metrics["loss"] = _loss_metric(loss, config)
         _mean_over_ranks(metrics, ["loss", "loss_components/nu", "loss_components/alpha",
                                    "loss_components/beta"], config)
         return metrics, images
@@ -436,17 +423,17 @@ def eval_step(model, batch: dict, config: TrainConfig,
               head: EvidentialHead | None = None) -> dict:
     """Loss and depth metrics without remat or gradients.  With ``head``
     (JAX ``make_evidential_eval_step``) the head runs in eval mode, the loss
-    is ``loss_emvsnet`` and the metrics are of gamma, the whole map's on
-    every spatial rank; ``train_step`` puts both modules back in train
-    mode.  Under ``config.mesh`` every metric is the global batch's."""
+    is ``loss_emvsnet`` and the metrics are of gamma; ``train_step`` puts
+    both modules back in train mode.  Under ``config.mesh`` every metric is
+    the global batch's."""
     model.eval()
     if head is None:
         loss, depth_est = loss_fn(model, batch, config.sweep(remat=False), _rows_group(config))
-        loss, group = _loss_metric(loss, config), _pixel_groups(config)
     else:
         head.eval()
         loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=False))
-        depth_est, group = ev["gamma"], _group(config)
+        depth_est = ev["gamma"]
+    loss, group = _loss_metric(loss, config), _pixel_groups(config)
     depth, mask = batch["depth"], batch["mask"]
     metrics = {"loss": loss,
                "abs_depth_error": abs_depth_error(depth_est, depth, mask, group=group)}
@@ -509,7 +496,7 @@ def run_training(
     rank reads); only rank 0 writes checkpoints (the others wait at a
     barrier), prints and calls ``logger``.  On a spatial mesh each rank
     steps on its rows of every batch (:func:`batch_rows`), and the summary
-    images are gathered whole for rank 0 (the head's are whole already).
+    images are gathered whole for rank 0.
 
     Returns ``{start_step, step, losses, step_seconds, val}``: per-step
     losses (the global batch's) and seconds (host clock around the step,
@@ -582,7 +569,7 @@ def run_training(
             batched(samples, config.batch_size, drop_last=True), steps_per_epoch - done
         ):
             t0 = time.perf_counter()
-            batch = batch_rows(batch_to_device(host_batch, device), mesh, config.evidential)
+            batch = batch_rows(batch_to_device(host_batch, device), mesh)
             metrics, images = train_step(model, optimizer, scheduler, batch, config, head)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -592,7 +579,7 @@ def run_training(
             step += 1
             if step % config.summary_freq == 0:
                 means = meter.mean(group)
-                if _rows_group(config) is not None and head is None:  # the first sample, whole
+                if _rows_group(config) is not None:  # the first sample, whole
                     images = {k: gather_rows(v[:1], mesh, dim=1) for k, v in images.items()}
                 if is_main:
                     print(f"epoch {epoch} step {step}: "
@@ -613,7 +600,7 @@ def run_training(
                                   on_skip=on_skip),
                 config.batch_size, drop_last=True,
             ), val_steps):
-                vbatch = batch_rows(batch_to_device(vbatch, device), mesh, config.evidential)
+                vbatch = batch_rows(batch_to_device(vbatch, device), mesh)
                 vmeter.update(eval_step(model, vbatch, config, head))
             val_means = vmeter.mean(group)
             if is_main:

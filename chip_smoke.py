@@ -129,8 +129,9 @@ Phases, each printing a line; any failure exits non-zero:
 5b. the exact path kept: one map of the same scene with ``--fp32
    --packed_rows 0``'s settings, its launch count asserted, and the share
    of its depths within one bin of the bf16 packed map's; then the same
-   map in fp32 with packed rows (``--fp32``, mode (True, 1, 4)), its launch
-   count asserted: the serial maps that 5i's fp32 runs are held to;
+   map in fp32 with packed rows (``--fp32``, mode (True, 1, 4)) with the
+   seeded head attached (depth from the core), its launch count asserted:
+   the serial maps that 5i's fp32 runs, and 5l's head on them, are held to;
 5c. the evidential head: alone, CUDA against CPU at 32x40, D=32, fp32 with
    seeded weights (``utils/synthetic.py:seeded_head``), at the CPU tests'
    bars (gamma 2e-3; nu, alpha, beta 1e-3; prob_combine 1e-4); then the
@@ -140,7 +141,8 @@ Phases, each printing a line; any failure exits non-zero:
    5 x D forward and no backward gate-kernel launches asserted, the four
    PFM families finite, gamma inside the sweep, nu > 0 and alpha > 1; it
    prints the core's and the head's seconds and the peak memory of the
-   core with the collected volume and of the head;
+   core with the collected volume and of the head, and keeps the head's
+   probability volume and maps for 5l;
 5d. the JAX package's production stack (``cli eval --int8_tables
    --dual_residual --gather_pack 2 --table_taps 6``): ``run_inference``
    with those levers for one map of the phase-5 scene, its packed mode
@@ -182,8 +184,20 @@ Phases, each printing a line; any failure exits non-zero:
    each held to 5b's serial map of the same settings at 5f's bars; each
    with its packed mode, 5 x D forward launches a rank with 432x1152 the
    largest plane the gate kernel ran on, the seconds and the peak memory
-   by rank.  5f, 5g and 5i run in one pair of rank subprocesses with a
-   deadline;
+   by rank (the fp32 packed run's with the head of 5l).  5f, 5g, 5i and 5l
+   run in one pair of rank subprocesses with a deadline;
+5l. the evidential head split over the spatial axis (``cli eval --spatial
+   2 --evidential_ckpt``): 5c's probability volume (864x1152, D=512, fp32)
+   split over two gloo ranks on ``cuda:0``, each running the seeded head on
+   its 432 rows (``EvidentialHead.forward(..., mesh)``: every 3D
+   convolution with its halo rows), the four maps gathered to rank 0 held
+   to 5c's at the CPU bars on every pixel, each rank's seconds and peak
+   memory while the head runs beside 5c's one process; then 5i's fp32
+   packed-rows run with the seeded head attached (each rank's head on its
+   rows of the collected volume, 5 x D forward launches a rank): each
+   rank's four maps of its rows, joined, held to 5b's serial run with the
+   head at those bars on >= 99.9 % of pixels, the aleatoric and epistemic
+   PFMs finite;
 5h. the commands a user runs, ``python -m aa_rmvsnet_tpu_torch.cli eval
    --fanout 2`` and then ``--spatial 2``, with phase 5's flags (``--preset
    dtu_eval``, D=512, depth block 8, bf16 and packed rows by default) on
@@ -250,10 +264,12 @@ Phases, each printing a line; any failure exits non-zero:
    backward launches a rank;
 6g. spatial evidential training: ``TrainConfig(evidential=True,
    mesh=make_mesh(spatial=2))`` at 6f's geometry with maxdisp 32, each rank
-   gathering the cost volume's rows and running the head on the whole map,
-   against this process's evidential step at 6d's bars, the ranks equal
-   bit for bit after the step (the head's BatchNorm statistics averaged
-   over them), with 2 x 5 x D forward and 5 x D backward launches a rank;
+   running the head on its rows of the cost volume and the labels (the
+   head's BatchNorm statistics summed over the ranks), against this
+   process's evidential step at 6d's bars, the ranks equal bit for bit
+   after the step, each rank's peak memory beside PR 15's 4.30 GiB (the
+   head on the gathered volume), with 2 x 5 x D forward and 5 x D backward
+   launches a rank;
 7. the fusion kernel (``ops/fusion.py:fuse_ref``) against its plain
    version, bit for bit on the card and on the CPU: one 864x1152 reference
    view of a noisy plane against 10 sources, with how many of its terms lie
@@ -286,8 +302,10 @@ last is ``{"kernels": [...]}``; each kernel's
 ``launches_by_path`` gives it for every main path (phases 5, 5b, 5c, 5d,
 5j (``inference_levers_omega_chain``), 5f (``inference_fanout``), 5g
 (``inference_depth_pipeline``), 5i (``inference_spatial``,
-``inference_spatial_packed_fp32``, ``inference_spatial_fp32``) and 5k
-(``inference_view_spatial``), 6, 6b, 6c (``training_bf16``,
+``inference_spatial_packed_fp32``, ``inference_spatial_fp32``; its
+fp32 packed run carries 5l's head, so ``inference_spatial_evidential`` is
+the same run's count) and 5k (``inference_view_spatial``), 6, 6b, 6c
+(``training_bf16``,
 ``training_fold_omega``), 6d (``training_data_parallel``), 6e
 (``training_view_parallel``), 6f (``training_spatial``) and 6g
 (``training_spatial_evidential``), the ranks' sums, 7c and 8);
@@ -1656,16 +1674,18 @@ def _read_maps(out_root: str, ref: int) -> tuple:
 
 
 def phase_main_exact(samples, phase5: dict) -> tuple[int, int]:
-    """5b: one exact fp32 map, then map 0 in fp32 with packed rows;
-    ``phase5`` gains them (``exact``, ``packed_fp32``), which the spatial
-    split's fp32 maps are held to (5i), and the bf16 packed map 0's
-    distance from the exact one (``bf16_vs_exact``: the share of depths
-    within one bin, the confidence's max_abs_err), the calibration of the
-    spatial split's bf16 smoke bar (5i, 5h).  Returns the two runs' gate
-    launches."""
+    """5b: one exact fp32 map, then map 0 in fp32 with packed rows and the
+    seeded head attached (``depth_source`` wta); ``phase5`` gains them
+    (``exact``, ``packed_fp32``), which the spatial split's fp32 maps are
+    held to (5i), the head's four maps of the packed one (``packed_fp32_nig``,
+    which 5l's split head on 5i's packed run is held to), and the bf16
+    packed map 0's distance from the exact one (``bf16_vs_exact``: the
+    share of depths within one bin, the confidence's max_abs_err), the
+    calibration of the spatial split's bf16 smoke bar (5i, 5h).  Returns
+    the two runs' gate launches."""
     from aa_rmvsnet_tpu_torch.ops import gates
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
-    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+    from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_head, seeded_model
 
     model = seeded_model(SEED)
     with tempfile.TemporaryDirectory() as out_root:
@@ -1686,10 +1706,15 @@ def phase_main_exact(samples, phase5: dict) -> tuple[int, int]:
                     MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
         phase5["exact"] = _read_maps(out_root, 0)
         phase5["exact_seconds"] = stats["map_seconds"][0]
+    head = seeded_head(SEED)
+    hook = head.register_forward_hook(
+        lambda module, args, out: phase5.update(packed_fp32_nig=_nig(out)))
     with tempfile.TemporaryDirectory() as out_root:
         gates.launches = gates.backward_launches = 0
         packed = run_inference(model, samples[:1], InferConfig(
-            out_root=out_root, feature_dtype=torch.float32, num_workers=2, device="cuda"))
+            out_root=out_root, feature_dtype=torch.float32, num_workers=2, device="cuda",
+            evidential=head))
+        hook.remove()
         packed_launches = gates.launches
         if packed["count"] != 1 or packed_launches != 5 * MAIN_D \
                 or gates.backward_launches != 0 or packed["modes"] != [(True, 1, 4)]:
@@ -1700,6 +1725,7 @@ def phase_main_exact(samples, phase5: dict) -> tuple[int, int]:
                     MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
         phase5["packed_fp32"] = _read_maps(out_root, 0)
         phase5["packed_fp32_seconds"] = packed["map_seconds"][0]
+        phase5["packed_fp32_head_seconds"] = packed["head_seconds"][0]
     within, conf_err = _distance(phase5["maps"][0], phase5["exact"])
     phase5["bf16_vs_exact"] = (within, conf_err)
     print(f"main-exact: run_inference, fp32, packed_rows=False, fused_residual=False, at "
@@ -1707,9 +1733,19 @@ def phase_main_exact(samples, phase5: dict) -> tuple[int, int]:
           f"peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
           f"(= 5 x {MAIN_D}, fp32); the bf16 packed map 0 is within one depth bin of it on "
           f"{within:.4%} of pixels, confidence max_abs_err {conf_err:.3e}; map 0 in fp32 with "
-          f"packed rows (mode (True, 1, 4)) in {packed['map_seconds'][0]:.3f} s, gate kernel "
+          f"packed rows (mode (True, 1, 4)) in {packed['map_seconds'][0]:.3f} s, the seeded "
+          f"head on it {packed['head_seconds'][0]:.3f} s (5l's serial reference), gate kernel "
           f"launches {packed_launches}", flush=True)
     return launches, packed_launches
+
+
+NIG = ("gamma", "nu", "alpha", "beta")
+
+
+def _nig(out: dict) -> np.ndarray:
+    """The head's four maps of a sample, ``(4, H, W)`` on the host, from
+    its outputs (a forward hook's)."""
+    return torch.stack([out[k][0] for k in NIG]).float().cpu().numpy()
 
 
 def _distance(got: tuple, want: tuple) -> tuple[float, float]:
@@ -1743,7 +1779,7 @@ def _bf16_held_to_exact(label: str, got: tuple, phase5: dict) -> str:
     return text
 
 
-def phase_evidential(samples) -> tuple[int, int]:
+def phase_evidential(samples) -> tuple[int, int, dict]:
     from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
     from aa_rmvsnet_tpu_torch.models import evidential_apply
     from aa_rmvsnet_tpu_torch.ops import gates
@@ -1772,7 +1808,8 @@ def phase_evidential(samples) -> tuple[int, int]:
 
     # The main path with a head: one dtu_eval map, InferConfig() defaults.
     # Hooks on the head read the memory when it starts and its outputs'
-    # ranges; they launch no gate kernel.
+    # ranges, and keep its input (held by evidential_apply while the head
+    # runs in any case) and its maps for 5l; they launch no gate kernel.
     model, head = seeded_model(SEED), seeded_head(SEED)
     marks = {}
 
@@ -1780,12 +1817,14 @@ def phase_evidential(samples) -> tuple[int, int]:
         torch.cuda.synchronize()
         marks["core_peak"] = torch.cuda.max_memory_allocated()
         marks["held"] = torch.cuda.memory_allocated()
+        marks["prob"], marks["dvals"] = args[0], args[1]
         torch.cuda.reset_peak_memory_stats()
 
     def after_head(module, args, out):
         marks["gamma"] = (out["gamma"].min().item(), out["gamma"].max().item())
         marks["nu_min"] = out["nu"].min().item()
         marks["alpha_min"] = out["alpha"].min().item()
+        marks["nig"] = _nig(out)
 
     hooks = [head.register_forward_pre_hook(before_head), head.register_forward_hook(after_head)]
     depth_max = MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1)
@@ -1799,6 +1838,10 @@ def phase_evidential(samples) -> tuple[int, int]:
         head_peak = torch.cuda.max_memory_allocated()
         for hook in hooks:
             hook.remove()
+        head_input = {"prob": marks.pop("prob").cpu().numpy(),
+                      "dvals": marks.pop("dvals").cpu().numpy(), "nig": marks["nig"],
+                      "seconds": stats["head_seconds"][0], "peak": head_peak,
+                      "maxdisp": head.maxdisp}
         if stats["count"] != 1 or launches != 5 * MAIN_D or backward != 0 \
                 or stats["modes"] != [(True, 1, 4)]:
             _fail(f"evidential path wrote {stats['count']} maps in modes {stats['modes']} "
@@ -1829,7 +1872,7 @@ def phase_evidential(samples) -> tuple[int, int]:
           f"epistemic in [{maps['epistemic_0'].min():.4g}, {maps['epistemic_0'].max():.4g}]; "
           f"gate kernel launches {launches} (= 5 x {MAIN_D}), backward {backward}; four PFM "
           "families finite", flush=True)
-    return launches, backward
+    return launches, backward, head_input
 
 
 def _production_stack_map(samples, label: str) -> dict:
@@ -2181,7 +2224,7 @@ def step(with_mesh, evidential, timed_after=0):
                          maxdisp=a["maxdisp"], mesh=mesh if with_mesh else None)
     optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config,
                                           a["total_steps"])
-    batch = batch_rows(whole, config.mesh, evidential)
+    batch = batch_rows(whole, config.mesh)
     gates.launches = gates.backward_launches = all_reduces[0] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2350,9 +2393,9 @@ def _hold_ranks_to_single(label: str, ranks: list, weights: dict, batch: dict,
           f"sharing the card, {wall:.1f} s from spawn to exit for the ranks' cases), one "
           f"process at batch "
           f"{batch_size} {single['seconds']:.3f}, phase 6's fp32 batch 1 "
-          f"{float(np.mean(phase6['step_seconds'][1:])):.3f}; peak memory a rank "
-          f"{ranks[0]['peak'] / 2**30:.2f} GiB, one process {single['peak'] / 2**30:.2f} "
-          f"GiB {'ok' if ok else 'FAIL'}", flush=True)
+          f"{float(np.mean(phase6['step_seconds'][1:])):.3f}; peak memory by rank "
+          f"[{', '.join(f'{r['peak'] / 2**30:.2f}' for r in ranks)}] GiB, one process "
+          f"{single['peak'] / 2**30:.2f} GiB {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         _fail(f"{label}: the ranks' step disagrees with one process's")
 
@@ -2415,14 +2458,17 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
     return tuple(launched)
 
 
-# One rank of phases 5f, 5g and 5i: run_inference with InferConfig()'s
+# One rank of phases 5f, 5g, 5i and 5l: run_inference with InferConfig()'s
 # defaults under make_mesh(data=2), under make_mesh(depth=2) with
 # pipeline_maps 2, and under make_mesh(spatial=2) on the first map (then
-# that map in fp32 with packed rows, and on the exact fp32 path, 5b's two
-# settings), both ranks on cuda:0 over gloo, on phase 5's scene built again
-# from its seed; per path the stats, the gate launches, the peak memory and
-# the seconds go to a torch.save file, and with them the seconds of three
-# handoffs of a seeded carry of the map's shape from stage 0 to stage 1.
+# that map in fp32 with packed rows and the seeded head, and on the exact
+# fp32 path, 5b's two settings), both ranks on cuda:0 over gloo, on phase
+# 5's scene built again from its seed; per path the stats, the gate
+# launches, the peak memory and the seconds (and the head's maps of the
+# rank's rows) go to a torch.save file, and with them 5l's head on the
+# rank's rows of 5c's probability volume (its seconds, its peak memory and,
+# on rank 0, the gathered maps) and the seconds of three handoffs of a
+# seeded carry of the map's shape from stage 0 to stage 1.
 # On the first spatial path (bf16) the row-split ops' collectives are
 # counted and timed (a synchronise on each side, so that a collective's
 # time is its own and not the card's queued work), which slows that map;
@@ -2430,23 +2476,23 @@ def phase_data_parallel(phase6: dict) -> tuple[int, int]:
 # planes the gate kernel runs on are recorded.
 INFER_WORKER = """
 import json, sys, time
-import torch
+import numpy as np, torch
 import chip_smoke
 from aa_rmvsnet_tpu_torch.models import blocks
 from aa_rmvsnet_tpu_torch.models.regularizer import init_states
 from aa_rmvsnet_tpu_torch.ops import gates
 from aa_rmvsnet_tpu_torch.parallel import (
-    initialize_distributed, make_mesh, recv_carry, send_carry, spatial)
+    initialize_distributed, make_mesh, recv_carry, send_carry, spatial, spatial_rows)
 from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
 from aa_rmvsnet_tpu_torch.utils.device import disable_tf32
-from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
+from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_head, seeded_model
 
 a = json.loads(sys.argv[1])
 disable_tf32()
 initialize_distributed(f"localhost:{a['port']}", 2, a["rank"], backend="gloo")
 samples = chip_smoke._main_scene()
-model = seeded_model(chip_smoke.SEED)
-comm, planes = {}, set()
+model, head = seeded_model(chip_smoke.SEED), seeded_head(chip_smoke.SEED)
+comm, planes, slabs = {}, set(), []
 
 
 def timed(kind, fn):
@@ -2471,12 +2517,13 @@ lstm_gates = blocks.lstm_gates
 fp32 = dict(feature_dtype=torch.float32)
 exact = dict(fp32, packed_rows=False, fused_residual=False)
 plain_collectives = spatial._all_gather, torch.distributed.all_reduce
+hook = head.register_forward_hook(lambda module, args, ev: slabs.append(chip_smoke._nig(ev)))
 out, meshes = {}, {}
 for path, axes, maps, dataset, settings in (
         ("fanout", {"data": 2}, None, samples, {}),
         ("pipeline", {"depth": 2}, 2, samples, {}),
         ("spatial", {"spatial": 2}, None, samples[:1], {}),
-        ("spatial_packed_fp32", {"spatial": 2}, None, samples[:1], fp32),
+        ("spatial_packed_fp32", {"spatial": 2}, None, samples[:1], dict(fp32, evidential=head)),
         ("spatial_fp32", {"spatial": 2}, None, samples[:1], exact)):
     mesh = meshes[path] = make_mesh(**axes, device="cuda")
     torch.cuda.set_device(mesh.device)
@@ -2498,8 +2545,33 @@ for path, axes, maps, dataset, settings in (
                  "peak": torch.cuda.max_memory_allocated(),
                  "seconds": time.perf_counter() - t0,
                  "comm": {k: list(v) for k, v in comm.items()} if probed else None,
-                 "planes": sorted(planes)}
+                 "planes": sorted(planes), "nig": list(slabs)}
+    slabs.clear()
     torch.cuda.empty_cache()
+# 5l, part 1: the head on this rank's rows of 5c's probability volume; the
+# four maps gathered to spatial rank 0.
+hook.remove()
+mesh = meshes["spatial"]
+volume = np.load(a["head_prob"], mmap_mode="r")
+row0, rows = spatial_rows(mesh, volume.shape[2])
+prob = torch.from_numpy(np.ascontiguousarray(volume[:, :, row0:row0 + rows])).to(mesh.device)
+del volume
+dvals = torch.from_numpy(np.load(a["head_dvals"])).to(mesh.device)
+with torch.inference_mode():
+    head.to(mesh.device).eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ev = head(prob, dvals, mesh)
+    nig = spatial.gather_rows_to_first(torch.stack([ev[k][0] for k in chip_smoke.NIG]), mesh)
+    del ev
+    torch.cuda.synchronize()
+    out["spatial_head"] = {"seconds": time.perf_counter() - t0, "held": held, "rows": rows,
+                           "peak": torch.cuda.max_memory_allocated(),
+                           "nig": None if nig is None else nig.cpu().numpy()}
+del prob, nig
+torch.cuda.empty_cache()
 mesh = meshes["pipeline"]
 noise = torch.Generator(device=mesh.device).manual_seed(chip_smoke.SEED)
 carry = tuple(tuple(torch.randn(t.shape, generator=noise, device=mesh.device).to(t.dtype)
@@ -2527,20 +2599,26 @@ torch.distributed.destroy_process_group()
 """
 
 
-def phase_inference_ranks(phase5: dict) -> tuple[int, int, int, int, int]:
-    """5f, 5g and 5i: two INFER_WORKER ranks, the fan-out, the depth
-    pipeline and the spatial split (bf16, fp32 with packed rows, exact
-    fp32), each path's maps checked as phase 5's and held to them (the
-    spatial split's fp32 maps to 5b's).  Returns each path's gate launches
-    over the ranks."""
+def phase_inference_ranks(phase5: dict, head_input: dict) -> tuple[int, int, int, int, int]:
+    """5f, 5g, 5i and 5l: two INFER_WORKER ranks, the fan-out, the depth
+    pipeline and the spatial split (bf16, fp32 with packed rows and the
+    seeded head, exact fp32), each path's maps checked as phase 5's and
+    held to them (the spatial split's fp32 maps to 5b's); then the head
+    split over the ranks on 5c's probability volume (``head_input``, which
+    goes to the ranks as a ``.npy`` file).  Returns each path's gate
+    launches over the ranks."""
     torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
     launched = []
     with tempfile.TemporaryDirectory() as workdir:
         out_root = os.path.join(workdir, "maps")
+        files = {"head_prob": os.path.join(workdir, "head_prob.npy"),
+                 "head_dvals": os.path.join(workdir, "head_dvals.npy")}
+        np.save(files["head_prob"], head_input["prob"])
+        np.save(files["head_dvals"], head_input["dvals"])
         port = _free_port()
         t0 = time.perf_counter()
-        ranks = _run_workers([dict(rank=r, port=port, out_root=out_root) for r in range(2)],
-                             workdir, worker=INFER_WORKER)
+        ranks = _run_workers([dict(files, rank=r, port=port, out_root=out_root)
+                              for r in range(2)], workdir, worker=INFER_WORKER)
         wall = time.perf_counter() - t0
         # The spatial paths sweep their one map on both ranks, a slab each.
         for path, maps, forward, report in (
@@ -2558,7 +2636,67 @@ def phase_inference_ranks(phase5: dict) -> tuple[int, int, int, int, int]:
                       f"expected {forward} forward and no backward")
             report(per_path, got, phase5, wall)
             launched.append(launches[0])
+        _report_spatial_head([r["spatial_head"] for r in ranks],
+                             [r["spatial_packed_fp32"] for r in ranks], out_root, phase5,
+                             head_input)
     return tuple(launched)
+
+
+def _nig_held(label: str, got: np.ndarray, want: np.ndarray, share: float) -> str:
+    """The head's four maps ``(4, H, W)`` against ``want`` at the CPU bars
+    (gamma 2e-3; nu, alpha, beta 1e-3) on at least ``share`` of the
+    pixels, each map finite."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        _fail(f"{label}: maps of shape {got.shape} (expected {want.shape}) or not finite")
+    errs, within = [], []
+    for g, w, key in zip(got, want, NIG):
+        diff = np.abs(g - w)
+        errs.append(float(diff.max()))
+        within.append(float(np.mean(diff <= EV_BARS[key])))
+    if min(within) < share:
+        _fail(f"{label}: within the bars on {within} of pixels, max_abs_err {errs}")
+    return ", ".join(f"{k} max_abs_err {e:.3e} (bar {EV_BARS[k]:g}, within it on {w:.4%})"
+                     for k, e, w in zip(NIG, errs, within))
+
+
+def _report_spatial_head(heads: list, packed: list, out_root: str, phase5: dict,
+                         head_input: dict) -> None:
+    """5l: the evidential head split over two gloo ranks on cuda:0.  Part 1:
+    each rank runs the seeded head on its 432 rows of 5c's probability
+    volume (864x1152, D=512, fp32); the four maps gathered to rank 0 are
+    held to 5c's at the CPU bars, and each rank's peak memory while the head
+    runs (from the slab on the card) is printed beside 5c's one process.
+    Part 2: 5i's fp32 packed-rows run carries the seeded head; each rank's
+    maps of its rows, joined, are held to 5b's serial run of the same
+    settings and head at those bars on >= 99.9 % of pixels (5f's rule for
+    the depth), and the aleatoric and epistemic PFMs are finite."""
+    from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
+
+    label = "spatial head"
+    part1 = _nig_held(label, heads[0]["nig"], head_input["nig"], 1.0)
+    slab = [h["rows"] for h in heads]
+    joined = np.concatenate([p["nig"][0] for p in packed], axis=1)
+    part2 = _nig_held(label, joined, phase5["packed_fp32_nig"], 0.999)
+    for family in ("aleatoric_0", "epistemic_0"):
+        m, _ = read_pfm(os.path.join(f"{out_root}_spatial_packed_fp32", "scan1", family,
+                                     "00000000.pfm"))
+        if m.shape != (MAIN_H, MAIN_W) or not np.isfinite(m).all():
+            _fail(f"{label}: {family} of shape {m.shape} or not finite")
+    seconds = [per_rank[0] for per_rank in packed[0]["stats"]["head_seconds"]]
+    print(f"spatial head: EvidentialHead.forward(..., mesh), make_mesh(spatial=2), two gloo "
+          f"ranks on cuda:0, seeded head (fp32), on 5c's probability volume ({MAIN_H}x{MAIN_W}, "
+          f"D={MAIN_D}, maxdisp {head_input['maxdisp']}), rows {slab} a rank: the maps gathered "
+          f"to rank 0 against 5c's head, {part1}; seconds by rank "
+          f"[{', '.join(f'{h['seconds']:.3f}' for h in heads)}] (two processes sharing the "
+          f"card; 5c alone {head_input['seconds']:.3f}); peak memory while the head runs by "
+          f"rank [{', '.join(f'{h['peak'] / 2**30:.2f}' for h in heads)}] GiB, of which the "
+          f"slab and the rest held at its start "
+          f"[{', '.join(f'{h['held'] / 2**30:.2f}' for h in heads)}] (5c, one process: "
+          f"{head_input['peak'] / 2**30:.2f} GiB); on 5i's fp32 packed run (the head on each "
+          f"rank's rows of the collected volume) against 5b's serial run with the head: "
+          f"{part2}; head seconds by rank [{', '.join(f'{x:.3f}' for x in seconds)}] (5b "
+          f"alone {phase5['packed_fp32_head_seconds']:.3f}); aleatoric and epistemic PFMs "
+          "finite ok", flush=True)
 
 
 def _held_to_phase5(label: str, got: list, phase5: dict) -> str:
@@ -2871,11 +3009,13 @@ def phase_spatial_training(phase6: dict) -> tuple[int, int]:
 def phase_spatial_evidential_training(phase6: dict) -> tuple[int, int]:
     """6g: ``TrainConfig(evidential=True, mesh=make_mesh(spatial=2))`` at
     ``dtu_train`` with maxdisp 32: two gloo ranks on cuda:0, each sweeping
-    its 64 rows of the sample, gathering the cost volume's rows and running
-    the head on the whole map (its BatchNorm statistics averaged over the
-    ranks after the step), against this process's evidential step on the
-    sample, at phase 6d's bars; the ranks equal bit for bit after the step.
-    Returns the ranks' gate launches."""
+    its 64 rows of the sample and running the head on its rows of the cost
+    volume against its rows of the labels (the BatchNorm statistics summed
+    over the ranks), against this process's evidential step on the sample,
+    at phase 6d's bars; the ranks equal bit for bit after the step, each
+    rank's peak memory printed beside the 4.30 GiB a rank of PR 15's
+    design (the head on the gathered volume).  Returns the ranks' gate
+    launches."""
     from aa_rmvsnet_tpu_torch.models import EvidentialHead
     from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
 
@@ -2902,7 +3042,8 @@ def phase_spatial_evidential_training(phase6: dict) -> tuple[int, int]:
                               True, wall, phase6, launched,
                               f"two gloo ranks on cuda:0 with a spatial axis of 2 (rows 0-"
                               f"{TRAIN_H // 2 - 1} and {TRAIN_H // 2}-{TRAIN_H - 1}, the head "
-                              "on the gathered volume) against one process on the sample")
+                              "on each rank's rows; PR 15's head on the gathered volume: 4.30 "
+                              "GiB a rank) against one process on the sample")
     return tuple(launched)
 
 
@@ -3500,11 +3641,12 @@ def main() -> int:
     bf16_launches, packed_depth0, phase5 = run("5", phase_main, samples)
     run("5e", phase_feat_chunk, samples, phase5)
     fp32_launches, fp32_packed_launches = run("5b", phase_main_exact, samples, phase5)
-    evidential_launches, evidential_backward = run("5c", phase_evidential, samples)
+    evidential_launches, evidential_backward, head_input = run("5c", phase_evidential, samples)
     levers5d = run("5d", phase_main_levers, samples, packed_depth0, phase5)
     omega_chain_launches = run("5j", phase_main_levers_chain, samples, levers5d)
     (fanout_launches, pipeline_launches, spatial_launches, spatial_packed_fp32_launches,
-     spatial_fp32_launches) = run("5f+5g+5i", phase_inference_ranks, phase5)
+     spatial_fp32_launches) = run("5f+5g+5i+5l", phase_inference_ranks, phase5, head_input)
+    del head_input
     run("5h", phase_cli_ranks, phase5)
     view_spatial_launches = run("5k", phase_view_spatial)
     phase6 = run("6", phase_train)
@@ -3532,6 +3674,8 @@ def main() -> int:
                                    "inference_spatial_packed_fp32":
                                        spatial_packed_fp32_launches,
                                    "inference_spatial_fp32": spatial_fp32_launches,
+                                   "inference_spatial_evidential":
+                                       spatial_packed_fp32_launches,
                                    "inference_view_spatial": view_spatial_launches,
                                    "training": forward["launches"],
                                    "training_evidential": train_ev_launches,
@@ -3545,6 +3689,7 @@ def main() -> int:
                                     "inference_depth_pipeline": 0, "inference_spatial": 0,
                                     "inference_spatial_packed_fp32": 0,
                                     "inference_spatial_fp32": 0,
+                                    "inference_spatial_evidential": 0,
                                     "inference_view_spatial": 0,
                                     "inference_fp32_packed": 0,
                                     "training": backward["launches"],

@@ -12,7 +12,13 @@ atol 1e-5; each input's gradient on each rank's rows atol 1e-5 (complete
 on its owner: a halo's cotangent comes back to it); each parameter's
 gradient, summed over the ranks (each holds its rows' share), atol 1e-5.
 The ranks are subprocesses (``python -c``, no JAX) on a free port with a
-deadline, started once for every case.
+deadline, started once for every case.  The evidential head's ops take
+NCDHW slabs (rows on H, dim -2): ``conv3d_rows`` at kernel 3 stride 1 and
+2 and at kernel 1, ``conv_transpose3d_rows``, ``resize_rows`` (held to
+``F.interpolate``'s align-corners resize of the rows) to the same rows,
+to half and to 3/2 of them (the last reads a row of the rank below), and
+a train-mode ``FlaxBatchNorm3d`` whose statistics cover both ranks (its
+updated running statistics held to the whole map's too).
 """
 
 import json
@@ -27,14 +33,18 @@ from torch import nn
 
 from aa_rmvsnet_tpu_torch.models.aggregation import InterViewAA, omega_folded
 from aa_rmvsnet_tpu_torch.models.blocks import DeformConv
+from aa_rmvsnet_tpu_torch.models.evidential import FlaxBatchNorm3d, batch_statistics_over
 from aa_rmvsnet_tpu_torch.models.feature import FeatNet
 from aa_rmvsnet_tpu_torch.models.regularizer import HIDDEN_DIMS, UNetConvLSTM
 from aa_rmvsnet_tpu_torch.parallel.spatial import (
     conv2d_rows,
+    conv3d_rows,
+    conv_transpose3d_rows,
     conv_transpose_rows,
     gather_rows,
     group_norm_rows,
     halo_rows,
+    resize_rows,
 )
 
 torch.set_num_threads(1)
@@ -86,6 +96,31 @@ def _pairs(flat):
 
 def _unet_outputs(cost, states):
     return [cost, *(t for pair in states for t in pair)]
+
+
+def _bn_train(module: FlaxBatchNorm3d, x: torch.Tensor, groups=()) -> list:
+    """``module`` in train mode on ``x`` (statistics over ``groups``' ranks
+    too): its output and the running statistics it leaves, after which its
+    buffers are put back, so that every call starts from the same ones."""
+    saved = [b.clone() for b in module.buffers()]
+    module.train()
+    with batch_statistics_over(module, groups):
+        y = module(x)
+    out = [y, module.running_mean.clone(), module.running_var.clone()]
+    module.eval()
+    with torch.no_grad():
+        for b, v in zip(module.buffers(), saved):
+            b.copy_(v)
+    return out
+
+
+def _resize_case(rows: int):
+    """``resize_rows`` of a 16-row map to ``rows`` rows, against
+    ``F.interpolate``'s align-corners bilinear resize of the rows alone."""
+    return (lambda seed: (None, [_randn(2, 3, 16, 5, seed=seed)]),
+            _sliced(lambda _, x: [F.interpolate(x[0], size=(rows, 5), mode="bilinear",
+                                                align_corners=True)]),
+            lambda _, x, mesh: [resize_rows(x[0], rows, mesh)])
 
 
 def _sliced(fn):
@@ -152,6 +187,40 @@ CASES = {
         lambda seed: (_randomize(FeatNet(), seed, scale=0.2), [_randn(2, 3, 16, 20, seed=seed)]),
         _sliced(lambda m, x: [m(x[0])]),
         lambda m, x, mesh: [m(x[0], mesh)],
+    ),
+    "conv3d_rows_k3_s1": (
+        lambda seed: (_randomize(nn.Conv3d(4, 6, 3, padding=1), seed),
+                      [_randn(2, 4, 3, 16, 5, seed=seed)]),
+        _sliced(lambda m, x: [m(x[0])]),
+        lambda m, x, mesh: [conv3d_rows(m, x[0], mesh)],
+    ),
+    "conv3d_rows_k3_s2": (
+        lambda seed: (_randomize(nn.Conv3d(4, 6, 3, stride=2, padding=1, bias=False), seed),
+                      [_randn(2, 4, 4, 16, 6, seed=seed)]),
+        _sliced(lambda m, x: [m(x[0])]),
+        lambda m, x, mesh: [conv3d_rows(m, x[0], mesh)],
+    ),
+    "conv3d_rows_k1": (
+        lambda seed: (_randomize(nn.Conv3d(4, 6, 1, bias=False), seed),
+                      [_randn(2, 4, 3, 16, 5, seed=seed)]),
+        _sliced(lambda m, x: [m(x[0])]),
+        lambda m, x, mesh: [conv3d_rows(m, x[0], mesh)],
+    ),
+    "conv_transpose3d_rows": (
+        lambda seed: (_randomize(nn.ConvTranspose3d(4, 6, 3, stride=2, padding=1,
+                                                    output_padding=1, bias=False), seed),
+                      [_randn(2, 4, 2, 8, 3, seed=seed)]),
+        _sliced(lambda m, x: [m(x[0])]),
+        lambda m, x, mesh: [conv_transpose3d_rows(m, x[0], mesh)],
+    ),
+    "resize_rows_same": _resize_case(16),
+    "resize_rows_half": _resize_case(8),
+    "resize_rows_up": _resize_case(24),
+    "batch_norm_3d_train": (
+        lambda seed: (_randomize(FlaxBatchNorm3d(4), seed),
+                      [_randn(2, 4, 3, 16, 5, seed=seed) + 0.5]),
+        lambda m, x, s: (lambda y, mean, var: [_rows(y, s), mean, var])(*_bn_train(m, x[0])),
+        lambda m, x, mesh: _bn_train(m, x[0], (mesh.spatial_group,)),
     ),
     "unet_step": (
         lambda seed: (_randomize(UNetConvLSTM(), seed, scale=0.2),

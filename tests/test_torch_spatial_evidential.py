@@ -6,10 +6,10 @@ True, mesh=make_mesh(spatial=2))``, ``cli train --evidential --spatial
 spatial=2)`` mesh of two CPU devices and on one device.
 
 Each rank sweeps its 16 rows of a 32x40 batch (V=3, D=8, depth block 4,
-remat), gathers the cost volume's rows and runs the head (maxdisp 8)
-replicated on the whole map against the whole map's labels; it
-backpropagates half the loss, so that the row gather's backward (a sum
-over the ranks) hands it its rows' share.  Weights: the core from
+remat) and runs the head (maxdisp 8) on its rows of the cost volume
+against its rows of the labels, its BatchNorm statistics summed over both
+ranks; it backpropagates its share of the loss, and the spatial sum of
+the gradients gives the whole map's.  Weights: the core from
 ``jax_params``, the head from ``utils/synthetic.py:seeded_head`` (the JAX
 init, its BatchNorm randomised), crossed to JAX by its converter.  flax takes its
 BatchNorm variance in two passes here, as torch does (the one-pass form
@@ -19,8 +19,9 @@ Bars, ``tests/test_torch_evidential_train.py``'s (lines 10-19): the loss
 rtol 1e-5; each core and head gradient within max(2e-4, 10 x the port's
 own move on one process when every weight is scaled by 1 + 1e-7 noise) of
 max(max|g|, 1e-3), the exactly zero one within its rounding bound; every
-updated BatchNorm statistic within 1e-5 of max(max|s|, 1e-3).  After the step both ranks' parameters and buffers are
-equal bit for bit.  ``eval_step`` against JAX's evidential eval step: loss
+updated BatchNorm statistic within 1e-5 of max(max|s|, 1e-3).  After the
+step both ranks' parameters and buffers are equal bit for bit, and each
+rank's images are its rows.  ``eval_step`` against JAX's evidential eval step: loss
 and gamma's error rtol 1e-5, the threshold rates within one pixel.  Two
 processes of ``cli train --evidential --spatial 2`` take one step on the
 synthetic DTU tree and write one checkpoint with the head and its
@@ -75,8 +76,8 @@ torch.set_num_threads(1)
 H, W, V, D, BLOCK, MAXDISP = 32, 40, 3, 8, 4, 8
 
 # One rank of two under make_mesh(spatial=2): eval_step on the eval batch,
-# the loss on the slab's labels (refused), then one evidential train_step;
-# results to a torch.save file.
+# the loss on the slab's rows of imgs with the whole map's labels (refused),
+# then one evidential train_step; results to a torch.save file.
 WORKER = textwrap.dedent("""
     import json, sys
     import numpy as np, torch
@@ -101,17 +102,17 @@ WORKER = textwrap.dedent("""
         data = np.load(a[name])
         batches[name] = {k: torch.from_numpy(data[k]) for k in data.files}
     out = {"eval": {k: float(v) for k, v in eval_step(
-        model, batch_rows(batches["eval"], mesh, evidential=True), config, head).items()}}
+        model, batch_rows(batches["eval"], mesh), config, head).items()}}
+    whole_labels = dict(batch_rows(batches["eval"], mesh), depth=batches["eval"]["depth"],
+                        mask=batches["eval"]["mask"])
     try:
         with torch.no_grad():
-            evidential_loss_fn(model, head, batch_rows(batches["eval"], mesh), config,
-                               config.sweep(remat=False))
+            evidential_loss_fn(model, head, whole_labels, config, config.sweep(remat=False))
     except ValueError as exc:
         out["refusal"] = str(exc)
     optimizer, scheduler = make_optimizer(trainable_parameters(model, head), config, 100)
-    metrics, images = train_step(model, optimizer, scheduler,
-                                 batch_rows(batches["train"], mesh, evidential=True), config,
-                                 head)
+    metrics, images = train_step(model, optimizer, scheduler, batch_rows(batches["train"], mesh),
+                                 config, head)
     out.update(metrics={k: float(v) for k, v in metrics.items()},
                images={k: tuple(v.shape) for k, v in images.items()},
                grads={k: p.grad for k, p in model.named_parameters()},
@@ -277,18 +278,19 @@ def test_train_step_matches_jax(runs, against):
 
 def test_ranks_equal_after_the_step(runs):
     """Both ranks' parameters, gradients and buffers bit for bit; the
-    head's images are the whole map's on each rank."""
+    head's images are each rank's rows."""
     _, ranks, _, _ = runs
     for key in ("state", "grads"):
         for name, t in ranks[0][key].items():
             assert torch.equal(t, ranks[1][key][name]), (key, name)
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
-    assert ranks[0]["images"]["depth_est"] == ranks[0]["images"]["alea_1"] == (1, H, W)
+    assert ranks[0]["images"]["depth_est"] == ranks[0]["images"]["alea_1"] == (1, H // 2, W)
 
 
 def test_eval_step_matches_jax(runs):
     """``eval_step`` on the mesh against JAX's evidential eval step, and the
-    loss on the slab's labels refused by name."""
+    loss on the whole map's labels with the slab's volume refused by
+    name."""
     _, ranks, want, _ = runs
     for r in ranks:
         got = r["eval"]
@@ -299,7 +301,7 @@ def test_eval_step_matches_jax(runs):
             key = f"thres{tau}mm_error"
             np.testing.assert_allclose(got[key], want["eval"][key], atol=1.0 / (H * W),
                                        err_msg=key)
-        assert "on a spatial mesh the labels stay whole" in r["refusal"]
+        assert "on a spatial mesh the labels are the slab's rows" in r["refusal"]
 
 
 def test_cli_train_evidential_spatial(runs):

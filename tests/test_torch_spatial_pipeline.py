@@ -246,10 +246,10 @@ def test_inference_bf16_packed_tracks_jax_bf16(runs):
 
 
 def test_inference_evidential_head_on_spatial_mesh(runs):
-    """With an evidential head the cost volume's rows are gathered and
-    spatial rank 0 runs the head: its four maps against the port's serial
-    run at the head's bars (gamma, the depth here, 2e-3; aleatoric and
-    epistemic 1e-3; confidence 1e-4)."""
+    """With an evidential head each spatial rank runs it on its rows of the
+    cost volume and spatial rank 0 gathers its four maps: the maps written
+    against the port's serial run at the head's bars (gamma, the depth
+    here, 2e-3; aleatoric and epistemic 1e-3; confidence 1e-4)."""
     root, ranks, _, _, _ = runs
     stats = ranks[0]["stats"]["evidential"]
     assert stats["count"] == V and [len(s) for s in stats["head_seconds"]] == [V, V]
