@@ -33,10 +33,10 @@ import os
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.patch_sample import true_div
 from ..parallel.spatial import conv2d_rows, conv_halo, halo_rows, spatial_mean
+from ..utils.spans import span
 from .blocks import ConvGNReLU, ResnetBlockGN
 
 
@@ -54,7 +54,8 @@ class InterViewAA(nn.Module):
 
     def forward(self, x, mesh=None):
         rw0, rw1, rw2, sigmoid = self.reweight_network
-        return sigmoid(rw2(rw1(rw0(x, mesh), mesh)))
+        with span("sweep.omega"):
+            return sigmoid(rw2(rw1(rw0(x, mesh), mesh)))
 
 
 def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int,
@@ -68,27 +69,29 @@ def _group_norm_folded(x: torch.Tensor, gn: nn.GroupNorm, groups: int,
     E[x] and E[x^2] (var = E[x^2] - E[x]^2, floored at 0).  Either way the
     normalised value is cast to x's dtype before the affine, which then
     runs in x's dtype (so a bf16 result rounds twice, as JAX's does).
+    Inside the profiler range ``groupnorm``.
     """
     N, GC = x.shape[:2]
     c = GC // groups
-    x32 = x.float()
 
     def mean_hw(t):
         return spatial_mean(t, (2, 3), mesh)
 
-    mu_c = mean_hw(x32)  # (N, G*c)
-    mu_g = mu_c.view(N, groups, c).mean(dim=2)  # (N, G): equal counts, exact
-    d = x32 - mu_g.repeat_interleave(c, dim=1)[:, :, None, None]
-    if x.dtype == torch.float32:
-        var_g = mean_hw(d.square()).view(N, groups, c).mean(dim=2)
-    else:
-        m2_g = mean_hw(x32.square()).view(N, groups, c).mean(dim=2)
-        var_g = torch.clamp_min(m2_g - mu_g.square(), 0.0)
-    inv = torch.rsqrt(var_g + gn.eps).repeat_interleave(c, dim=1)[:, :, None, None]
-    norm = (d * inv).to(x.dtype)
-    weight = gn.weight.to(x.dtype).repeat(groups)[:, None, None]
-    bias = gn.bias.to(x.dtype).repeat(groups)[:, None, None]
-    return norm * weight + bias
+    with span("groupnorm"):
+        x32 = x.float()
+        mu_c = mean_hw(x32)  # (N, G*c)
+        mu_g = mu_c.view(N, groups, c).mean(dim=2)  # (N, G): equal counts, exact
+        d = x32 - mu_g.repeat_interleave(c, dim=1)[:, :, None, None]
+        if x.dtype == torch.float32:
+            var_g = mean_hw(d.square()).view(N, groups, c).mean(dim=2)
+        else:
+            m2_g = mean_hw(x32.square()).view(N, groups, c).mean(dim=2)
+            var_g = torch.clamp_min(m2_g - mu_g.square(), 0.0)
+        inv = torch.rsqrt(var_g + gn.eps).repeat_interleave(c, dim=1)[:, :, None, None]
+        norm = (d * inv).to(x.dtype)
+        weight = gn.weight.to(x.dtype).repeat(groups)[:, None, None]
+        bias = gn.bias.to(x.dtype).repeat(groups)[:, None, None]
+        return norm * weight + bias
 
 
 def _conv_folded(x: torch.Tensor, conv: nn.Conv2d, groups: int,
@@ -188,8 +191,8 @@ def _omega_chain(omega: InterViewAA, y: torch.Tensor, groups: int, mesh=None) ->
     4 channels, at most 4 x 127 x 127).  The residual add dequantizes the
     block's input; the bound of ``relu(z + y)`` is rw1's GroupNorm bound
     plus rw0's.  As in the JAX package, the int32 sums are cast to bf16
-    before the dequantization scale multiplies them.  Returns the bf16
-    sigmoid weights, NCHW."""
+    before the dequantization scale multiplies them.  Returns rw2's bf16
+    output before the sigmoid, NCHW."""
     rw0, rw1, rw2 = omega.reweight_network[:3]
     stem0, stem1, stem_gn = rw1.stem
     b1 = _gn_bound(rw0[1])
@@ -202,8 +205,7 @@ def _omega_chain(omega: InterViewAA, y: torch.Tensor, groups: int, mesh=None) ->
     y_deq = yq.to(torch.bfloat16) * _tile(true_div(b1, 127.0).to(torch.bfloat16), groups)
     b3 = _gn_bound(stem_gn) + b1
     sq = _quant_act(torch.relu(z + y_deq), b3, groups)
-    w = _conv8(sq, rw2, *_quant_kernel(rw2.weight, true_div(b3, 127.0)), groups)
-    return torch.sigmoid(w)
+    return _conv8(sq, rw2, *_quant_kernel(rw2.weight, true_div(b3, 127.0)), groups)
 
 
 def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
@@ -236,6 +238,16 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
       ``(N, H, W, groups)`` sigmoid weights, one channel per volume, in
       x's dtype (bf16 for an int8 ``x``).
     """
+    with span("sweep.omega"):
+        return torch.sigmoid(_omega_folded_logits(omega, x, groups, input_scale, mesh)
+                             ).permute(0, 2, 3, 1)
+
+
+def _omega_folded_logits(omega: InterViewAA, x: torch.Tensor, groups: int,
+                         input_scale: torch.Tensor | None, mesh) -> torch.Tensor:
+    """:func:`omega_folded` before its sigmoid, NCHW.  The sigmoid stays
+    outside the ``quant.*`` ranges, so that ``sweep.omega`` ends with a
+    kernel of its own (``utils/spans.py``)."""
     rw0, rw1, rw2 = omega.reweight_network[:3]
     stem0, stem1, stem_gn = rw1.stem
     conv0 = rw0[0]
@@ -244,15 +256,15 @@ def omega_folded(omega: InterViewAA, x: torch.Tensor, groups: int,
         kernel = kernel * input_scale.to(kernel.dtype)[None, :, None, None]
     y = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC volumes
     if x.dtype == torch.int8:
-        with record_function("quant.omega_int8_rw0"):
+        with span("quant.omega_int8_rw0"):
             y = _conv8(y, conv0, *_quant_kernel(kernel), groups, mesh)
         if os.environ.get("AA_RMVSNET_OMEGA_INT8") == "chain":
-            with record_function("quant.omega_int8_chain"):
-                return _omega_chain(omega, y, groups, mesh).permute(0, 2, 3, 1)
+            with span("quant.omega_int8_chain"):
+                return _omega_chain(omega, y, groups, mesh)
     else:
         y = _conv_folded(y, conv0, groups, kernel, mesh)
     y = torch.relu(_group_norm_folded(y, rw0[1], groups, mesh))
     z = torch.relu(_group_norm_folded(_conv_folded(y, stem0[0], groups), stem0[1], groups, mesh))
     z = _group_norm_folded(_conv_folded(z, stem1, groups), stem_gn, groups, mesh)
     y = torch.relu(z + y)
-    return torch.sigmoid(_conv_folded(y, rw2, groups)).permute(0, 2, 3, 1)
+    return _conv_folded(y, rw2, groups)

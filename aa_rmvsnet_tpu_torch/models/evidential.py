@@ -31,8 +31,10 @@ quarter-height volume of ones reads its neighbours' ones, train-mode
 BatchNorm sums its statistics over the ranks, and the rest is per pixel.
 A slab's rows must be a multiple of 4 (the head halves them twice).
 Profiler ranges (``evidential.volumes``, ``.dres``, ``.hourglass_up``,
-``.hourglass``, ``.classify``) name its stages for
-``tools/profile_head.py``.
+``.hourglass``, ``.classify``) name its stages, and ``head.deconv`` each
+transposed 3D convolution inside them, for the benchmark's traced cells
+and ``tools/profile_head.py``.  ``head.deconv`` does not start with
+``evidential.``: ``head.ms_per_map`` sums the ``evidential.*`` ranges.
 """
 
 from __future__ import annotations
@@ -44,11 +46,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.resize import interp_matrix, resize_trilinear_align_corners
 from ..parallel.mesh import Mesh, all_reduce_sum
 from ..parallel.spatial import conv3d_rows, conv_transpose3d_rows, resize_rows
+from ..utils.spans import span
 from .init import init_like_jax
 
 
@@ -144,7 +146,8 @@ class _Stack(nn.Sequential):
     def forward(self, x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         for module in self:
             if isinstance(module, nn.ConvTranspose3d):
-                x = conv_transpose3d_rows(module, x, mesh)
+                with span("head.deconv"):
+                    x = conv_transpose3d_rows(module, x, mesh)
             elif isinstance(module, nn.Conv3d):
                 x = conv3d_rows(module, x, mesh)
             elif isinstance(module, _Stack):
@@ -298,7 +301,7 @@ class EvidentialHead(nn.Module):
                              f"H={h * S}, W={W} on a spatial axis of S={S}")
         x = prob_volume[:, None]  # (B, 1, D, h, W)
 
-        with record_function("evidential.volumes"):
+        with span("evidential.volumes"):
             vol1 = torch.softmax(_resize(x, M, h * S, W, mesh), dim=2)
             vol2 = torch.softmax(_resize(x, M // 2, h * S // 2, W // 2, mesh), dim=2)
             # The reference softmaxes its third volume over the (size-1)
@@ -307,7 +310,7 @@ class EvidentialHead(nn.Module):
             # (zeros past the map's edges), as the whole map's padding.
             vol3 = x.new_ones(B, 1, M // 4, h // 4, W // 4)
 
-        with record_function("evidential.dres"):
+        with span("evidential.dres"):
             cost0 = self.dres0(vol1, mesh)
             del vol1
             cost0 = self.dres1(cost0, mesh) + cost0
@@ -315,10 +318,10 @@ class EvidentialHead(nn.Module):
             v3 = self.conv_vol3(vol3, mesh)
             del vol2, vol3
 
-        with record_function("evidential.hourglass_up"):
+        with span("evidential.hourglass_up"):
             combine = self.combine1(cost0, v2, v3, mesh)
             del v2, v3
-        with record_function("evidential.hourglass"):
+        with span("evidential.hourglass"):
             out1 = self.dres2(combine, mesh)
             del combine
             out2 = self.dres3(out1, mesh)
@@ -337,7 +340,7 @@ class EvidentialHead(nn.Module):
             beta = F.softplus(torch.sum(logbeta * prob, dim=1))
             return (pred, la, alpha, beta), prob
 
-        with record_function("evidential.classify"):
+        with span("evidential.classify"):
             est0, prob0 = classify(self.classif0, cost0)
             del cost0
             est1, prob1 = classify(self.classif1, out1)

@@ -57,11 +57,13 @@ in the JAX package): the row gathers run over the spatial group, the view
 merge over the view group, in one order on every rank.
 
 Public functions keep the JAX package's NHWC shapes; the modules run NCHW.
-Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block``,
-``sweep.regularize``, ``sweep.wta``) name the layers for
-``tools/profile_main_path.py`` and ``tools/profile_train_step.py``;
-outside a profiler they cost a few microseconds each, a few hundred times
-per map.
+Profiler ranges (``featnet``, ``sweep.setup``, ``sweep.cost_block`` with
+``sweep.warp`` and ``sweep.omega`` inside it, ``sweep.regularize``,
+``sweep.wta``; ``groupnorm`` around every GroupNorm) name the layers for
+the benchmark's traced cells (``benchmark/trace.py``) and
+``tools/profile_main_path.py``.  They go through ``utils/spans.py:span``:
+with no profiler running a range costs 0.36 µs of host time (against
+10.9 µs for an unentered ``record_function``; H100 host, PyTorch 2.11).
 """
 
 from __future__ import annotations
@@ -75,7 +77,6 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .aggregation import InterViewAA, omega_folded
@@ -95,6 +96,7 @@ from ..ops.patch_sample import (
     quantize_residual,
     true_div,
 )
+from ..utils.spans import span
 
 
 class AARMVSNetCore(nn.Module):
@@ -279,7 +281,7 @@ def extract_features(model: AARMVSNetCore, imgs: torch.Tensor,
         x = chunk.reshape(-1, H, W, 3).to(dtype).permute(0, 3, 1, 2)
         return model.feature(x, mesh).permute(0, 2, 3, 1).reshape(B, chunk.shape[1], H, W, -1)
 
-    with record_function("featnet"):
+    with span("featnet"):
         return torch.cat([run(imgs[:, i:i + k]).transpose(0, 1) for i in range(0, V, k)])
 
 
@@ -333,9 +335,10 @@ def _build_cost_block(
     def terms():
         for table, scale, rot_grid, trans in zip(src_tables, table_scales, rot_grids, transes):
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
-            warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1),
-                                           table.shape[1] // W, W, scale=scale,
-                                           compute_dtype=ref_feat.dtype)
+            with span("sweep.warp"):
+                warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1),
+                                               table.shape[1] // W, W, scale=scale,
+                                               compute_dtype=ref_feat.dtype)
             warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
             residual_sq = (warped - ref) ** 2  # (B, Db, C, H, W)
             if hybrid_omega:
@@ -373,8 +376,10 @@ def _build_cost_block_folded(
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
             xt = x.transpose(1, 2).reshape(B, -1)  # pixel-major (B, H*W*Db)
             yt = y.transpose(1, 2).reshape(B, -1)
-            yield patch_bilinear_sample(table, xt, yt, table.shape[1] // W, W, scale=scale,
-                                        compute_dtype=ref_feat.dtype).view(B, H, W, -1)
+            with span("sweep.warp"):
+                w = patch_bilinear_sample(table, xt, yt, table.shape[1] // W, W, scale=scale,
+                                          compute_dtype=ref_feat.dtype)
+            yield w.view(B, H, W, -1)
 
     return _cost_from_warped(model, ref_feat, warped(), residual_scale, residual_dtype, mesh)
 
@@ -394,12 +399,13 @@ def _warp_packed(table: torch.Tensor, rot_grid: torch.Tensor, trans: torch.Tenso
     the dequantization factors of a quantized table."""
     x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, K, H*W)
     quantize = ref_flat is not None and residual_dtype is not None
-    out = patch_bilinear_sample_packed(
-        table, x.transpose(1, 2), y.transpose(1, 2), table.shape[1] // W, W, taps=taps,
-        folded_out=True, ref=ref_flat, scale=scale, compute_dtype=compute_dtype,
-        residual_inv_scale=1.0 / residual_scale if quantize else None,
-        residual_dtype=residual_dtype if quantize else None,
-    )  # (B, H*W, K*C): groups = pixels
+    with span("sweep.warp"):
+        out = patch_bilinear_sample_packed(
+            table, x.transpose(1, 2), y.transpose(1, 2), table.shape[1] // W, W, taps=taps,
+            folded_out=True, ref=ref_flat, scale=scale, compute_dtype=compute_dtype,
+            residual_inv_scale=1.0 / residual_scale if quantize else None,
+            residual_dtype=residual_dtype if quantize else None,
+        )  # (B, H*W, K*C): groups = pixels
     return _map_pair(lambda o: o.view(o.shape[0], H, W, -1), out)
 
 
@@ -463,7 +469,7 @@ def _cost_from_warped(model: AARMVSNetCore, ref_feat: torch.Tensor, warped,
             ref_tiled = ref_feat.repeat(1, 1, 1, Db)  # (B, H, W, Db*C)
             r = (w - ref_tiled) ** 2
             if residual_dtype is not None:
-                with record_function("quant.residual"):
+                with span("quant.residual"):
                     r = quantize_residual(r, 1.0 / residual_scale, residual_dtype, Db)
             yield r
 
@@ -505,12 +511,12 @@ def _cost_from_residual(model: AARMVSNetCore, residuals, C: int,
             B, H, W, DbC = r_var.shape
             Db = DbC // C
             if residual_dtype is not None and r_omega.dtype != torch.int8:
-                with record_function("quant.omega_input"):
+                with span("quant.omega_input"):
                     r_omega = r_omega.to(compute_dtype)
             weights = omega_folded(model.omega, r_omega, Db, omega_scale, mesh)  # (B, H, W, Db)
             r6 = r_var.view(B, H, W, Db, C)
             if residual_dtype is not None:
-                with record_function("quant.variance_dequant"):
+                with span("quant.variance_dequant"):
                     r6 = r6.to(compute_dtype) * residual_scale.to(compute_dtype)
             yield (weights[..., None] + 1.0) * r6
 
@@ -623,7 +629,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     else:
         raise ValueError(f"sweep: {features.shape[0]} feature views for {V} cameras")
 
-    with record_function("sweep.setup"):
+    with span("sweep.setup"):
         features = features.to(dtype)
         ref_feat = features[0]  # (B, H, W, C)
         # A warp may read any row of a source view: on a spatial mesh each
@@ -634,7 +640,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
             src_tables = [build_patch_table_packed(f, taps) for f in sources]
             table_scales = [None] * len(src_index)
         else:
-            with record_function("quant.tables"):
+            with span("quant.tables"):
                 quantized = [build_patch_table_packed_quant(f, table_dtype, taps)
                              for f in sources]
             src_tables = [t for t, _ in quantized]
@@ -698,9 +704,9 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
         """Cost blocks + one ConvLSTM step per hypothesis of ``dsuper``.
         The model, reference features, tables and homography terms come in
         by closure; under checkpoint their gradients still flow."""
-        with record_function("sweep.cost_block"):
+        with span("sweep.cost_block"):
             blocks = cost_blocks(dsuper)
-        with record_function("sweep.regularize"):
+        with span("sweep.regularize"):
             costs = []
             for cost_block in blocks:
                 for cost_slice in cost_block:
@@ -723,7 +729,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
         # grad-mode switch is entered: an exported program records each one,
         # and splitting the graph at them doubles the export's time.
         no_grad = torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext()
-        with record_function("sweep.wta"), no_grad:
+        with span("sweep.wta"), no_grad:
             for i in range(pack):
                 sub = costs[i * block:(i + 1) * block]
                 dblock = dsuper[:, i * block:(i + 1) * block]
@@ -766,7 +772,7 @@ def sweep(
     """
     _, B, H, W, _ = features.shape
     model = _cast(model, config.feature_dtype)
-    with record_function("sweep.setup"):
+    with span("sweep.setup"):
         states = init_states(B, H, W, dtype=config.feature_dtype, device=features.device)
     _, depth_img, max_cost, lse, volume = _sweep_chunk(
         model, features, proj_matrices, depth_values, states, config)

@@ -38,7 +38,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
+
+from ..utils.spans import span
 
 #: Largest finite float8_e4m3fn value: a quantized channel's amax maps onto
 #: it.  torch saturates casts past it to 448 where JAX gives NaN from 464
@@ -317,12 +318,12 @@ def patch_bilinear_sample_packed(
     wy = _tent(y[..., None] - (ay[:, :, None, None] + tap_pos))
     w = (wy[..., :, None] * wx[..., None, :]).reshape(B * G, K, T * T)
     if table.dtype == torch.int8:
-        with record_function("quant.int8_blend"):
+        with span("quant.int8_blend"):
             wq = torch.clamp(torch.round(w * 127.0), 0, 127)
             s_c = true_div(scale[:, :, :C].to(out_dtype), 127.0)  # (B, 1, C)
             out = int8_blend(wq, rows, out_dtype).view(B, G, K, C) * s_c[:, :, None, :]
     elif scale is not None:
-        with record_function("quant.dequant_rows"):
+        with span("quant.dequant_rows"):
             rows = rows.view(B, G, T * T, C).to(out_dtype) \
                 * scale.to(out_dtype).view(B, 1, T * T, C)
         out = torch.bmm(w.to(out_dtype), rows.view(B * G, T * T, C))
@@ -332,7 +333,7 @@ def patch_bilinear_sample_packed(
     if ref is not None:
         out = (out - ref.to(out_dtype).repeat(1, 1, K)) ** 2
         if residual_inv_scale is not None or residual_dtype is not None:
-            with record_function("quant.residual"):
+            with span("quant.residual"):
                 out = quantize_residual(out, residual_inv_scale, residual_dtype, K)
     if folded_out:
         return out

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import interp_matrix
+from ..utils.spans import span
 from .mesh import Mesh, all_reduce_sum
 
 
@@ -203,21 +204,23 @@ def group_norm_rows(x: torch.Tensor, gn: nn.GroupNorm, mesh: Mesh | None) -> tor
     (``parallel.mesh.all_reduce_sum``, whose backward sums the cotangents
     over the ranks), and the affine as the native kernel applies it, ``x *
     a + b`` with ``a = rstd * weight`` and ``b = bias - mean * a`` in fp32,
-    rounded once to x's dtype.  ``gn(x)`` without a mesh."""
-    if mesh is None:
-        return gn(x)
-    N, C = x.shape[:2]
-    G = gn.num_groups
-    xf = x.float()
-    x32 = xf.reshape(N, G, -1)
-    mean = spatial_mean(x32, (2,), mesh)  # (N, G)
-    var = spatial_mean((x32 - mean[..., None]).square(), (2,), mesh)
-    rstd = torch.rsqrt(var + gn.eps).repeat_interleave(C // G, dim=1)  # (N, C)
-    mean = mean.repeat_interleave(C // G, dim=1)
-    a = rstd * gn.weight.float()
-    b = gn.bias.float() - mean * a
-    y = torch.addcmul(b[:, :, None, None], xf, a[:, :, None, None])
-    return y.to(x.dtype)
+    rounded once to x's dtype.  ``gn(x)`` without a mesh.  Inside the
+    profiler range ``groupnorm``."""
+    with span("groupnorm"):
+        if mesh is None:
+            return gn(x)
+        N, C = x.shape[:2]
+        G = gn.num_groups
+        xf = x.float()
+        x32 = xf.reshape(N, G, -1)
+        mean = spatial_mean(x32, (2,), mesh)  # (N, G)
+        var = spatial_mean((x32 - mean[..., None]).square(), (2,), mesh)
+        rstd = torch.rsqrt(var + gn.eps).repeat_interleave(C // G, dim=1)  # (N, C)
+        mean = mean.repeat_interleave(C // G, dim=1)
+        a = rstd * gn.weight.float()
+        b = gn.bias.float() - mean * a
+        y = torch.addcmul(b[:, :, None, None], xf, a[:, :, None, None])
+        return y.to(x.dtype)
 
 
 def conv_halo(kernel: int, stride: int, padding: int, dilation: int = 1) -> tuple[int, int]:

@@ -72,6 +72,7 @@ from ..parallel.depth_pipeline import pipeline_forward
 from ..parallel.mesh import shard_dataset, spatial_rows, views_as_replicas
 from ..parallel.spatial import gather_rows_to_first
 from ..utils.device import disable_tf32, resolve_device
+from ..utils.spans import span
 
 
 @dataclass
@@ -225,7 +226,14 @@ def run_inference(
     stays fp32.  Turns TF32 off (see :func:`..utils.device.disable_tf32`).
     A map's time runs from the forward call to its depth and confidence on
     the host, after ``torch.cuda.synchronize()``; the packed gate runs
-    before it and the head after it, as in the JAX package.
+    before it and the head after it, as in the JAX package.  A map's host
+    phases run in the profiler ranges ``infer.upload`` (the inputs, the
+    images to the device only in the next range), ``infer.gate`` (the
+    images' copy, then the gate) and ``infer.output`` (the maps, and the
+    head's, to the host).  A trace's idle gap bears the host's range at its
+    start, so the card's idle after the images' copy reads as the gate's,
+    and its idle after the last read-back, through :func:`save_outputs`
+    until the next map's inputs, as ``infer.output``'s.
 
     Returns ``{count, total_s, maps_per_s, map_seconds, modes,
     gate_seconds, head_seconds, failures}``: per map its seconds, its
@@ -301,27 +309,33 @@ def run_inference(
                 print(f"SKIP (load failure): {sample}", flush=True)
                 continue
             row0, rows = spatial_rows(rows_mesh, sample["imgs"].shape[1])
-            imgs = torch.from_numpy(np.ascontiguousarray(
-                sample["imgs"][None, :, row0:row0 + rows])).to(device)
-            proj = torch.from_numpy(
-                np.ascontiguousarray(sample["proj_matrices"][None])).to(device)
-            depths = torch.from_numpy(
-                np.asarray(sample["depth_values"], np.float32)[None]).to(device)
+            with span("infer.upload"):
+                proj = torch.from_numpy(
+                    np.ascontiguousarray(sample["proj_matrices"][None])).to(device)
+                depths = torch.from_numpy(
+                    np.asarray(sample["depth_values"], np.float32)[None]).to(device)
+                imgs = torch.from_numpy(np.ascontiguousarray(
+                    sample["imgs"][None, :, row0:row0 + rows]))
 
-            t0 = time.perf_counter()
-            mode = resolve_packed_mode(sample, config)
-            gate_seconds.append(time.perf_counter() - t0)
+            with span("infer.gate"):
+                # The card runs dry when the images' copy ends, inside this
+                # range, so the gate's idle gap bears its name.
+                imgs = imgs.to(device)
+                t0 = time.perf_counter()
+                mode = resolve_packed_mode(sample, config)
+                gate_seconds.append(time.perf_counter() - t0)
             if mode not in sweep_configs:
                 sweep_configs[mode] = sweep_config(config, mode, rows_mesh)
 
             t0 = time.perf_counter()
             out = forward(model, imgs, proj, depths, sweep_configs[mode])
             maps = torch.stack([out["depth"][0], out["photometric_confidence"][0]])
-            if rows_mesh is not None:  # whole on spatial rank 0, which writes
-                maps = gather_rows_to_first(maps, rows_mesh)
-            depth, conf = (None, None) if maps is None else maps.cpu().numpy()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with span("infer.output"):
+                if rows_mesh is not None:  # whole on spatial rank 0, which writes
+                    maps = gather_rows_to_first(maps, rows_mesh)
+                depth, conf = (None, None) if maps is None else maps.cpu().numpy()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
 
             uncertainty = None
@@ -341,7 +355,8 @@ def run_inference(
                     if rows_mesh is not None:
                         nig = gather_rows_to_first(nig, rows_mesh)
                 if writes:
-                    gamma, nu, alpha, beta = nig.cpu().numpy()
+                    with span("infer.output"):
+                        gamma, nu, alpha, beta = nig.cpu().numpy()
                     del nig
                     uncertainty = {
                         "aleatoric_0": np.sqrt(beta * (nu + 1) / nu / alpha),

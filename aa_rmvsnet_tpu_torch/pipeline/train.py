@@ -69,7 +69,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..data.loader import batched, resilient_samples
 from ..models.evidential import (
@@ -97,6 +96,7 @@ from ..parallel.mesh import (
 from ..parallel.spatial import gather_rows, spatial_mean
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.metrics import MeterDict, abs_depth_error, threshold_error_rate
+from ..utils.spans import span
 from .checkpoint import restore_latest, save_state
 
 THRESHOLDS_MM = (2.0, 4.0, 8.0, 16.0, 32.0)
@@ -366,30 +366,29 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
     ``train.optimizer``.  With ``head`` (``config.evidential``) both modules
     run in train mode and the loss is ``loss_emvsnet`` on the head's output.
     Under ``config.mesh`` the gradients are those of the global batch
-    before the clip (range ``train.all_reduce``; :func:`average_gradients`),
-    and the metrics are the global batch's; on a spatial mesh ``batch``
-    holds this rank's rows (:func:`batch_rows`), and so do the images.
+    before the clip (:func:`average_gradients`), and the metrics are the
+    global batch's; on a spatial mesh ``batch`` holds this rank's rows
+    (:func:`batch_rows`), and so do the images.
     Returns ``(metrics, images)`` of detached tensors."""
     model.train()
     if head is not None:
         head.train()
     optimizer.zero_grad(set_to_none=True)
-    with record_function("train.forward"):
+    with span("train.forward"):
         if head is None:
             loss, wta_depth = loss_fn(model, batch, config.sweep(remat=True),
                                       _rows_group(config))
         else:
             loss, ev = evidential_loss_fn(model, head, batch, config, config.sweep(remat=True))
-    with record_function("train.backward"):
+    with span("train.backward"):
         loss.backward()
     params = trainable_parameters(model, head)
     if config.mesh is not None:
         partial = ()
         if view_shard(config.mesh, batch["imgs"].shape[1]) is not None:
             partial = list(model.feature.parameters()) + list(model.omega.parameters())
-        with record_function("train.all_reduce"):
-            average_gradients(params, config.mesh, partial)
-    with record_function("train.optimizer"):
+        average_gradients(params, config.mesh, partial)
+    with span("train.optimizer"):
         if config.grad_clip is not None:
             clip_by_global_norm(params, config.grad_clip)
         optimizer.step()
@@ -399,9 +398,8 @@ def train_step(model, optimizer, scheduler, batch: dict, config: TrainConfig,
         # but the card's 3D convolutions are not bit for bit deterministic,
         # so the replicas' running statistics are averaged to stay equal.
         # The spatial ranks' are sums over the ranks, equal already.
-        with record_function("train.all_reduce"):
-            all_reduce_mean([b for b in head.buffers() if b.is_floating_point()],
-                            config.mesh.view_group)
+        all_reduce_mean([b for b in head.buffers() if b.is_floating_point()],
+                        config.mesh.view_group)
     if head is not None:
         metrics, images = _evidential_summaries(ev, batch, config)
         metrics["loss"] = _loss_metric(loss, config)

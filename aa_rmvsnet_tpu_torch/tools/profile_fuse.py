@@ -47,6 +47,7 @@ import torch
 
 from ..ops import fusion
 from ..pipeline import fuse
+from ..utils.spans import span
 from ..utils.synthetic import fusion_scan
 from .profile_main_path import device_breakdown
 
@@ -188,7 +189,7 @@ def main(argv=None) -> int:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
-        with torch.profiler.record_function("scan"):
+        with span("scan"):
             fuse.fuse_views(*scan)
         torch.cuda.synchronize()
     spans_ms, _, groups_ms, _ = device_breakdown(prof, ("scan",), KERNEL_GROUPS)

@@ -67,9 +67,10 @@ MODES = {"bf16-packed": (True, 1, 4), "levers": (True, 2, 4)}
 
 LAYERS = ("featnet", "sweep.setup", "sweep.cost_block", "sweep.regularize", "sweep.wta")
 #: The quantized levers' ranges, nested inside ``sweep.setup`` (tables) and
-#: ``sweep.cost_block`` (the rest).
+#: ``sweep.cost_block`` (the rest; the chain with ``AA_RMVSNET_OMEGA_INT8=chain``).
 QUANT_RANGES = ("quant.tables", "quant.int8_blend", "quant.dequant_rows", "quant.residual",
-                "quant.omega_input", "quant.omega_int8_rw0", "quant.variance_dequant")
+                "quant.omega_input", "quant.omega_int8_rw0", "quant.omega_int8_chain",
+                "quant.variance_dequant")
 KERNEL_GROUPS = (  # first match wins; matched on the lower-cased kernel name
     ("lstm_gates (CUDA kernel of the port)", ("lstm_gates",)),
     ("convolution", ("conv", "gemm", "xmma", "winograd", "cudnn", "implicit", "fft")),
@@ -85,13 +86,12 @@ def _group(name: str, groups=KERNEL_GROUPS) -> str:
     return next(label for label, keys in groups if any(k in low for k in keys))
 
 
-def device_breakdown(prof, layers, groups=KERNEL_GROUPS,
-                     skip=()) -> tuple[dict, dict, dict, dict]:
+def device_breakdown(prof, layers, groups=KERNEL_GROUPS) -> tuple[dict, dict, dict, dict]:
     """``(layers_ms, kernels_ms, groups_ms, cross_ms)`` of a profile: the
     device-timeline span of each profiler range in ``layers``, and device
-    time by kernel, by kernel group and by (range, group).  The ranges
-    named in ``skip`` (nested in or around ``layers``) are neither spans
-    nor kernels.
+    time by kernel, by kernel group and by (range, group).  The other
+    ranges' spans (a device event named as a host event) are neither
+    layers nor kernels.
 
     On the device timeline a profiler range appears as a span over its
     kernels (and any idle gaps between them); everything else there is a
@@ -101,6 +101,8 @@ def device_breakdown(prof, layers, groups=KERNEL_GROUPS,
     """
     device_events = [ev for ev in prof.events()
                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = {ev.name for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CPU}
     spans = []
     for name in layers:
         for start, end in sorted((ev.time_range.start, ev.time_range.end)
@@ -118,7 +120,7 @@ def device_breakdown(prof, layers, groups=KERNEL_GROUPS,
     groups_ms: dict[str, float] = defaultdict(float)
     cross_ms: dict[str, float] = defaultdict(float)
     for ev in device_events:
-        if ev.name in layers or ev.name in skip:
+        if ev.name in ranges:
             continue
         ms = ev.time_range.elapsed_us() / 1e3
         i = bisect.bisect_right(starts, ev.time_range.start) - 1
@@ -206,9 +208,8 @@ def main(argv=None) -> int:
             prof_wall_s = time.perf_counter() - t0
         omega_ms = _omega_forms_ms(model, H, W, config.feature_dtype)
 
-    layers_ms, kernels_ms, groups_ms, cross_ms = device_breakdown(prof, LAYERS,
-                                                                  skip=QUANT_RANGES)
-    quant_ms, _, _, quant_cross_ms = device_breakdown(prof, QUANT_RANGES, skip=LAYERS)
+    layers_ms, kernels_ms, groups_ms, cross_ms = device_breakdown(prof, LAYERS)
+    quant_ms, _, _, quant_cross_ms = device_breakdown(prof, QUANT_RANGES)
     quant_cross_ms = {k: v for k, v in quant_cross_ms.items()
                       if not k.startswith("(outside the ranges)")}
     busy_ms = sum(kernels_ms.values())
