@@ -12,7 +12,9 @@ the conv and ``1`` the GroupNorm, and so on).
 Each block's ``forward(x, ..., mesh=None)`` takes a spatial mesh for a
 slab of rows of the map (``parallel/spatial.py``), with the same
 parameters: the convolutions with their halos, GroupNorm with statistics
-over every rank's rows.  Without one it is the plain module call.
+over every rank's rows.  Without one it is the plain module call, but for
+GroupNorm and the ReLU after it, which ``group_norm_rows`` runs as one
+kernel pair on the card where no autograd graph is recorded.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ class ConvGNReLU(nn.Sequential):
         )
 
     def forward(self, x, mesh=None):
-        return torch.relu(group_norm_rows(conv2d_rows(self[0], x, mesh), self[1], mesh))
+        return group_norm_rows(conv2d_rows(self[0], x, mesh), self[1], mesh, relu=True)
 
 
 class ResnetBlockGN(nn.Module):
@@ -80,8 +82,8 @@ class DeconvGNReLU(nn.Module):
         self.gn = group_norm(out_c)
 
     def forward(self, x, mesh=None):
-        return torch.relu(group_norm_rows(conv_transpose_rows(self.conv, x, mesh), self.gn,
-                                          mesh))
+        return group_norm_rows(conv_transpose_rows(self.conv, x, mesh), self.gn, mesh,
+                               relu=True)
 
 
 class ConvLSTMCell(nn.Module):
@@ -133,4 +135,4 @@ class DeformConvGNReLU(nn.Sequential):
         super().__init__(DeformConv(in_c, out_c), group_norm(out_c), nn.ReLU())
 
     def forward(self, x, mesh=None):
-        return torch.relu(group_norm_rows(self[0](x, mesh), self[1], mesh))
+        return group_norm_rows(self[0](x, mesh), self[1], mesh, relu=True)

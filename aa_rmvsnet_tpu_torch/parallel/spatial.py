@@ -17,7 +17,7 @@ tensors (rows on dim -2), and each is differentiable, so that ``cli train
   :func:`gather_rows_to_first` the same on spatial rank 0 only, with no
   gradient (inference's outputs);
 - :func:`group_norm_rows`: GroupNorm whose statistics cover every rank's
-  rows;
+  rows, and the ReLU after it;
 - :func:`conv2d_rows`, :func:`conv_transpose_rows`, and for NCDHW (rows on
   H, dim -2) :func:`conv3d_rows`, :func:`conv_transpose3d_rows`: a
   convolution of a slab with the halo its kernel reads, so that each
@@ -50,6 +50,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import group_norm as group_norm_ops
+from ..ops.group_norm import normalize
 from ..ops.resize import interp_matrix
 from ..utils.spans import span
 from .mesh import Mesh, all_reduce_sum
@@ -197,30 +199,46 @@ def spatial_mean(t: torch.Tensor, dims: tuple, mesh: Mesh | None) -> torch.Tenso
     return all_reduce_sum(t.sum(dim=dims), mesh.spatial_group) / count
 
 
-def group_norm_rows(x: torch.Tensor, gn: nn.GroupNorm, mesh: Mesh | None) -> torch.Tensor:
+def _takes_kernel(x: torch.Tensor, mesh: Mesh | None) -> bool:
+    """Whether :func:`group_norm_rows` launches the kernel pair: a CUDA
+    tensor, no mesh, no autograd graph recorded, not inside
+    ``torch.compile`` or ``torch.export``."""
+    return (mesh is None and x.is_cuda and not torch.is_grad_enabled()
+            and not torch.compiler.is_compiling())
+
+
+def group_norm_rows(x: torch.Tensor, gn: nn.GroupNorm, mesh: Mesh | None,
+                    relu: bool = False) -> torch.Tensor:
     """``gn`` on the slab ``x`` (NCHW) with each (sample, group)'s
-    statistics over every rank's rows: two passes in fp32 (the mean, then
-    the centred sum of squares), each local sum all-reduced
-    (``parallel.mesh.all_reduce_sum``, whose backward sums the cotangents
-    over the ranks), and the affine as the native kernel applies it, ``x *
-    a + b`` with ``a = rstd * weight`` and ``b = bias - mean * a`` in fp32,
-    rounded once to x's dtype.  ``gn(x)`` without a mesh.  Inside the
-    profiler range ``groupnorm``."""
+    statistics over every rank's rows, then a ReLU where ``relu`` asks for
+    one: two passes in fp32 (the mean, then the centred sum of squares),
+    each local sum all-reduced (``parallel.mesh.all_reduce_sum``, whose
+    backward sums the cotangents over the ranks), and the affine as the
+    native kernel applies it (``ops/group_norm.py:normalize``).  Inside the
+    profiler range ``groupnorm``.
+
+    Without a mesh, ``gn(x)``; but where no autograd graph is recorded
+    (inference), on a CUDA tensor and outside ``torch.compile`` and
+    ``torch.export`` (whose graphs keep the aten op), the kernel pair of
+    ``ops/group_norm.py`` with the ReLU fused: the same numerics summed in
+    another order, spread over the whole card where aten reduces each row
+    in one block.  The kernels have no backward, and the training step's
+    remat runs its forward and its recompute with a graph recorded."""
     with span("groupnorm"):
+        if _takes_kernel(x, mesh):
+            # NCHW-contiguous, as aten's CUDA GroupNorm also makes its input
+            # (FeatNet's first convolution writes channels last).
+            return group_norm_ops.group_norm(x.contiguous(), gn.num_groups, gn.weight,
+                                             gn.bias, gn.eps, relu)
         if mesh is None:
-            return gn(x)
-        N, C = x.shape[:2]
-        G = gn.num_groups
-        xf = x.float()
-        x32 = xf.reshape(N, G, -1)
-        mean = spatial_mean(x32, (2,), mesh)  # (N, G)
-        var = spatial_mean((x32 - mean[..., None]).square(), (2,), mesh)
-        rstd = torch.rsqrt(var + gn.eps).repeat_interleave(C // G, dim=1)  # (N, C)
-        mean = mean.repeat_interleave(C // G, dim=1)
-        a = rstd * gn.weight.float()
-        b = gn.bias.float() - mean * a
-        y = torch.addcmul(b[:, :, None, None], xf, a[:, :, None, None])
-        return y.to(x.dtype)
+            y = gn(x)
+        else:
+            N = x.shape[0]
+            x32 = x.float().reshape(N, gn.num_groups, -1)
+            mean = spatial_mean(x32, (2,), mesh)  # (N, G)
+            var = spatial_mean((x32 - mean[..., None]).square(), (2,), mesh)
+            y = normalize(x, mean, var, gn.weight, gn.bias, gn.eps)
+    return torch.relu(y) if relu else y
 
 
 def conv_halo(kernel: int, stride: int, padding: int, dilation: int = 1) -> tuple[int, int]:

@@ -32,6 +32,16 @@ Phases, each printing a line; any failure exits non-zero:
    in bf16 (the type of a bf16 training step) beside
    ``_thnn_fused_lstm_cell_backward_impl`` in the same type and the byte
    bound (bf16: half of fp32's bytes);
+3c. GroupNorm kernel pair vs plain (``ops/group_norm.py``): at the
+   regularizer's two GroupNorms of a depth step (1x16x864x1152 and
+   1x16x432x576, 2 groups), at FeatNet's widest (5x32x864x1152, 4 groups),
+   at an odd plane and off the 16-byte grid (the scalar path), with and
+   without the ReLU, fp32 (relative error 1e-5) and bf16 (one ulp), one
+   launch counted a call; at the first three in bf16 with the ReLU, the
+   pair's time (inputs in L2 from the run before, and cold in device
+   memory) beside its three-pass byte bound (read, read, write), the plain
+   version's time and ``F.group_norm`` + ``relu``'s (``library_ms``); the
+   host's cost per call of the wrapper and of the library call;
 4. CUDA vs CPU: the whole ``forward`` at 64x80, V=3, D=48 on both devices
    (depth equal on >= 99.9 % of pixels, confidence atol 1e-4);
 4b. CUDA vs CPU training gradients: one remat training forward and
@@ -124,8 +134,10 @@ Phases, each printing a line; any failure exits non-zero:
    in-memory synthetic plane scene (``utils/synthetic.py``; cameras 2
    apart, so that the 4x4 gate passes) for two reference views, with the
    packed mode (True, 1, 4) of both maps and the gate kernels' launch
-   counts asserted (5 x D x maps forward, no backward), the gate's worst
-   step and host seconds printed;
+   counts asserted (5 x D x maps forward, no backward), the GroupNorm
+   kernel pair's too ((11 + 2 x D) x maps: FeatNet's 11 and the
+   regularizer's 2 a depth step), the gate's worst step and host seconds
+   printed;
 5b. the exact path kept: one map of the same scene with ``--fp32
    --packed_rows 0``'s settings, its launch count asserted, and the share
    of its depths within one bin of the bf16 packed map's; then the same
@@ -315,7 +327,9 @@ depth step, and the gate kernels' ``*_bf16`` keys the same in bf16;
 ``dtu_train`` depth step, and ``host_us_per_call`` and
 ``library_host_us_per_call`` the host's cost of one call (the forward's
 ``op_host_us_per_call`` that of the registered custom op, which only a
-traced program calls).  Device times
+traced program calls).  The GroupNorm entry's ``launches`` is phase 5's
+count (training never launches it), and ``bf16_shapes`` holds phase 3c's
+times a call in ms at each timed shape.  Device times
 come from CUDA events around runs queued behind a sleep on the device
 (``dtu_eval`` shapes) or a 1 GiB write (``dtu_train`` shapes), so that they
 time the device and not the host.  The last line is
@@ -893,6 +907,118 @@ def phase_backward_kernel() -> dict:
         "library_ms_train_shapes": train_library_ms,
         "host_us_per_call": min(host_us),
         "library_host_us_per_call": min(library_host_us),
+    }
+
+
+def _ulps_apart(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest distance between two bf16 tensors in bf16 units in the
+    last place of the larger magnitude, magnitudes under 2^-12 of want's
+    largest counted at that floor: there the fp32 affine's own rounding
+    (~1e-7 of the terms ``x * a`` and ``b`` that cancel to a value near 0)
+    is finer than a bf16 ulp of the value."""
+    g, w = got.float(), want.float()
+    floor = w.abs().max() * 2.0**-12
+    mag = torch.maximum(torch.maximum(g.abs(), w.abs()), floor)
+    return ((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+def phase_group_norm() -> dict:
+    import torch.nn.functional as F
+
+    from aa_rmvsnet_tpu_torch.ops import group_norm as gn_ops
+    from aa_rmvsnet_tpu_torch.utils.device import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    # (shape, groups): the regularizer's deconv_1 and deconv_0 GroupNorms
+    # of every depth step and FeatNet's widest (conv0, the deformable
+    # convolutions) at the main path's shapes, timed in bf16; an odd plane
+    # and a tensor off the 16-byte grid take the scalar path.
+    cases = [((1, 16, MAIN_H, MAIN_W), 2), ((1, 16, MAIN_H // 2, MAIN_W // 2), 2),
+             ((MAIN_V, 32, MAIN_H, MAIN_W), 4), ((2, 12, 7, 9), 3), ((2, 16, 9, 16), 2)]
+    timed = 3
+    flush = torch.empty(2**28, device="cuda")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    times = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for k, (shape, groups) in enumerate(cases):
+                C = shape[1]
+                x = (0.5 + 2 * torch.randn(shape, device="cuda", generator=gen)).to(dtype)
+                if k == len(cases) - 1:
+                    x = _at_storage_offset(x)
+                weight = (1 + 0.1 * torch.randn(C, device="cuda", generator=gen)).to(dtype)
+                bias = (0.1 * torch.randn(C, device="cuda", generator=gen)).to(dtype)
+                args = (x, groups, weight, bias, 1e-5)
+                for relu in (False, True):
+                    before = gn_ops.launches
+                    got = gn_ops.group_norm(*args, relu=relu)
+                    torch.cuda.synchronize()
+                    if gn_ops.launches != before + 1:
+                        _fail("group_norm: a call did not count one launch")
+                    want = gn_ops.group_norm_reference(*args, relu=relu)
+                    if dtype == torch.float32:
+                        err = ((got - want).abs().max() / want.abs().max()).item()
+                        ok = err <= 1e-5
+                    else:
+                        err = _ulps_apart(got, want)
+                        ok = err <= 1
+                    worst[dtype] = max(worst[dtype], err)
+                    if not ok:
+                        i = (got.float() - want.float()).abs().argmax()
+                        _fail(f"group_norm disagrees with its plain version at {shape} "
+                              f"{dtype}, relu {relu}: {err} (worst at flat index {i.item()}: "
+                              f"{got.flatten()[i].item()} against {want.flatten()[i].item()})")
+                if dtype != torch.bfloat16 or k >= timed:
+                    continue
+
+                def kernel():
+                    gn_ops.group_norm(*args, relu=True)
+
+                def plain():
+                    gn_ops.group_norm_reference(*args, relu=True)
+
+                def library():
+                    torch.relu(F.group_norm(x, groups, weight, bias, 1e-5))
+
+                row = dict(shape=shape, groups=groups,
+                           ms=_cuda_time_ms(kernel, reps=200),
+                           cold_ms=device_ms(kernel, flush),
+                           plain_ms=_cuda_time_ms(plain, reps=20),
+                           library_ms=_cuda_time_ms(library, reps=50),
+                           ms_again=_cuda_time_ms(kernel, reps=200),
+                           bound_ms=3 * x.numel() * x.element_size()
+                           / memory_bytes_per_s() * 1e3)
+                times.append(row)
+                print(f"group_norm: bf16 {shape}, {groups} groups, + ReLU: kernel pair "
+                      f"{row['ms'] * 1e3:.2f} us (again {row['ms_again'] * 1e3:.2f}; inputs "
+                      f"cold in device memory {row['cold_ms'] * 1e3:.2f}), three-pass byte "
+                      f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_ms'] / row['ms']:.0%} "
+                      f"of it), plain {row['plain_ms'] * 1e3:.1f} us, library "
+                      f"F.group_norm + relu {row['library_ms'] * 1e3:.1f} us", flush=True)
+        small = (torch.randn(1, 16, TRAIN_H // 2, TRAIN_W // 2, device="cuda")
+                 .to(torch.bfloat16))
+        sw = torch.ones(16, device="cuda", dtype=torch.bfloat16)
+        sb = torch.zeros_like(sw)
+        host_us = _host_us(lambda: gn_ops.group_norm(small, 2, sw, sb, 1e-5, relu=True))
+        library_host_us = _host_us(lambda: torch.relu(F.group_norm(small, 2, sw, sb, 1e-5)))
+    del flush
+    print(f"group_norm: kernel pair against the plain version with and without the ReLU "
+          f"at {[c[0] for c in cases]}: fp32 worst relative error "
+          f"{worst[torch.float32]:.2e} (bar 1e-5), bf16 worst {worst[torch.bfloat16]:.3f} ulp "
+          f"(bar 1; under 2^-12 of the largest value, the ulp at that floor); host cost per "
+          f"call at {tuple(small.shape)}: wrapper {host_us:.2f} us, library "
+          f"{library_host_us:.2f} us", flush=True)
+    return {
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "aa_rmvsnet_tpu_torch/csrc/group_norm.cu",
+        "replaces": None,
+        "launches": None,
+        "max_rel_err": worst[torch.float32],
+        "max_ulp_bf16": worst[torch.bfloat16],
+        "bf16_shapes": times,
+        "host_us_per_call": host_us,
+        "library_host_us_per_call": library_host_us,
     }
 
 
@@ -1627,6 +1753,7 @@ def _main_scene():
 
 def phase_main(samples) -> tuple[int, np.ndarray, dict]:
     from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.ops import group_norm as gn_ops
     from aa_rmvsnet_tpu_torch.ops.homography import max_depth_step_displacement
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
     from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
@@ -1636,10 +1763,11 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
     model = seeded_model(SEED)
     with tempfile.TemporaryDirectory() as out_root:
         torch.cuda.reset_peak_memory_stats()
-        gates.launches = gates.backward_launches = 0
+        gates.launches = gates.backward_launches = gn_ops.launches = 0
         stats = run_inference(model, samples,
                               InferConfig(out_root=out_root, num_workers=2, device="cuda"))
         launches = gates.launches
+        gn_launches = gn_ops.launches
         backward = gates.backward_launches
         peak = torch.cuda.max_memory_allocated()
         expect = 5 * MAIN_D * MAIN_MAPS
@@ -1649,6 +1777,12 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
                   f"{expect} and 0")
         if stats["modes"] != [(True, 1, 4)] * MAIN_MAPS:
             _fail(f"main path took packed modes {stats['modes']}, not (True, 1, 4)")
+        # FeatNet's 11 GroupNorms a map (its views in one batch) and the
+        # regularizer's 2 a depth step; folded omega keeps its own.
+        gn_expect = (11 + 2 * MAIN_D) * MAIN_MAPS
+        if gn_launches != gn_expect:
+            _fail(f"main path launched the GroupNorm kernel pair {gn_launches} times, "
+                  f"not {gn_expect}")
         depth0 = _check_maps(out_root, MAIN_MAPS, MAIN_DEPTH_MIN,
                              MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * (MAIN_D - 1))
         maps = [_read_maps(out_root, ref) for ref in range(MAIN_MAPS)]
@@ -1660,10 +1794,12 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
           f"[{', '.join(f'{x:.4f}' for x in steps)}] px (8 hypotheses span "
           f"{7 * max(steps):.3f} px), gate host seconds [{gate_secs}], seconds per map "
           f"[{secs}], peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
-          f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16); PFMs finite, depth in the sweep, "
-          "confidence in (0, 1]", flush=True)
+          f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16), GroupNorm kernel pair launches "
+          f"{gn_launches} (= (11 + 2 x {MAIN_D}) x {MAIN_MAPS}); PFMs finite, depth in the "
+          "sweep, confidence in (0, 1]", flush=True)
     return launches, depth0, {"map_seconds": stats["map_seconds"], "peak": peak,
-                              "modes": stats["modes"], "maps": maps}
+                              "modes": stats["modes"], "maps": maps,
+                              "group_norm_launches": gn_launches}
 
 
 def _read_maps(out_root: str, ref: int) -> tuple:
@@ -3628,6 +3764,7 @@ def main() -> int:
     run("2", phase_build)
     forward = run("3", phase_kernel)
     backward = run("3b", phase_backward_kernel)
+    group_norm = run("3c", phase_group_norm)
     run("4", phase_small)
     run("4b", phase_train_small)
     run("4h", phase_train_levers_small)
@@ -3639,6 +3776,7 @@ def main() -> int:
     run("4i", phase_omega_chain)
     samples = run("scene", _main_scene)
     bf16_launches, packed_depth0, phase5 = run("5", phase_main, samples)
+    group_norm["launches"] = phase5["group_norm_launches"]
     run("5e", phase_feat_chunk, samples, phase5)
     fp32_launches, fp32_packed_launches = run("5b", phase_main_exact, samples, phase5)
     evidential_launches, evidential_backward, head_input = run("5c", phase_evidential, samples)
@@ -3699,7 +3837,7 @@ def main() -> int:
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
           flush=True)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [forward, backward, fusion]}), flush=True)
+    print(json.dumps({"kernels": [forward, backward, group_norm, fusion]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
