@@ -185,12 +185,24 @@ def resolve_packed_mode(sample: dict, config: InferConfig) -> tuple[bool, int, i
     count the 4x4 window goes first: its table takes 2.25x less memory.
     ``packed_rows=True`` forces the packed path, but the super-pack and
     6x6 levers stay gated: ungated, they silently lose taps."""
+    return _gated_packed_mode(sample, config)[0]
+
+
+def _gated_packed_mode(sample: dict, config: InferConfig) -> tuple[tuple[bool, int, int], int]:
+    """:func:`resolve_packed_mode`'s mode and the number of
+    :func:`pick_packed_rows` calls it took (each a host pass over every
+    pixel of every source view)."""
     H, W = sample["imgs"].shape[1:3]
     D = sample["depth_values"].shape[-1]
     block = pick_depth_block(D, config.depth_block)
+    calls = 0
 
     def gate(gp, taps):
-        return D % (block * gp) == 0 and pick_packed_rows(
+        nonlocal calls
+        if D % (block * gp):
+            return False
+        calls += 1
+        return pick_packed_rows(
             sample["proj_matrices"], sample["depth_values"], H, W, block * gp,
             margin=config.pack_margin, taps=taps,
         )
@@ -202,14 +214,14 @@ def resolve_packed_mode(sample: dict, config: InferConfig) -> tuple[bool, int, i
                 modes.append((gp, taps))
     if config.packed_rows != "auto":
         if not config.packed_rows:
-            return (False, 1, 4)
+            return (False, 1, 4), calls
         for gp, taps in modes:
             if (gp, taps) == (1, 4) or gate(gp, taps):
-                return (True, gp, taps)
+                return (True, gp, taps), calls
     for gp, taps in modes:
         if gate(gp, taps):
-            return (True, gp, taps)
-    return (False, 1, 4)
+            return (True, gp, taps), calls
+    return (False, 1, 4), calls
 
 
 def run_inference(
@@ -236,18 +248,20 @@ def run_inference(
     until the next map's inputs, as ``infer.output``'s.
 
     Returns ``{count, total_s, maps_per_s, map_seconds, modes,
-    gate_seconds, head_seconds, failures}``: per map its seconds, its
-    packed mode ``(packed, gather_pack, taps)``, the host seconds of its
-    gate and, with a head, the head's seconds (from the cost volume to its
-    maps on the host, synchronised).
+    gate_seconds, gate_calls, head_seconds, failures}``: per map its
+    seconds, its packed mode ``(packed, gather_pack, taps)``, the host
+    seconds of its gate and the :func:`pick_packed_rows` calls the gate
+    made (up to four under the super-pack and 6x6 levers), and, with a
+    head, the head's seconds (from the cost volume to its maps on the
+    host, synchronised).
 
     Under ``config.mesh`` every rank calls this with the whole dataset.
     With a data axis above 1 each data rank runs its shard
     (:func:`..parallel.mesh.shard_dataset`) and every rank returns the
     stats gathered over the data group: ``count`` summed, ``total_s`` the
     largest of the ranks' summed map seconds, ``map_seconds``, ``modes``,
-    ``gate_seconds`` and ``head_seconds`` one list per data rank, and the
-    failures of all.  View ranks above 0 compute as replicas and write
+    ``gate_seconds``, ``gate_calls`` and ``head_seconds`` one list per data
+    rank, and the failures of all.  View ranks above 0 compute as replicas and write
     nothing (the JAX package replicates over its view axis in inference:
     the sweep sees :func:`..parallel.mesh.views_as_replicas` of the mesh).
     With a spatial axis above 1 each rank sweeps its slab of rows of every
@@ -297,6 +311,7 @@ def run_inference(
     map_seconds: list[float] = []
     modes: list[tuple[bool, int, int]] = []
     gate_seconds: list[float] = []
+    gate_calls: list[int] = []
     head_seconds: list[float] = []
     failures: list[str] = []
     sweep_configs: dict[tuple[bool, int, int], SweepConfig] = {}  # one per packed mode
@@ -322,8 +337,9 @@ def run_inference(
                 # range, so the gate's idle gap bears its name.
                 imgs = imgs.to(device)
                 t0 = time.perf_counter()
-                mode = resolve_packed_mode(sample, config)
+                mode, calls = _gated_packed_mode(sample, config)
                 gate_seconds.append(time.perf_counter() - t0)
+                gate_calls.append(calls)
             if mode not in sweep_configs:
                 sweep_configs[mode] = sweep_config(config, mode, rows_mesh)
 
@@ -385,7 +401,7 @@ def run_inference(
         print(f"{who}run_inference: {len(failures)} sample(s) skipped due to load failures")
     stats = {"count": len(map_seconds), "total_s": sum(map_seconds),
              "map_seconds": map_seconds, "modes": modes, "gate_seconds": gate_seconds,
-             "head_seconds": head_seconds, "failures": failures}
+             "gate_calls": gate_calls, "head_seconds": head_seconds, "failures": failures}
     if rows_mesh is not None:
         every = [None] * mesh.world_size
         if not writes:  # a map counts where it is written
@@ -398,7 +414,8 @@ def run_inference(
         stats = {"count": sum(s["count"] for s in every),
                  "total_s": max(s["total_s"] for s in every),
                  **{k: [s[k] for s in every]
-                    for k in ("map_seconds", "modes", "gate_seconds", "head_seconds")},
+                    for k in ("map_seconds", "modes", "gate_seconds", "gate_calls",
+                              "head_seconds")},
                  "failures": [f for s in every for f in s["failures"]]}
     stats["maps_per_s"] = stats["count"] / max(stats["total_s"], 1e-9)
     return stats

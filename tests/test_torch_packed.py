@@ -33,6 +33,7 @@ from aa_rmvsnet_tpu_torch.models import (
 )
 from aa_rmvsnet_tpu_torch.models.aggregation import omega_folded
 from aa_rmvsnet_tpu_torch.models.network import cast_model
+from aa_rmvsnet_tpu_torch.ops import homography
 from aa_rmvsnet_tpu_torch.ops.homography import max_depth_step_displacement
 from aa_rmvsnet_tpu_torch.ops.patch_sample import (
     build_patch_table,
@@ -209,6 +210,17 @@ def test_span_bound_and_gate_match_jax(name):
         for taps in (4, 6):
             assert pick_packed_rows(proj, depths, 32, 40, block, taps=taps) == \
                 network_j.pick_packed_rows(proj, depths, 32, 40, block, taps=taps)
+
+
+@pytest.mark.parametrize("name", ["plane", "behind_a_camera"])
+@pytest.mark.parametrize("size", [(200, 100), (3, 20000)], ids=["two_runs", "row_a_run"])
+def test_span_bound_in_runs_of_rows_matches_jax(name, size):
+    """Maps of more than one run of rows (the last one short, or one row
+    wider than a run) give the JAX package's whole-map bound to the bit."""
+    proj, depths = _gate_case(name)
+    args = (proj[1:], proj[0], depths, *size)
+    assert size[0] * size[1] > homography._GATE_PIXELS
+    assert max_depth_step_displacement(*args) == homography_j.max_depth_step_displacement(*args)
 
 
 # (d) ------------------------------------------------------------------------

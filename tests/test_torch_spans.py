@@ -4,8 +4,10 @@ Under ``torch.profiler`` a toy ``run_inference`` with a head (32x40, V=3,
 D=16, bf16 packed defaults) records every range of the eval path as a host
 ``user_annotation``, read as ``benchmark/trace.py`` reads a trace, and
 every range that a per-layer metric reads begins and ends with work of
-its own; a toy training step records ``train.*``, and two lever sweeps
-every ``quant.*``.  With no profiler running ``span`` enters no
+its own, as on a toy map on the unpacked warp with 7 views (the
+``tnt_intermediate_1920`` cell's path); ``run_inference`` counts its
+gate's ``pick_packed_rows`` calls a map; a toy training step records
+``train.*``, and two lever sweeps every ``quant.*``.  With no profiler running ``span`` enters no
 ``record_function``, and the maps are the same either way;
 ``torch.compile`` traces through it, and the port loads no compiler stack
 for it.
@@ -54,6 +56,9 @@ METRIC_RANGES = (
     "evidential.volumes", "evidential.dres", "evidential.hourglass_up", "evidential.hourglass",
     "evidential.classify", "head.deconv",
 )
+#: The ranges of the sweep whose device span a per-layer metric reads.
+SWEEP_METRIC_RANGES = ("sweep.cost_block", "sweep.regularize", "sweep.warp", "sweep.omega",
+                       "groupnorm")
 #: Host operators that run no work of their own: views, allocations, and
 #: casts or copies that return their input (they then have no children).
 NO_WORK = {
@@ -181,6 +186,15 @@ def test_no_record_function_without_a_profiler(toy_runs):
     assert spans.span("groupnorm") is spans.span("sweep.warp")
 
 
+def _assert_own_ends(calls, name):
+    calls = [call for call in calls if call["name"] == name]
+    assert calls
+    for call in calls:
+        work = list(_owned_work(call, name))
+        assert work, name
+        assert work[0][1] == name and work[-1][1] == name, (work[0], work[-1])
+
+
 @pytest.mark.parametrize("name", METRIC_RANGES)
 def test_metric_ranges_begin_and_end_with_their_own_work(toy_runs, name):
     """Kineto gives a kernel to the innermost range open at its launch
@@ -190,12 +204,45 @@ def test_metric_ranges_begin_and_end_with_their_own_work(toy_runs, name):
     ``sweep.warp``, ``sweep.omega``, ``head.deconv``) sits in between:
     were a nested range to take the first or the last kernel, the outer
     span would shrink and read as a gain."""
-    calls = [call for call in toy_runs["on"]["calls"] if call["name"] == name]
-    assert calls
-    for call in calls:
-        work = list(_owned_work(call, name))
-        assert work, name
-        assert work[0][1] == name and work[-1][1] == name, (work[0], work[-1])
+    _assert_own_ends(toy_runs["on"]["calls"], name)
+
+
+@pytest.fixture(scope="module")
+def unpacked_run(tmp_path_factory):
+    """One profiled toy map on the unpacked bf16 warp with 7 views (the
+    fused residual off, as ``run_inference`` runs a map whose gate fails)."""
+    samples = plane_scene(H, W, 7, D, maps=1, **SCENE)
+    config = InferConfig(out_root=str(tmp_path_factory.mktemp("unpacked")), num_workers=0,
+                         device="cpu", packed_rows=False)
+    out = {}
+
+    def run():
+        out["stats"] = run_inference(seeded_model(0), samples, config, progress=False)
+
+    _, out["calls"] = _profiled(run, SWEEP_METRIC_RANGES)
+    return out
+
+
+@pytest.mark.parametrize("name", SWEEP_METRIC_RANGES)
+def test_unpacked_metric_ranges_begin_and_end_with_their_own_work(unpacked_run, name):
+    """The rule above on the unpacked warp's cost block (a 2x2 gather and
+    omega on each hypothesis apart, six source views)."""
+    assert [tuple(m) for m in unpacked_run["stats"]["modes"]] == [(False, 1, 4)]
+    _assert_own_ends(unpacked_run["calls"], name)
+
+
+def test_gate_calls_count_each_maps_gate_passes(toy_runs, tmp_path):
+    """One ``pick_packed_rows`` call a map where the 4x4 gate passes at one
+    block (the defaults); under the super-pack and 6x6 levers, on cameras
+    140 units apart, the end reference tries (2, 4), (2, 6), (1, 4) and
+    passes at (1, 6), the middle one passes at (2, 6)."""
+    assert toy_runs["on"]["gate_calls"] == [1] and toy_runs["off"]["gate_calls"] == [1]
+    samples = plane_scene(H, W, V, D, maps=2, **dict(SCENE, baseline=140.0))
+    config = InferConfig(out_root=str(tmp_path), num_workers=0, device="cpu",
+                         gather_pack=2, table_taps=6)
+    stats = run_inference(seeded_model(0), samples, config, progress=False)
+    assert [tuple(m) for m in stats["modes"]] == [(True, 1, 6), (True, 2, 6)]
+    assert stats["gate_calls"] == [4, 2]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
