@@ -21,7 +21,10 @@ time while it runs.
 Four cost-block builders, chosen by ``SweepConfig`` as in the JAX package:
 
 - ``_build_cost_block``: a 2x2 row per (view, hypothesis, pixel), omega on
-  an ``(B*Db, 32, H, W)`` batch (or, ``fold_omega="hybrid"``, folded);
+  an ``(B*Db, 32, H, W)`` batch (or, ``fold_omega="hybrid"``, folded); at
+  inference on the card the 2x2 warp and the squared residual are one
+  kernel that reads the features themselves (``ops/warp.py``,
+  :func:`_takes_warp_kernel`);
 - ``_build_cost_block_folded`` (``fold_omega=True``): the same gather in
   pixel-major order, so the warped volume is already depth-folded;
 - ``_build_cost_block_packed`` (``packed_rows``): one 4x4 (or 6x6) row per
@@ -96,6 +99,7 @@ from ..ops.patch_sample import (
     quantize_residual,
     true_div,
 )
+from ..ops.warp import warp_residual
 from ..utils.spans import span
 
 
@@ -309,6 +313,7 @@ def _build_cost_block(
     depth_block: torch.Tensor,
     table_scales: list,
     hybrid_omega: bool = False,
+    direct: bool = False,
     mesh=None,
 ) -> torch.Tensor:
     """Warp + squared residual + omega reweight + view mean for one block.
@@ -316,13 +321,17 @@ def _build_cost_block(
     Args:
       ref_feat: ``(B, H, W, C)`` (a spatial rank's slab of rows).
       src_tables: per source view, a ``(B, Hs*W, 4C)`` 2x2 patch table of
-        the whole map (``Hs = H`` but on a slab).
+        the whole map (``Hs = H`` but on a slab); with ``direct`` the
+        view's ``(B, H, W, C)`` features.
       rot_grids: per source view ``(B, 3, H*W)``; transes: ``(B, 3, 1)``.
       depth_block: ``(B, Db)``.
       table_scales: per source view the ``(B, 1, 4C)`` dequantization
         factors of a quantized table, or ``None``.
       hybrid_omega: omega in its folded form on a transposed copy of the
         residual (:func:`..models.aggregation.omega_folded`).
+      direct: the squared residual straight from the features
+        (:func:`..ops.warp.warp_residual`, chosen by
+        :func:`_takes_warp_kernel`), the same values in the same layout.
       mesh: the spatial mesh of a slab (:func:`spatial_mesh`), else None.
 
     Returns:
@@ -335,12 +344,16 @@ def _build_cost_block(
     def terms():
         for table, scale, rot_grid, trans in zip(src_tables, table_scales, rot_grids, transes):
             x, y = plane_sweep_xy(rot_grid, trans, depth_block)  # (B, Db, H*W)
-            with span("sweep.warp"):
-                warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1),
-                                               table.shape[1] // W, W, scale=scale,
-                                               compute_dtype=ref_feat.dtype)
-            warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
-            residual_sq = (warped - ref) ** 2  # (B, Db, C, H, W)
+            if direct:
+                with span("sweep.warp"):
+                    residual_sq = warp_residual(table, x, y, ref_feat).permute(0, 1, 4, 2, 3)
+            else:
+                with span("sweep.warp"):
+                    warped = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1),
+                                                   table.shape[1] // W, W, scale=scale,
+                                                   compute_dtype=ref_feat.dtype)
+                warped = warped.view(B, Db, H, W, C).permute(0, 1, 4, 2, 3)
+                residual_sq = (warped - ref) ** 2  # (B, Db, C, H, W)
             if hybrid_omega:
                 flat = residual_sq.permute(0, 3, 4, 1, 2).reshape(B, H, W, Db * C)
                 weights = omega_folded(model.omega, flat, Db, mesh=mesh).permute(0, 3, 1, 2)
@@ -565,6 +578,22 @@ def view_shard(mesh, num_views: int) -> range | None:
     return range(first, first + per)
 
 
+def _takes_warp_kernel(features: torch.Tensor, config: SweepConfig) -> bool:
+    """Whether the sweep warps through ``ops/warp.py``'s kernel, which
+    reads each source view's features and emits the squared residual
+    (so no 2x2 tables are built): the unpacked cost block
+    (:func:`_build_cost_block` without ``hybrid`` omega) on CUDA features
+    in fp32 or bf16, with exact tables, no mesh, no autograd graph
+    recorded (the kernel has no backward; training and its remat
+    recompute keep the tables), and not inside ``torch.compile`` or
+    ``torch.export`` (whose graphs keep the aten ops)."""
+    return (features.is_cuda and not torch.is_grad_enabled() and config.mesh is None
+            and config.table_dtype is None and not config.packed_rows
+            and not config.fold_omega
+            and config.feature_dtype in (torch.float32, torch.bfloat16)
+            and not torch.compiler.is_compiling())
+
+
 def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: torch.Tensor,
                  depth_values: torch.Tensor, states, config: SweepConfig) -> tuple:
     """The sweep of the hypotheses ``depth_values`` from the ConvLSTM
@@ -629,6 +658,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     else:
         raise ValueError(f"sweep: {features.shape[0]} feature views for {V} cameras")
 
+    direct = _takes_warp_kernel(features, config)
     with span("sweep.setup"):
         features = features.to(dtype)
         ref_feat = features[0]  # (B, H, W, C)
@@ -636,7 +666,10 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
         # rank builds the tables (and their scales) of the whole map.
         sources = [gather_rows(features[i], rows_mesh, dim=1) for i in src_index]
         taps = config.table_taps if config.packed_rows else 2
-        if table_dtype is None:
+        if direct:  # the kernel reads the features themselves
+            src_tables = sources
+            table_scales = [None] * len(src_index)
+        elif table_dtype is None:
             src_tables = [build_patch_table_packed(f, taps) for f in sources]
             table_scales = [None] * len(src_index)
         else:
@@ -675,7 +708,7 @@ def _sweep_chunk(model: AARMVSNetCore, features: torch.Tensor, proj_matrices: to
     elif config.fold_omega:
         build = functools.partial(_build_cost_block_folded, **levers)
     else:
-        build = _build_cost_block
+        build = functools.partial(_build_cost_block, direct=direct)
     build = functools.partial(build, mesh=rows_mesh)
 
     def cost_blocks(dsuper):

@@ -42,6 +42,17 @@ Phases, each printing a line; any failure exits non-zero:
    memory) beside its three-pass byte bound (read, read, write), the plain
    version's time and ``F.group_norm`` + ``relu``'s (``library_ms``); the
    host's cost per call of the wrapper and of the library call;
+3d. the unpacked warp kernel vs plain (``ops/warp.py``): one source
+   view's depth block of a Tanks and Temples map, 1x4x1056x1920 with 32
+   channels, the farthest both-ends source's coordinates (samples outside
+   the image), in bf16 (bit for bit) and fp32 (within one ulp) against the
+   plain version and against aten's composition it replaces (the 2x2
+   table's gather and blend, then the squared residual), one launch
+   counted a call; the kernel's time (inputs in L2 from the run before,
+   and cold in device memory) beside its byte bound (each input read once,
+   the residual written once), the plain version's time, the
+   composition's (``library_ms``) and the 2x2 table's build; the host's
+   cost per call;
 4. CUDA vs CPU: the whole ``forward`` at 64x80, V=3, D=48 on both devices
    (depth equal on >= 99.9 % of pixels, confidence atol 1e-4);
 4b. CUDA vs CPU training gradients: one remat training forward and
@@ -329,7 +340,10 @@ depth step, and the gate kernels' ``*_bf16`` keys the same in bf16;
 ``op_host_us_per_call`` that of the registered custom op, which only a
 traced program calls).  The GroupNorm entry's ``launches`` is phase 5's
 count (training never launches it), and ``bf16_shapes`` holds phase 3c's
-times a call in ms at each timed shape.  Device times
+times a call in ms at each timed shape.  The warp entry's ``launches`` is
+that of phase 5e's unpacked ``tnt_intermediate_1920`` map at D=512
+((V - 1) x D / 4; phases 5 and 6 and 5e's packed map assert none), and
+``shapes`` holds phase 3d's times in ms and its disagreements.  Device times
 come from CUDA events around runs queued behind a sleep on the device
 (``dtu_eval`` shapes) or a 1 GiB write (``dtu_train`` shapes), so that they
 time the device and not the host.  The last line is
@@ -1019,6 +1033,124 @@ def phase_group_norm() -> dict:
         "bf16_shapes": times,
         "host_us_per_call": host_us,
         "library_host_us_per_call": library_host_us,
+    }
+
+
+def _tnt_warp_block(dtype, gen):
+    """One source view's depth block of a Tanks and Temples map at 1056x1920
+    on the card: its features, the farthest both-ends source's coordinates
+    for 4 hypotheses in bounded inverse depth (a camera 5 x 50 units from
+    the reference at T&T's focal of 1165 px: the border columns sample
+    outside the image), and the reference features."""
+    from aa_rmvsnet_tpu_torch.ops.homography import homography_terms, plane_sweep_xy
+
+    K = np.array([[1165.0, 0, TNT_W / 2.0], [0, 1165.0, TNT_H / 2.0], [0, 0, 1]])
+    projs = []
+    for shift in ([0.0], [0.0], [0.0]), ([-250.0], [3.0], [0.0]):
+        P = np.eye(4)
+        P[:3, :4] = K @ np.hstack([np.eye(3), shift])
+        projs.append(torch.tensor(P[None], dtype=torch.float32, device="cuda"))
+    inverse = np.linspace(1 / 500.0, 1 / 2000.0, 512)[200:204]
+    depths = torch.tensor(1.0 / inverse, dtype=torch.float32, device="cuda")[None]
+    x, y = plane_sweep_xy(*homography_terms(projs[1], projs[0], TNT_H, TNT_W), depths)
+    src, ref = ((2 * torch.randn(1, TNT_H, TNT_W, 32, device="cuda", generator=gen)).to(dtype)
+                for _ in range(2))
+    return src, x.contiguous(), y.contiguous(), ref
+
+
+def _fp32_ulps_apart(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest distance between two fp32 tensors in units of the last
+    place of the larger magnitude."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-149)
+    return ((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 23)).max().item()
+
+
+def phase_warp_kernel() -> dict:
+    from aa_rmvsnet_tpu_torch.ops import warp
+    from aa_rmvsnet_tpu_torch.ops.patch_sample import build_patch_table, patch_bilinear_sample
+    from aa_rmvsnet_tpu_torch.utils.device import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    flush = torch.empty(2**28, device="cuda")
+    rows = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            src, x, y, ref = _tnt_warp_block(dtype, gen)
+            B, Db, P = x.shape
+            table = build_patch_table(src)
+
+            def composition():
+                w = patch_bilinear_sample(table, x.reshape(B, -1), y.reshape(B, -1), TNT_H,
+                                          TNT_W, compute_dtype=dtype)
+                w = w.view(B, Db, TNT_H, TNT_W, -1).permute(0, 1, 4, 2, 3)
+                return (w - ref.permute(0, 3, 1, 2)[:, None]) ** 2
+
+            def kernel():
+                return warp.warp_residual(src, x, y, ref)
+
+            def plain():
+                return warp.warp_residual_reference(src, x, y, ref)
+
+            before = warp.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if warp.launches != before + 1:
+                _fail("warp_residual: a call did not count one launch")
+            outside = ((x < 0) | (x > TNT_W - 1)).float().mean().item()
+            for name, want in (("plain", plain()),
+                               ("composition", composition().permute(0, 1, 3, 4, 2))):
+                if dtype == torch.bfloat16:
+                    err = (got.view(torch.int16) != want.contiguous().view(torch.int16)
+                           ).sum().item()
+                    ok = err == 0
+                else:
+                    err = _fp32_ulps_apart(got, want)
+                    ok = err <= 1
+                rows[f"{name}_err_{str(dtype)[6:]}"] = err
+                if not ok:
+                    _fail(f"warp_residual disagrees with the {name} at the T&T block in "
+                          f"{dtype}: {err} ({'values apart' if dtype == torch.bfloat16 else 'ulp'})")
+            del got
+            size = torch.tensor([], dtype=dtype).element_size()
+            # Each input read once, the residual written once.
+            moved = (B * Db * P * 32 * size + x.numel() * 8 + src.numel() * size
+                     + ref.numel() * size)
+            row = dict(shape=(B, Db, TNT_H, TNT_W, 32),
+                       ms=_cuda_time_ms(kernel, reps=50),
+                       cold_ms=device_ms(kernel, flush),
+                       plain_ms=_cuda_time_ms(plain, reps=5),
+                       library_ms=_cuda_time_ms(composition, reps=10),
+                       table_ms=_cuda_time_ms(lambda: build_patch_table(src), reps=10),
+                       ms_again=_cuda_time_ms(kernel, reps=50),
+                       bound_ms=moved / memory_bytes_per_s() * 1e3)
+            rows[str(dtype)[6:]] = row
+            print(f"warp: {str(dtype)[6:]} at 1x{Db}x{TNT_H}x{TNT_W}, 32 channels (a far "
+                  f"source, {outside:.2%} of samples outside the image): kernel "
+                  f"{row['ms'] * 1e3:.1f} us (again {row['ms_again'] * 1e3:.1f}; inputs cold "
+                  f"in device memory {row['cold_ms'] * 1e3:.1f}), byte bound "
+                  f"{row['bound_ms'] * 1e3:.1f} us ({moved / 1e6:.1f} MB, "
+                  f"{row['bound_ms'] / row['ms']:.0%} of it), plain {row['plain_ms']:.3f} ms, "
+                  f"library (2x2 table gather, blend and residual) {row['library_ms']:.3f} ms "
+                  f"+ the table {row['table_ms']:.3f} ms a view and map; equal to the plain "
+                  f"version and to the composition "
+                  f"({'bit for bit' if dtype == torch.bfloat16 else 'within 1 ulp'})",
+                  flush=True)
+            del src, x, y, ref, table
+        src, x, y, ref = (t[..., :64 * TNT_W].contiguous() if t.dim() == 3 else t
+                          for t in _tnt_warp_block(torch.bfloat16, gen))
+        ref = ref[:, :64].contiguous()
+        host_us = _host_us(lambda: warp.warp_residual(src, x, y, ref))
+    del flush
+    print(f"warp: host cost per call at 1x4x64x{TNT_W}: wrapper {host_us:.2f} us", flush=True)
+    return {
+        "name": "warp_residual",
+        "route": "cuda",
+        "source": "aa_rmvsnet_tpu_torch/csrc/warp_residual.cu",
+        "replaces": None,
+        "launches": None,
+        "shapes": rows,
+        "host_us_per_call": host_us,
     }
 
 
@@ -1723,16 +1855,17 @@ def phase_omega_chain() -> None:
                 _fail(f"the {name} with the int8 omega chain fails the guardrail")
 
 
-def _check_maps(out_root: str, maps: int, depth_min: float, depth_max: float) -> np.ndarray:
-    """The PFMs of ``maps`` maps: shapes, finite values, depth in the sweep,
-    confidence in (0, 1].  Returns map 0's depth."""
+def _check_maps(out_root: str, maps: int, depth_min: float, depth_max: float,
+                shape: tuple = (MAIN_H, MAIN_W)) -> np.ndarray:
+    """The PFMs of ``maps`` maps: shapes (``shape``), finite values, depth in
+    the sweep, confidence in (0, 1].  Returns map 0's depth."""
     from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
 
     first = None
     for ref in range(maps):
         depth, _ = read_pfm(os.path.join(out_root, "scan1", "depth_est_0", f"{ref:08d}.pfm"))
         conf, _ = read_pfm(os.path.join(out_root, "scan1", "confidence_0", f"{ref:08d}.pfm"))
-        if depth.shape != (MAIN_H, MAIN_W) or conf.shape != (MAIN_H, MAIN_W):
+        if depth.shape != shape or conf.shape != shape:
             _fail(f"map {ref}: shapes {depth.shape} / {conf.shape}")
         if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
             _fail(f"map {ref}: non-finite values")
@@ -1752,7 +1885,7 @@ def _main_scene():
 
 
 def phase_main(samples) -> tuple[int, np.ndarray, dict]:
-    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.ops import gates, warp
     from aa_rmvsnet_tpu_torch.ops import group_norm as gn_ops
     from aa_rmvsnet_tpu_torch.ops.homography import max_depth_step_displacement
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
@@ -1763,11 +1896,14 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
     model = seeded_model(SEED)
     with tempfile.TemporaryDirectory() as out_root:
         torch.cuda.reset_peak_memory_stats()
-        gates.launches = gates.backward_launches = gn_ops.launches = 0
+        gates.launches = gates.backward_launches = gn_ops.launches = warp.launches = 0
         stats = run_inference(model, samples,
                               InferConfig(out_root=out_root, num_workers=2, device="cuda"))
         launches = gates.launches
         gn_launches = gn_ops.launches
+        if warp.launches:
+            _fail(f"the packed main path launched the unpacked warp kernel {warp.launches} "
+                  "times")
         backward = gates.backward_launches
         peak = torch.cuda.max_memory_allocated()
         expect = 5 * MAIN_D * MAIN_MAPS
@@ -1795,8 +1931,8 @@ def phase_main(samples) -> tuple[int, np.ndarray, dict]:
           f"{7 * max(steps):.3f} px), gate host seconds [{gate_secs}], seconds per map "
           f"[{secs}], peak memory {peak / 2**30:.2f} GiB, gate kernel launches {launches} "
           f"(= 5 x {MAIN_D} x {MAIN_MAPS}, bf16), GroupNorm kernel pair launches "
-          f"{gn_launches} (= (11 + 2 x {MAIN_D}) x {MAIN_MAPS}); PFMs finite, depth in the "
-          "sweep, confidence in (0, 1]", flush=True)
+          f"{gn_launches} (= (11 + 2 x {MAIN_D}) x {MAIN_MAPS}), unpacked warp kernel "
+          f"launches 0; PFMs finite, depth in the sweep, confidence in (0, 1]", flush=True)
     return launches, depth0, {"map_seconds": stats["map_seconds"], "peak": peak,
                               "modes": stats["modes"], "maps": maps,
                               "group_norm_launches": gn_launches}
@@ -2097,7 +2233,7 @@ def _dtu_train_sample():
 
 def phase_train() -> dict:
     from aa_rmvsnet_tpu_torch.models import AARMVSNetCore
-    from aa_rmvsnet_tpu_torch.ops import gates
+    from aa_rmvsnet_tpu_torch.ops import gates, warp
     from aa_rmvsnet_tpu_torch.pipeline.checkpoint import restore_latest
     from aa_rmvsnet_tpu_torch.pipeline.train import TrainConfig, make_optimizer, run_training
     from aa_rmvsnet_tpu_torch.utils.synthetic import seeded_model
@@ -2111,11 +2247,14 @@ def phase_train() -> dict:
             summary_freq=TRAIN_STEPS, logdir=logdir, device="cuda",
         )
         torch.cuda.reset_peak_memory_stats()
-        gates.launches = gates.backward_launches = 0
+        gates.launches = gates.backward_launches = warp.launches = 0
         stats = run_training(model, dataset, config)
         launches, backward = gates.launches, gates.backward_launches
         peak = torch.cuda.max_memory_allocated()
         losses = stats["losses"]
+        if warp.launches:
+            _fail(f"the training main path launched the unpacked warp kernel {warp.launches} "
+                  "times")
         expect = (2 * 5 * TRAIN_D * TRAIN_STEPS, 5 * TRAIN_D * TRAIN_STEPS)
         if stats["step"] != TRAIN_STEPS or (launches, backward) != expect:
             _fail(f"training main path ran {stats['step']} steps with {launches} forward "
@@ -2145,7 +2284,8 @@ def phase_train() -> dict:
           f"seconds per step [{secs}], peak memory {peak / 2**30:.2f} GiB, losses "
           f"[{', '.join(f'{x:.4f}' for x in losses)}], gate kernel launches forward "
           f"{launches} (= 2 x 5 x {TRAIN_D} x {TRAIN_STEPS}), backward {backward} "
-          f"(= 5 x {TRAIN_D} x {TRAIN_STEPS}); checkpoint of step {restored} restored "
+          f"(= 5 x {TRAIN_D} x {TRAIN_STEPS}), unpacked warp kernel 0; checkpoint of step "
+          f"{restored} restored "
           f"bit for bit, resumed step {resumed['step']} loss "
           f"{resumed['losses'][0]:.4f}", flush=True)
     return {"launches": launches, "backward": backward, "step_seconds": stats["step_seconds"],
@@ -3341,9 +3481,12 @@ def phase_view_spatial() -> int:
 
 def phase_feat_chunk(samples, phase5: dict) -> None:
     """5e: FeatNet with all views in one batch (chunk 0, the default)
-    against one view at a time (chunk 1), and the automatic depth block's
-    estimate against the measured peaks."""
+    against one view at a time (chunk 1), the automatic depth block's
+    estimate against the measured peaks, and a whole unpacked
+    ``tnt_intermediate_1920`` map through the warp kernel.  Returns that
+    map's warp kernel launches."""
     from aa_rmvsnet_tpu_torch.models.network import cast_model, extract_features
+    from aa_rmvsnet_tpu_torch.ops import warp
     from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
     from aa_rmvsnet_tpu_torch.utils.config import (
         derive_depth_block, featnet_memory_bytes, memory_budget, sweep_memory_bytes,
@@ -3398,11 +3541,13 @@ def phase_feat_chunk(samples, phase5: dict) -> None:
                       depth_interval=MAIN_DEPTH_INTERVAL)
     with tempfile.TemporaryDirectory() as out_root:
         torch.cuda.reset_peak_memory_stats()
+        warp.launches = 0
         stats = run_inference(seeded_model(SEED), tnt, InferConfig(
             out_root=out_root, depth_block=pick, num_workers=2, device="cuda"))
         peak = torch.cuda.max_memory_allocated()
-    if stats["modes"] != [(True, 1, 4)]:
-        _fail(f"the tnt_intermediate_1920 map took packed mode {stats['modes']}")
+    if stats["modes"] != [(True, 1, 4)] or warp.launches:
+        _fail(f"the tnt_intermediate_1920 map took packed mode {stats['modes']} with "
+              f"{warp.launches} unpacked warp kernel launches")
     rows.append(("tnt_intermediate_1920", TNT_H, TNT_W, TNT_V, TNT_D, pick,
                  sweep_memory_bytes(TNT_H, TNT_W, TNT_V, pick, TNT_D), peak,
                  stats["modes"][0]))
@@ -3416,7 +3561,32 @@ def phase_feat_chunk(samples, phase5: dict) -> None:
         if not ok:
             _fail(f"the depth-block estimate at {name} is off the measured peak")
     print(f"auto-block: the tnt_intermediate_1920 map ran in {stats['map_seconds'][0]:.3f} s "
-          f"(D={TNT_D}, cut from 512)", flush=True)
+          f"(D={TNT_D}, cut from 512), unpacked warp kernel launches 0", flush=True)
+
+    # The preset's whole sweep on the unpacked warp, as a map whose packed
+    # gate fails runs it: one kernel launch per source view and depth block.
+    tnt = plane_scene(TNT_H, TNT_W, TNT_V, 512, maps=1, seed=SEED + 13, focal=2000.0,
+                      baseline=2.0, plane_depth=600.0, depth_min=MAIN_DEPTH_MIN,
+                      depth_interval=MAIN_DEPTH_INTERVAL)
+    with tempfile.TemporaryDirectory() as out_root:
+        torch.cuda.reset_peak_memory_stats()
+        warp.launches = 0
+        stats = run_inference(seeded_model(SEED), tnt, InferConfig(
+            out_root=out_root, depth_block=4, packed_rows=False, num_workers=2,
+            device="cuda"))
+        peak = torch.cuda.max_memory_allocated()
+        launches = warp.launches
+        _check_maps(out_root, 1, MAIN_DEPTH_MIN, MAIN_DEPTH_MIN + MAIN_DEPTH_INTERVAL * 511,
+                    shape=(TNT_H, TNT_W))
+    expect = (TNT_V - 1) * 512 // 4
+    if stats["modes"] != [(False, 1, 4)] or launches != expect:
+        _fail(f"the unpacked tnt_intermediate_1920 map took mode {stats['modes']} with "
+              f"{launches} warp kernel launches; expected (False, 1, 4) and {expect}")
+    print(f"unpacked warp: a tnt_intermediate_1920 map at D=512, depth block 4, mode "
+          f"{stats['modes'][0]}: {stats['map_seconds'][0]:.3f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB, warp kernel launches {launches} (= {TNT_V - 1} x 512 / 4); "
+          "PFMs finite, depth in the sweep", flush=True)
+    return launches
 
 
 def _fusion_equal(fusion, args, num_levels: int, what: str) -> tuple:
@@ -3765,6 +3935,7 @@ def main() -> int:
     forward = run("3", phase_kernel)
     backward = run("3b", phase_backward_kernel)
     group_norm = run("3c", phase_group_norm)
+    warp_kernel = run("3d", phase_warp_kernel)
     run("4", phase_small)
     run("4b", phase_train_small)
     run("4h", phase_train_levers_small)
@@ -3777,7 +3948,7 @@ def main() -> int:
     samples = run("scene", _main_scene)
     bf16_launches, packed_depth0, phase5 = run("5", phase_main, samples)
     group_norm["launches"] = phase5["group_norm_launches"]
-    run("5e", phase_feat_chunk, samples, phase5)
+    warp_kernel["launches"] = run("5e", phase_feat_chunk, samples, phase5)
     fp32_launches, fp32_packed_launches = run("5b", phase_main_exact, samples, phase5)
     evidential_launches, evidential_backward, head_input = run("5c", phase_evidential, samples)
     levers5d = run("5d", phase_main_levers, samples, packed_depth0, phase5)
@@ -3837,7 +4008,8 @@ def main() -> int:
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
           flush=True)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [forward, backward, group_norm, fusion]}), flush=True)
+    print(json.dumps({"kernels": [forward, backward, group_norm, warp_kernel, fusion]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

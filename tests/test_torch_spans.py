@@ -5,7 +5,8 @@ D=16, bf16 packed defaults) records every range of the eval path as a host
 ``user_annotation``, read as ``benchmark/trace.py`` reads a trace, and
 every range that a per-layer metric reads begins and ends with work of
 its own, as on a toy map on the unpacked warp with 7 views (the
-``tnt_intermediate_1920`` cell's path); ``run_inference`` counts its
+``tnt_intermediate_1920`` cell's path), through the 2x2 tables and through
+the warp kernel's path; ``run_inference`` counts its
 gate's ``pick_packed_rows`` calls a map; a toy training step records
 ``train.*``, and two lever sweeps every ``quant.*``.  With no profiler running ``span`` enters no
 ``record_function``, and the maps are the same either way;
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from aa_rmvsnet_tpu_torch.core.pfm import read_pfm
+from aa_rmvsnet_tpu_torch.models import network
 from aa_rmvsnet_tpu_torch.models.network import SweepConfig, forward
 from aa_rmvsnet_tpu_torch.pipeline.infer import InferConfig, run_inference
 from aa_rmvsnet_tpu_torch.pipeline.train import (
@@ -229,6 +231,34 @@ def test_unpacked_metric_ranges_begin_and_end_with_their_own_work(unpacked_run, 
     omega on each hypothesis apart, six source views)."""
     assert [tuple(m) for m in unpacked_run["stats"]["modes"]] == [(False, 1, 4)]
     _assert_own_ends(unpacked_run["calls"], name)
+
+
+@pytest.fixture(scope="module")
+def warp_kernel_run(tmp_path_factory):
+    """The unpacked toy map again on the warp kernel's path
+    (``ops/warp.py``, its plain version on the CPU), the rule that sends a
+    map there on the card forced."""
+    samples = plane_scene(H, W, 7, D, maps=1, **SCENE)
+    config = InferConfig(out_root=str(tmp_path_factory.mktemp("warp_kernel")), num_workers=0,
+                         device="cpu", packed_rows=False)
+    out = {}
+
+    def run():
+        out["stats"] = run_inference(seeded_model(0), samples, config, progress=False)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(network, "_takes_warp_kernel", lambda features, config: True)
+        _, out["calls"] = _profiled(run, SWEEP_METRIC_RANGES)
+    return out
+
+
+@pytest.mark.parametrize("name", SWEEP_METRIC_RANGES)
+def test_warp_kernel_metric_ranges_begin_and_end_with_their_own_work(warp_kernel_run, name):
+    """The rule above where one call emits each view's squared residual:
+    the cost block still opens with the coordinates and closes with the
+    view mean, outside ``sweep.warp``."""
+    assert [tuple(m) for m in warp_kernel_run["stats"]["modes"]] == [(False, 1, 4)]
+    _assert_own_ends(warp_kernel_run["calls"], name)
 
 
 def test_gate_calls_count_each_maps_gate_passes(toy_runs, tmp_path):
